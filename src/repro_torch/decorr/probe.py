@@ -1,0 +1,101 @@
+"""Inference-time decorrelation probes (port of ``repro/decorr/probe.py``,
+``local`` mode).
+
+``probe_metrics`` measures the representation health of a served batch with
+the training loss's semantics: the same normalization (standardize for
+BT-style, center for VICReg-style), the same feature permutation (the
+caller's indices), the same scale (n for BT, n - 1 for VICReg), routed
+through ``repro_torch.decorr.engine``.
+
+  * ``r_sum`` — the paper's O(n d log d) statistic; always computed.
+  * ``r_off`` — the exact off-diagonal mass, O(n d^2); computed only when
+    affordable (``include_off``; auto = d <= 4096).
+
+Serving has one embedding per request, so the default is the self-
+correlation probe ``z2 is z1``; pass a second view to probe cross-correlation.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.decorr import engine
+from repro_torch.decorr.config import DecorrConfig
+
+Tensor = torch.Tensor
+
+# r_off materializes d x d — beyond this width the probe drops it and relies
+# on the O(n d log d) r_sum statistic alone.
+OFF_DIAG_AUTO_LIMIT = 4096
+
+
+def probe_metrics(
+    z1: Tensor,
+    z2: Optional[Tensor] = None,
+    cfg: DecorrConfig = DecorrConfig(),
+    perm: Optional[Tensor] = None,
+    *,
+    include_off: Optional[bool] = None,
+    impl: Optional[str] = None,
+) -> Dict[str, Tensor]:
+    """Decorrelation health of a served batch, training-oracle-exact.
+
+    Returns a flat dict of f32 scalar tensors:
+
+      r_sum        engine-routed R_sum at the training normalizer
+      r_sum_norm   r_sum / (d - 1)  (comparable across widths)
+      r_off        exact off-diagonal penalty (present when affordable)
+      r_off_norm   Eq. (16)-style r_off / (d (d - 1))
+      mean_abs     mean_j |mu_j| of the raw embeddings
+      std_err      mean_j |sigma_j - 1| (unit-variance drift)
+      diag_err     mean_j |1 - C_jj| cross-view alignment (z2 given only)
+      n_eff        batch the statistics were taken over
+
+    ``impl`` overrides the regularizer route ("plain" on a CUDA tensor is
+    how the smoke checks the kernel route on the card).
+    """
+    cfg.validate()
+    engine.effective_mode(cfg)
+    same = z2 is None or z2 is z1
+    z1 = z1.float()
+    z2 = z1 if same else z2.float()
+    n, d = z1.shape
+
+    mean = torch.mean(z1, dim=0)
+    zc = z1 - mean
+    var = torch.sum(zc * zc, dim=0) / max(n - 1.0, 1.0)
+    out: Dict[str, Tensor] = {}
+
+    if cfg.style == "bt":
+        a = engine.standardize(z1, cfg)
+        b = a if same else engine.standardize(z2, cfg)
+        ddof = 0
+    else:
+        a = engine.center(z1, cfg)
+        b = a if same else engine.center(z2, cfg)
+        ddof = 1
+    scale = max(n - ddof, 1)
+
+    sum_cfg = cfg if cfg.reg == "sum" else dataclasses.replace(cfg, reg="sum")
+    out["r_sum"] = engine.regularizer(a, b, sum_cfg, scale, perm, impl=impl)
+    out["r_sum_norm"] = out["r_sum"] / max(d - 1, 1)
+    if include_off is None:
+        include_off = d <= OFF_DIAG_AUTO_LIMIT
+    if include_off:
+        off_cfg = dataclasses.replace(cfg, reg="off", use_kernel=False)
+        out["r_off"] = engine.regularizer(a, b, off_cfg, scale, perm)
+        out["r_off_norm"] = out["r_off"] / max(d * (d - 1), 1)
+
+    out["mean_abs"] = torch.mean(torch.abs(mean))
+    out["std_err"] = torch.mean(torch.abs(torch.sqrt(var + cfg.eps) - 1.0))
+    if not same:
+        if cfg.style == "bt":
+            cjj = torch.sum(a * b, dim=0) / n
+            out["diag_err"] = torch.mean(torch.abs(1.0 - cjj))
+        else:
+            out["diag_err"] = torch.sum((z1 - z2) ** 2) / (n * d)
+    out["n_eff"] = torch.tensor(float(n), dtype=torch.float32, device=z1.device)
+    return out

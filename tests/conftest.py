@@ -3,6 +3,9 @@ import pytest
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running CPU training tests")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc (skips without one; run on the card)"
+    )
 
 
 @pytest.fixture(autouse=True, scope="session")
