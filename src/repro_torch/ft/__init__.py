@@ -1,1 +1,3 @@
-"""Fault-tolerance pieces of the port (the embedding slice: heartbeats)."""
+"""Fault-tolerance pieces of the port: heartbeats, stragglers, preemption, retry."""
+
+from repro_torch.ft.watchdog import HeartbeatMonitor, PreemptionSignal, StragglerWatchdog, with_retries

@@ -1,9 +1,17 @@
-"""Liveness tracking (port of ``HeartbeatMonitor`` from ``repro/ft/watchdog.py``)."""
+"""Fault-tolerance runtime, port of ``repro/ft/watchdog.py``: straggler
+detection, liveness heartbeats, preemption flags, transient-failure retry.
+
+The heartbeat store is process-local; the policy logic (rolling-median
+step-time outliers, preemption-flag draining, bounded retry with backoff)
+is what a multi-host loop runs too.
+"""
 
 from __future__ import annotations
 
+import os
 import re
 import time
+from collections import deque
 from typing import Callable, Dict, Optional
 
 _INVALID = re.compile(r"[^a-zA-Z0-9_:]")
@@ -15,6 +23,41 @@ def sanitize_name(name: str) -> str:
     if not out or out[0].isdigit():
         out = "_" + out
     return out
+
+
+class StragglerWatchdog:
+    """Flags steps slower than ``factor`` x the rolling median of the last
+    ``window`` steps (once ``min_samples`` are in); counts them."""
+
+    def __init__(self, window: int = 32, factor: float = 3.0, min_samples: int = 8):
+        self.durations: deque = deque(maxlen=window)
+        self.factor = factor
+        self.min_samples = min_samples
+        self.straggler_events = 0
+        self._t0: Optional[float] = None
+
+    def step_start(self):
+        """Mark the start of a step."""
+        self._t0 = time.perf_counter()
+
+    def step_end(self) -> bool:
+        """Close the step; True if it was a straggler."""
+        dt = time.perf_counter() - self._t0
+        is_straggler = False
+        if len(self.durations) >= self.min_samples:
+            med = sorted(self.durations)[len(self.durations) // 2]
+            if dt > self.factor * med:
+                self.straggler_events += 1
+                is_straggler = True
+        self.durations.append(dt)
+        return is_straggler
+
+    @property
+    def median(self) -> float:
+        """Median step time of the window (0 before the first step)."""
+        if not self.durations:
+            return 0.0
+        return sorted(self.durations)[len(self.durations) // 2]
 
 
 class HeartbeatMonitor:
@@ -74,3 +117,54 @@ class HeartbeatMonitor:
         for name in self._last:
             out[sanitize_name(f"{prefix}age_s_{name}")] = self.age(name)
         return out
+
+
+class PreemptionSignal:
+    """File-flag preemption notice (a SIGTERM handler writes it; tests touch
+    it).  The train loop checks it every step and exits through a final
+    checkpoint when it is raised."""
+
+    def __init__(self, flag_path: str):
+        self.flag_path = flag_path
+
+    def raised(self) -> bool:
+        """True while the flag file exists."""
+        return os.path.exists(self.flag_path)
+
+    def set(self):
+        """Raise the flag."""
+        with open(self.flag_path, "w") as f:
+            f.write("preempt")
+
+    def clear(self):
+        """Lower the flag."""
+        if os.path.exists(self.flag_path):
+            os.remove(self.flag_path)
+
+
+def with_retries(
+    fn: Callable,
+    max_retries: int = 3,
+    backoff_s: float = 0.05,
+    retryable=(RuntimeError,),
+    on_retry: Optional[Callable[[int, BaseException], None]] = None,
+):
+    """Bounded-retry wrapper for transient device / step failures, with
+    exponential backoff.  Safe for a train step only if a failed attempt
+    leaves the state untouched (``train/ssl.py`` updates the parameters
+    after the gradients are complete)."""
+
+    def wrapped(*args, **kwargs):
+        attempt = 0
+        while True:
+            try:
+                return fn(*args, **kwargs)
+            except retryable as e:
+                attempt += 1
+                if attempt > max_retries:
+                    raise
+                if on_retry:
+                    on_retry(attempt, e)
+                time.sleep(backoff_s * (2 ** (attempt - 1)))
+
+    return wrapped

@@ -27,7 +27,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-FAMILIES = ("sumvec_fft", "grouped_sumvec")
+FAMILIES = ("sumvec_fft", "grouped_sumvec", "xcorr_offdiag")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",

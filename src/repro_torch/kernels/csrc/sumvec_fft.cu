@@ -1,4 +1,5 @@
-// Four-step-FFT kernels for the ungrouped summary vector (paper Eq. 6/12).
+// Four-step-FFT kernels for the ungrouped summary vector (paper Eq. 6/12),
+// forward and vjp.
 //
 // Replaces the Pallas TPU kernels of src/repro/kernels/sumvec_fft/kernel.py:
 //   cmatmul  <- _cmatmul_raw / _cmm_kernel  (complex matmul on re/im planes)
@@ -20,7 +21,10 @@
 // threads read neighbouring shared-memory words and store neighbouring
 // global words).  Ragged edges are masked at load (zero fill) and at store;
 // nothing is padded to tiles in device memory.  A null Ai folds the real
-// input case (four-step stage 1) into half the FMAs.  Plain f32 FMA, no
+// input case (four-step stage 1) into half the FMAs, and a null Ci (the vjp
+// of that stage needs Re dA = Re(g B^H) only) halves them again.
+// The vjps (kernel.py) are these kernels on conjugated operands:
+// dA = cmatmul(g, B^H), dx = ctwiddle(g, conj w).  Plain f32 FMA, no
 // tensor cores: wgmma/TMA are later work.
 //
 // C interface: pointers to contiguous float32 device buffers, sizes as int,
@@ -35,7 +39,7 @@ constexpr int BN = 64;
 constexpr int BK = 16;
 constexpr int TPB = 256;  // 16 x 16 threads, 4 x 4 outputs each
 
-template <bool HAS_AI>
+template <bool HAS_AI, bool HAS_CI>
 __global__ void __launch_bounds__(TPB) cmatmul_kernel(
     const float* __restrict__ ar, const float* __restrict__ ai,
     const float* __restrict__ br, const float* __restrict__ bi,
@@ -107,10 +111,10 @@ __global__ void __launch_bounds__(TPB) cmatmul_kernel(
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           accr[i][j] = fmaf(xr[i], yr[j], accr[i][j]);
-          acci[i][j] = fmaf(xr[i], yi[j], acci[i][j]);
+          if (HAS_CI) acci[i][j] = fmaf(xr[i], yi[j], acci[i][j]);
           if (HAS_AI) {
             accr[i][j] = fmaf(-xi[i], yi[j], accr[i][j]);
-            acci[i][j] = fmaf(xi[i], yr[j], acci[i][j]);
+            if (HAS_CI) acci[i][j] = fmaf(xi[i], yr[j], acci[i][j]);
           }
         }
     }
@@ -127,7 +131,7 @@ __global__ void __launch_bounds__(TPB) cmatmul_kernel(
       if (gn >= N) continue;
       const long long off = (long long)gm * N + gn;
       cr[off] = accr[i][j];
-      ci[off] = acci[i][j];
+      if (HAS_CI) ci[off] = acci[i][j];
     }
   }
 }
@@ -153,10 +157,14 @@ extern "C" {
 int sumvec_fft_cmatmul(const float* ar, const float* ai, const float* br, const float* bi,
                        float* cr, float* ci, int M, int K, int N, cudaStream_t stream) {
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  if (ai != nullptr) {
-    cmatmul_kernel<true><<<grid, TPB, 0, stream>>>(ar, ai, br, bi, cr, ci, M, K, N);
+  if (ai != nullptr && ci != nullptr) {
+    cmatmul_kernel<true, true><<<grid, TPB, 0, stream>>>(ar, ai, br, bi, cr, ci, M, K, N);
+  } else if (ai != nullptr) {
+    cmatmul_kernel<true, false><<<grid, TPB, 0, stream>>>(ar, ai, br, bi, cr, ci, M, K, N);
+  } else if (ci != nullptr) {
+    cmatmul_kernel<false, true><<<grid, TPB, 0, stream>>>(ar, ai, br, bi, cr, ci, M, K, N);
   } else {
-    cmatmul_kernel<false><<<grid, TPB, 0, stream>>>(ar, ai, br, bi, cr, ci, M, K, N);
+    cmatmul_kernel<false, false><<<grid, TPB, 0, stream>>>(ar, ai, br, bi, cr, ci, M, K, N);
   }
   return (int)cudaGetLastError();
 }

@@ -1,1 +1,1 @@
-"""Grouped (block) sumvec: ``pmatmul`` / ``freq_outer`` kernels and their ops."""
+"""Grouped (block) sumvec: ``pmatmul`` / ``freq_outer`` / ``freq_mat`` kernels and their ops."""

@@ -1,6 +1,8 @@
 """Grouped sumvec (paper Eq. 13) over the ``pmatmul`` / ``freq_outer`` kernels.
 
-Port of ``repro/kernels/grouped_sumvec/ops.py`` (forward).  Pipeline:
+Port of ``repro/kernels/grouped_sumvec/ops.py``.  Autograd runs through the
+kernels' own vjps (``kernel.py``); the constant bases' transposes those need
+are cached beside the bases.  Pipeline:
 
   Z (n, d) --blockify--> (n, nb, b)
     --pmatmul with [Cr | Ci] (block DFT)--> F_r, F_i (n, nb, nf)
@@ -53,12 +55,24 @@ def _dft_basis(b: int, device=None) -> Tensor:
     return torch.cat([cr, ci], dim=1).contiguous()  # (b, 2 nf), read-only
 
 
+@functools.lru_cache(maxsize=32)
+def _dft_basis_t(b: int, device=None) -> Tensor:
+    return _dft_basis(b, device).T.contiguous()  # (2 nf, b), for the vjp
+
+
+@functools.lru_cache(maxsize=32)
+def _synthesis_t(b: int, device=None) -> Tuple[Tensor, Tensor]:
+    br, bi = irfft_basis(b, device)
+    return br.T.contiguous(), bi.T.contiguous()  # (b, nf) each, for the vjp
+
+
 def block_dft(z: Tensor, b: int) -> Tuple[Tensor, Tensor]:
     """Per-block rfft of (n, d) via one matmul kernel. Returns (nf, n, nb) x2."""
     zb = _blockify(z.float(), b)
     n, nb, _ = zb.shape
     nf = b // 2 + 1
-    f = K.pmatmul(zb.reshape(n * nb, b).contiguous(), _dft_basis(b, z.device))  # (n*nb, 2 nf)
+    basis, basis_t = _dft_basis(b, z.device), _dft_basis_t(b, z.device)
+    f = K.pmatmul(zb.reshape(n * nb, b).contiguous(), basis, basis_t)  # (n*nb, 2 nf)
     f = f.reshape(n, nb, 2 * nf)
     fr = f[..., :nf].permute(2, 0, 1)  # (nf, n, nb)
     fi = f[..., nf:].permute(2, 0, 1)
@@ -111,7 +125,8 @@ def r_sum_kernel(
     nf = g_r.shape[0]
     gr_flat = g_r.permute(1, 2, 0).reshape(nb * nb, nf).contiguous()
     gi_flat = g_i.permute(1, 2, 0).reshape(nb * nb, nf).contiguous()
-    sv = K.pmatmul(gr_flat, br) + K.pmatmul(gi_flat, bi)  # (nb*nb, b)
+    br_t, bi_t = _synthesis_t(b, g_r.device)
+    sv = K.pmatmul(gr_flat, br, br_t) + K.pmatmul(gi_flat, bi, bi_t)  # (nb*nb, b)
     sv = sv.reshape(nb, nb, b)
     full = torch.sum(torch.abs(sv), dim=-1)
     return torch.sum(full) - torch.sum(eye * torch.abs(sv[..., 0]))

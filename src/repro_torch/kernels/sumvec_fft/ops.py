@@ -1,6 +1,8 @@
 """Four-step-FFT sumvec over the ``cmatmul`` / ``ctwiddle`` kernels.
 
-Port of ``repro/kernels/sumvec_fft/ops.py`` (forward).  Layout, with
+Port of ``repro/kernels/sumvec_fft/ops.py``.  Autograd runs through the
+kernels' own vjps (``kernel.py``); the conjugate bases and twiddles those
+need are cached constants handed in beside the forward ones.  Layout, with
 t = t1*d2 + t2 and f = k1 + d1*k2:
 
   x (n, d) -> (n, d1, d2)                                  [t1, t2]
@@ -29,7 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.sumvec_fft import kernel as K
-from repro_torch.kernels.utils import full_dft_matrices, pad_axis
+from repro_torch.kernels.utils import full_dft_adjoint, full_dft_matrices, pad_axis
 from repro_torch.tune.cost import best_sumvec_fft_plan
 
 Tensor = torch.Tensor
@@ -83,6 +85,13 @@ def _twiddle(d1: int, d2: int, sign: int, device=None) -> Tuple[Tensor, Tensor]:
     return as_t(np.cos(ang)), as_t(np.sin(ang))
 
 
+@functools.lru_cache(maxsize=64)
+def _twiddle_conj(d1: int, d2: int, sign: int, device=None) -> Tuple[Tensor, Tensor]:
+    """conj of ``_twiddle(d1, d2, sign, device)``: the ctwiddle vjp's plane."""
+    wr, wi = _twiddle(d1, d2, sign, device)
+    return wr, -wi
+
+
 def four_step_fft(x: Tensor, d1: int, d2: int) -> Tuple[Tensor, Tensor]:
     """Full complex DFT of real rows x (n, d). Returns (n, d1, d2) pair in
     [k1, k2] layout (f = k1 + d1*k2)."""
@@ -93,13 +102,16 @@ def four_step_fft(x: Tensor, d1: int, d2: int) -> Tuple[Tensor, Tensor]:
     w1r, w1i = full_dft_matrices(d1, -1, dev)
     w2r, w2i = full_dft_matrices(d2, -1, dev)
     twr, twi = _twiddle(d1, d2, -1, dev)
+    adj1 = full_dft_adjoint(d1, -1, dev)
+    adj2 = full_dft_adjoint(d2, -1, dev)
+    tw_conj = _twiddle_conj(d1, d2, -1, dev)
 
     xt = x.float().reshape(n, d1, d2).transpose(1, 2).reshape(n * d2, d1)  # [t2, t1]
-    s1r, s1i = K.rmatmul_complex_basis(xt, w1r, w1i)  # [t2, k1]
-    s2r, s2i = K.ctwiddle(s1r.reshape(n, d2 * d1), s1i.reshape(n, d2 * d1), twr, twi)
+    s1r, s1i = K.rmatmul_complex_basis(xt, w1r, w1i, adj1)  # [t2, k1]
+    s2r, s2i = K.ctwiddle(s1r.reshape(n, d2 * d1), s1i.reshape(n, d2 * d1), twr, twi, tw_conj)
     s2r = s2r.reshape(n, d2, d1).transpose(1, 2).reshape(n * d1, d2)  # [k1, t2]
     s2i = s2i.reshape(n, d2, d1).transpose(1, 2).reshape(n * d1, d2)
-    s3r, s3i = K.cmatmul(s2r, s2i, w2r, w2i)  # contract t2 -> [k1, k2]
+    s3r, s3i = K.cmatmul(s2r, s2i, w2r, w2i, adj2)  # contract t2 -> [k1, k2]
     return s3r.reshape(n, d1, d2), s3i.reshape(n, d1, d2)
 
 
@@ -113,16 +125,19 @@ def four_step_ifft(gr: Tensor, gi: Tensor, d1: int, d2: int) -> Tensor:
     w1r, w1i = full_dft_matrices(d1, 1, dev)
     w2r, w2i = full_dft_matrices(d2, 1, dev)
     twr, twi = _twiddle(d1, d2, 1, dev)
+    adj1 = full_dft_adjoint(d1, 1, dev)
+    adj2 = full_dft_adjoint(d2, 1, dev)
+    tw_conj = _twiddle_conj(d1, d2, 1, dev)
 
     g2r = gr.reshape(n * d1, d2).contiguous()
     g2i = gi.reshape(n * d1, d2).contiguous()
-    s1r, s1i = K.cmatmul(g2r, g2i, w2r, w2i)  # contract k2 -> [k1, t2]
+    s1r, s1i = K.cmatmul(g2r, g2i, w2r, w2i, adj2)  # contract k2 -> [k1, t2]
     s1r = s1r.reshape(n, d1, d2).transpose(1, 2).reshape(n, d2 * d1)  # [t2, k1]
     s1i = s1i.reshape(n, d1, d2).transpose(1, 2).reshape(n, d2 * d1)
-    s2r, s2i = K.ctwiddle(s1r, s1i, twr, twi)
+    s2r, s2i = K.ctwiddle(s1r, s1i, twr, twi, tw_conj)
     s2r = s2r.reshape(n * d2, d1)
     s2i = s2i.reshape(n * d2, d1)
-    s3r, _ = K.cmatmul(s2r, s2i, w1r, w1i)  # contract k1 -> [t2, t1]
+    s3r, _ = K.cmatmul(s2r, s2i, w1r, w1i, adj1)  # contract k1 -> [t2, t1]
     return s3r.reshape(n, d2, d1).transpose(1, 2).reshape(*lead, d) / d
 
 

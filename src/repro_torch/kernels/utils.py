@@ -5,7 +5,8 @@ has no counterpart here: the CUDA kernels mask their ragged edges
 themselves, so only the semantic padding (``pad_axis``, used by the padded
 four-step plan and the grouped block split) remains.  The bases are built in
 float64 numpy and rounded once to float32, exactly as the reference builds
-them, so the two agree to the last bit.
+them, so the two agree to the last bit; their conjugate transposes (for the
+vjps) are cached beside them.
 """
 
 from __future__ import annotations
@@ -63,6 +64,14 @@ def full_dft_matrices(d: int, sign: int = -1, device=None) -> Tuple[Tensor, Tens
     f = np.arange(d)[None, :]
     ang = 2.0 * np.pi * t * f / d * sign
     return _as_tensor(np.cos(ang), device), _as_tensor(np.sin(ang), device)
+
+
+@functools.lru_cache(maxsize=64)
+def full_dft_adjoint(d: int, sign: int = -1, device=None) -> Tuple[Tensor, Tensor]:
+    """W^H of ``full_dft_matrices(d, sign, device)`` as contiguous (re, im)
+    planes (Wr^T, -Wi^T): the operand of the cmatmul vjp's dA = g @ W^H."""
+    wr, wi = full_dft_matrices(d, sign, device)
+    return wr.T.contiguous(), (-wi).T.contiguous()
 
 
 @functools.lru_cache(maxsize=64)

@@ -86,3 +86,86 @@ def test_r_sum_kernel_route_matches_plain_route(dev, block, q):
     got = regs.r_sum_auto(z1, z2, q=q, block_size=block, scale=64)
     want = regs.r_sum_auto(z1, z2, q=q, block_size=block, scale=64, impl="plain")
     torch.testing.assert_close(got, want, rtol=5e-4, atol=0.0)
+
+
+@pytest.mark.parametrize("f,k,n,n2", [(3, 11, 5, 7), (65, 512, 16, 16), (65, 512, 64, 64), (2, 70, 130, 9)])
+def test_freq_mat_kernel_matches_plain(dev, f, k, n, n2):
+    from repro_torch.kernels.grouped_sumvec import kernel as K
+
+    a, m = _rand(dev, f, k, n), _rand(dev, f, n, n2) * 0.5
+    before = K.freq_mat.launches
+    got = K.freq_mat(a, m)
+    torch.cuda.synchronize()
+    assert K.freq_mat.launches == before + 1
+    torch.testing.assert_close(got, K.freq_mat_plain(a, m), **TOL)
+
+
+@pytest.mark.parametrize("n,d", [(5, 37), (256, 2048), (256, 2039), (300, 130)])
+def test_xcorr_offdiag_kernel_matches_plain(dev, n, d):
+    from repro_torch.kernels.xcorr_offdiag import kernel as K
+
+    z1, z2 = _rand(dev, n, d), _rand(dev, n, d) + 0.1
+    got = K.off_diagonal_sq_sum_raw(z1, z2)
+    want = K.off_diagonal_sq_sum_plain(z1, z2)
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=0.0)
+    # two passes in a fixed order, no atomics: bit-identical on a rerun
+    assert torch.equal(K.off_diagonal_sq_sum_raw(z1, z2), got)
+
+
+@pytest.mark.parametrize("n,d,block", [(64, 96, None), (64, 96, 16), (64, 61, None), (256, 2048, 128)])
+@pytest.mark.parametrize("q", [1, 2])
+def test_kernel_route_grad_matches_plain_route(dev, n, d, block, q):
+    """``torch.autograd.grad`` through the kernels' own vjps equals the
+    plain route's gradient, and the backward pass launched kernels."""
+    from repro_torch import kernels
+    from repro_torch.core import regularizers as regs
+
+    z1 = _rand(dev, n, d).requires_grad_()
+    z2 = (_rand(dev, n, d) + 0.1).requires_grad_()
+    kernels.reset_launch_counts()
+    got = torch.autograd.grad(regs.r_sum_auto(z1, z2, q=q, block_size=block, scale=n), (z1, z2))
+    want = torch.autograd.grad(regs.r_sum_auto(z1, z2, q=q, block_size=block, scale=n, impl="plain"), (z1, z2))
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        scale = float(w.abs().max())
+        torch.testing.assert_close(g, w, rtol=5e-4, atol=5e-4 * scale)
+    names = ("cmatmul", "ctwiddle") if block is None else ("pmatmul", "freq_outer", "freq_mat")
+    bwd = kernels.backward_launch_counts()
+    assert all(bwd[name] > 0 for name in names), bwd
+
+
+@pytest.mark.parametrize("n,d", [(64, 96), (200, 40)], ids=["gram", "matrix"])
+def test_xcorr_offdiag_grad_matches_matrix_route(dev, n, d):
+    from repro_torch.kernels.xcorr_offdiag import off_diagonal_sq_sum, off_diagonal_sq_sum_ref
+
+    z1 = _rand(dev, n, d).requires_grad_()
+    z2 = (_rand(dev, n, d) + 0.1).requires_grad_()
+    got = torch.autograd.grad(off_diagonal_sq_sum(z1, z2, scale=n), (z1, z2))
+    want = torch.autograd.grad(off_diagonal_sq_sum_ref(z1, z2, scale=n), (z1, z2))
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=5e-4, atol=5e-4 * float(w.abs().max()))
+
+
+@pytest.mark.parametrize(
+    "loss", [dict(style="bt", block_size=128, q=2), dict(style="vic", q=1), dict(style="bt", reg="off", use_kernel=True)],
+    ids=["bt-b128", "vic-ungrouped", "bt-roff-kernel"],
+)
+def test_ssl_train_step_on_card_matches_plain_route(dev, loss):
+    """One ``make_ssl_train_step`` step at a small width: the kernel route's
+    loss and updated parameters equal the plain route's."""
+    from repro_torch.decorr import DecorrConfig
+    from repro_torch.optim import lars
+    from repro_torch.train import SSLModelConfig, create_train_state, init_ssl_model, make_ssl_train_step
+
+    model_cfg = SSLModelConfig(input_dim=64, backbone_widths=(128,), projector_widths=(256, 256))
+    batch = {"view1": _rand(dev, 96, 64), "view2": _rand(dev, 96, 64) * 0.5}
+    out = {}
+    for impl in (None, "plain"):
+        opt = lars()
+        state = create_train_state(init_ssl_model(model_cfg, seed=0, device=dev), opt)
+        step, _ = make_ssl_train_step(model_cfg, DecorrConfig(**loss), opt, lambda s: 0.1, impl=impl)
+        state, metrics = step(state, batch)
+        out[impl] = (metrics[f"{loss['style']}_loss"], [p.detach().clone() for p in state.model.parameters()])
+    torch.testing.assert_close(out[None][0], out["plain"][0], rtol=5e-4, atol=0.0)
+    for a, b in zip(out[None][1], out["plain"][1]):
+        torch.testing.assert_close(a, b, rtol=5e-4, atol=1e-5)

@@ -13,6 +13,7 @@ from repro.kernels.grouped_sumvec import kernel as rg  # noqa: E402
 from repro.kernels.sumvec_fft import kernel as rf  # noqa: E402
 from repro_torch.kernels.grouped_sumvec import kernel as tg  # noqa: E402
 from repro_torch.kernels.sumvec_fft import kernel as tf  # noqa: E402
+from repro_torch.kernels.xcorr_offdiag import kernel as xk  # noqa: E402
 
 TOL = dict(rtol=2e-4, atol=2e-4)
 
@@ -85,4 +86,8 @@ def test_cpu_route_never_counts_a_launch():
     tf.ctwiddle(torch.ones(2, 3), torch.ones(2, 3), torch.ones(3), torch.ones(3))
     tg.pmatmul(torch.ones(2, 3), torch.ones(3, 2))
     tg.freq_outer(torch.ones(2, 3, 4), torch.ones(2, 3, 4))
-    assert kernels.launch_counts() == {"cmatmul": 0, "ctwiddle": 0, "pmatmul": 0, "freq_outer": 0}
+    tg.freq_mat(torch.ones(2, 3, 4), torch.ones(2, 4, 5))
+    xk.off_diagonal_sq_sum_raw(torch.ones(3, 4), torch.ones(3, 4))
+    zeros = {"cmatmul": 0, "ctwiddle": 0, "pmatmul": 0, "freq_outer": 0, "freq_mat": 0, "xcorr_offdiag": 0}
+    assert kernels.launch_counts() == zeros
+    assert kernels.backward_launch_counts() == zeros

@@ -92,18 +92,21 @@ def test_kernel_route_hands_every_kernel_a_layout_it_takes(monkeypatch, d, b, q)
 
     seen = []
 
-    def strict(name, plain):
+    def strict(name, plain, n_operands):
         def check(*xs):
+            # the operands, then the optional cached conjugate / transpose
+            # of the constant operand (a plane, or a pair of planes)
             for x in xs:
-                if x is not None:
-                    assert x.is_contiguous() and x.dtype == torch.float32, name
+                for t in x if isinstance(x, tuple) else (x,):
+                    if t is not None:
+                        assert t.is_contiguous() and t.dtype == torch.float32, name
             seen.append(name)
-            return plain(*xs)
+            return plain(*xs[:n_operands])
 
         return check
 
-    for mod, name in ((fk, "cmatmul"), (fk, "ctwiddle"), (gk, "pmatmul"), (gk, "freq_outer")):
-        monkeypatch.setattr(mod, name, strict(name, getattr(mod, f"{name}_plain")))
+    for mod, name, n_operands in ((fk, "cmatmul", 4), (fk, "ctwiddle", 4), (gk, "pmatmul", 2), (gk, "freq_outer", 2)):
+        monkeypatch.setattr(mod, name, strict(name, getattr(mod, f"{name}_plain"), n_operands))
     rng = np.random.default_rng(d + q)
     z1, z2 = (torch.from_numpy(rng.standard_normal((8, d)).astype(np.float32)) for _ in range(2))
     got = tregs.r_sum_auto(z1, z2, q=q, block_size=b, scale=8, impl="kernel")
