@@ -8,7 +8,8 @@ Phases (any failed check exits non-zero and prints no result):
   0. build — compiles every CUDA source of ``repro_torch/kernels/csrc`` into
      ``build/kernels/`` (one ``nvcc`` per source, all started together).
   1. kernels vs plain — each hand-written kernel (cmatmul, ctwiddle,
-     pmatmul, freq_outer, freq_mat, xcorr_offdiag) runs at the shapes the
+     pmatmul, freq_outer, freq_mat, xcorr_offdiag, paged_attention) runs at
+     the shapes the
      serving and training paths give it (d = 2048 and 8192, b = 128,
      n = 256; the prime d = 2039 for the padded plan's q = 1 inverse path
      and the ragged R_off tiles), forward and, labelled ``bwd``, as the vjps
@@ -16,7 +17,9 @@ Phases (any failed check exits non-zero and prints no result):
      inputs.  Prints max error, kernel / plain / library time and the bound.
      Then the gradient of the regularizer at the paper's width (n = 256,
      d = 8192; b = 128 and ungrouped, q = 2) on the kernel route against the
-     ``impl="plain"`` route (``[grad]`` lines).
+     ``impl="plain"`` route (``[grad]`` lines).  paged_attention also runs
+     "hot" cases with q x 40 at softcap 30 / 50, where the cap moves the
+     output by over 100 x the tolerance (a printed, checked control).
   2. the service — ``EmbeddingService`` at the full ``ssl-paper`` width
      (3072 -> 512 -> 512 -> 2048 -> 2048 -> 2048, random weights from a
      seed, buckets up to 256) serves 512 seeded requests twice: probe
@@ -40,7 +43,26 @@ Phases (any failed check exits non-zero and prints no result):
      launched on the forward and (but xcorr_offdiag, whose backward is torch
      products) the backward pass.  Prints median step ms per arm and route,
      then a profiler pass over 10 warmed steps of arm (a).
-  5. report — one JSON ``kernels`` line, the card's name and power limit,
+  5. lm — paged continuous-batching LM serving of ``gemma2-2b`` at its full
+     published width and depth (26 layers, d = 2304, 8 query / 4 kv heads of
+     256, vocab 256000; random weights from ``init_params(seed=0)``) through
+     ``ContinuousLMEngine(paged=True)`` under ``LMService`` with the
+     in-flight decorrelation probe: (1) f32, 8 slots, page 16, the
+     reference's ``LMLoadConfig()`` (24 requests): (a) paged tokens on the
+     plain (gather) route equal the dense engine's bit for bit; (b) on the
+     kernel route every decode tick is re-run on the plain route from a
+     clone of the pool, logits within 1e-4 x max(1, max |logit|); (c) kernel
+     route tokens equal the plain route's, a request's first difference
+     allowed only at a step whose plain top-2 logit gap is below twice the
+     measured logit difference; ``paged_attention`` launches 26 per decode
+     tick, and the probe's cmatmul and ctwiddle launch (counts of this run
+     alone); probe vs its oracle < 1e-3; no dispatch error.  (2) the same
+     checks on 2 requests of 4160 prompt tokens + 16 new (f32, max_len
+     4224), decoding past the 4096 window of the local layers.  (3) the
+     config's own bf16, workload (1), timed: tok/s, TTFT, decode tick and
+     prefill ms, a profiled window of 10 ticks (idle share, largest device
+     items), kernel-vs-plain logit difference (reported, not gated).
+  6. report — one JSON ``kernels`` line, the card's name and power limit,
      and the last line ``{"ok": true, "device": {...}}``.
 
 Times are CUDA-event means over repeated launches with inputs resident in
@@ -49,7 +71,8 @@ previous one just wrote); they include the host's launch cost when the
 host, not the device, is the slower side.  "device-only" times sum the
 durations of the device work per call from a profiler (CUPTI) trace.  ``bound_ms`` is the larger of bytes / 3.35 TB/s
 and f32 operations / 67 TFLOP/s (H100 SXM data sheet, non-tensor-core f32),
-counting each input read once and each output written once.
+counting each input read once and each output written once (paged
+attention: the live rows only — min(len, window) per slot).
 """
 
 from __future__ import annotations
@@ -91,6 +114,19 @@ PROFILE_STEPS = 10
 # holds the routes' rounding differences.
 TRAIN_LR = 0.05
 SENSITIVITY_LR = 0.2
+# lm phase: kernel-route logits vs the plain route's on the same pool state,
+# relative to max(1, max |logit|) — the reference's 1e-4 logit tolerance
+LOGIT_TOL = 1e-4
+# lm phase: probe on the served hidden rows vs its offline oracle (the
+# reference CLI's gate)
+LM_PROBE_TOL = 1e-3
+LM_SLOTS = 8
+LM_PAGE = 16
+# the kernels of the LM path's probe: ungrouped R_sum of the hidden rows at
+# d = 2304 through the four-step DFT
+LM_PROBE_KERNELS = ("cmatmul", "ctwiddle")
+LONG_PROMPT, LONG_NEW, LONG_MAX_LEN = 4160, 16, 4224
+LM_PROFILE_TICKS = 10
 
 REPLACES = {
     "cmatmul": "src/repro/kernels/sumvec_fft/kernel.py:54",
@@ -99,6 +135,7 @@ REPLACES = {
     "freq_outer": "src/repro/kernels/grouped_sumvec/kernel.py:115",
     "freq_mat": "src/repro/kernels/grouped_sumvec/kernel.py:153",
     "xcorr_offdiag": "src/repro/kernels/xcorr_offdiag/kernel.py:53",
+    "paged_attention": "src/repro/kernels/paged_attention/kernel.py:102",
 }
 SOURCES = {
     "cmatmul": "src/repro_torch/kernels/csrc/sumvec_fft.cu",
@@ -107,6 +144,7 @@ SOURCES = {
     "freq_outer": "src/repro_torch/kernels/csrc/grouped_sumvec.cu",
     "freq_mat": "src/repro_torch/kernels/csrc/grouped_sumvec.cu",
     "xcorr_offdiag": "src/repro_torch/kernels/csrc/xcorr_offdiag.cu",
+    "paged_attention": "src/repro_torch/kernels/csrc/paged_attention.cu",
 }
 # the training arms: (DecorrConfig keywords, the kernels the arm runs)
 ARMS = {
@@ -335,7 +373,126 @@ def _kernel_cases(dev):
     ctw(f"d=2039 inverse twiddle (1,{p.dp})", 1, p.dp)
     cmm(f"d=2039 inverse ({p.d2},{p.d1})x({p.d1},{p.d1})", p.d2, p.d1, p.d1, False, sign=1)
     xc(f"d=2039 xcorr ({n},2039) ragged tiles", n, 2039)
+    _paged_cases(cases, dev, gen)
     return cases
+
+
+# paged_attention's phase-1 shape: gemma2-2b's heads (8 query / 4 kv of
+# 256) and scale (query_pre_attn_scalar = 256), the LM path's page
+PAGED_SHAPE = dict(h=8, kv=4, hd=256, page=LM_PAGE, scale=1.0 / 16.0)
+# q gain that lifts |scale * q.k| to ~30-150, where the softcap 50 * tanh(s/50)
+# moves the output far more than the tolerance (unit q keeps |s| near 3)
+HOT_Q = 40.0
+
+
+def _paged_inputs(dev, gen, lens, dtype, q_gain=1.0):
+    """q (B, H, hd) f32, k/v page pools in ``dtype``, a permuted block table
+    with a ragged page count per slot (unused entries on the sentinel page
+    0) and int32 lengths, all on ``dev``."""
+    import torch
+
+    h, kv, hd, page = (PAGED_SHAPE[k] for k in ("h", "kv", "hd", "page"))
+    b = len(lens)
+    need = [-(-n // page) for n in lens]
+    nb = max(need)
+    p_total = sum(need) + 1
+    ids = (torch.randperm(p_total - 1, generator=gen) + 1).tolist()
+    table = torch.zeros((b, nb), dtype=torch.int32)
+    for i, k in enumerate(need):
+        table[i, :k] = torch.tensor(ids[:k], dtype=torch.int32)
+        ids = ids[k:]
+    q = (torch.randn(b, h, hd, generator=gen) * q_gain).to(dev)
+    kp = torch.randn(p_total, page, kv, hd, generator=gen).to(dtype).to(dev)
+    vp = torch.randn(p_total, page, kv, hd, generator=gen).to(dtype).to(dev)
+    return q, kp, vp, table.to(dev), torch.tensor(lens, dtype=torch.int32, device=dev)
+
+
+def _paged_cases(cases, dev, gen):
+    """paged_attention at the LM path's decode shape (8 slots, 8 query / 4
+    kv heads of 256, page 16, lengths as the 24-request workload leaves
+    them) and at a long-context shape (lengths up to 8192): f32 and bf16
+    pages, softcap 0 / 50, window 0 / 4096, a ragged page count per slot
+    (permuted physical pages, unused entries on the sentinel) and a length
+    of 1; and "hot" cases with q * HOT_Q at softcap 30 / 50, where the cap
+    changes the output (``_softcap_control`` shows by how much).  The
+    library yardstick is ``scaled_dot_product_attention`` on the
+    pre-gathered, head-expanded dense view (gather excluded from its time),
+    the one PyTorch call that computes the same function — at softcap 0 and
+    window 0 only."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.paged_attention import kernel as pk
+    from repro_torch.kernels.paged_attention.ops import paged_decode_plain
+    from repro_torch.kernels.paged_attention.ref import gather_pages
+
+    h, kv, hd, page, scale = (PAGED_SHAPE[k] for k in ("h", "kv", "hd", "page", "scale"))
+
+    def case(label, lens, dtype, softcap, window, q_gain=1.0):
+        b = len(lens)
+        nb = max(-(-n // page) for n in lens)
+        q, kp, vp, table, lens_t = _paged_inputs(dev, gen, lens, dtype, q_gain)
+        kw = dict(scale=scale, softcap=softcap, window=window)
+        lib = None
+        if not softcap and not window:
+            kd = gather_pages(kp, table).float().repeat_interleave(h // kv, dim=2).transpose(1, 2).contiguous()
+            vd = gather_pages(vp, table).float().repeat_interleave(h // kv, dim=2).transpose(1, 2).contiguous()
+            mask = (torch.arange(nb * page, device=dev)[None, :] < lens_t[:, None])[:, None, None, :]
+            q4 = q[:, :, None, :]
+            lib = lambda: F.scaled_dot_product_attention(q4, kd, vd, attn_mask=mask, scale=scale)[:, :, 0]
+        rows = sum(min(n, window) if window else n for n in lens)
+        elt = torch.empty((), dtype=dtype).element_size()
+        nbytes = rows * kv * hd * 2 * elt + 2 * 4 * b * h * hd + 4 * (b * nb + b)
+        cases.append((
+            "paged_attention", label,
+            lambda: pk.paged_decode_attention(q, kp, vp, table, lens_t, **kw),
+            lambda: paged_decode_plain(q, kp, vp, table, lens_t, **kw),
+            lib, nbytes, 4 * rows * h * hd,
+        ))
+
+    main_lens = [1, 5, 17, 24, 33, 44, 16, 40]
+    long_lens = [8192, 7001, 4097, 4096, 2500, 1000, 17, 1]
+    for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        case(f"main {tag} softcap=50 window=4096 (B=8,H=8,KV=4,hd=256,page=16)", main_lens, dtype, 50.0, 4096)
+        case(f"main {tag} softcap=50 window=0", main_lens, dtype, 50.0, 0)
+        case(f"main {tag} softcap=0 window=0", main_lens, dtype, 0.0, 0)
+    case("long bf16 softcap=50 window=4096 (B=8, lens to 8192)", long_lens, torch.bfloat16, 50.0, 4096)
+    case("long bf16 softcap=50 window=0", long_lens, torch.bfloat16, 50.0, 0)
+    case("long bf16 softcap=0 window=0", long_lens, torch.bfloat16, 0.0, 0)
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        for softcap in (30.0, 50.0):
+            case(f"hot {tag} softcap={softcap:g} window=4096 q*{HOT_Q:g}", main_lens, dtype, softcap, 4096, HOT_Q)
+    case(f"hot long bf16 softcap=50 window=4096 q*{HOT_Q:g}", long_lens, torch.bfloat16, 50.0, 4096, HOT_Q)
+
+
+def _softcap_control(ph: Phase, dev):
+    """The hot cases' inputs do reach the softcap: their scores run to
+    |s| >= 30, and the plain version's output at softcap 30 / 50 differs from
+    the uncapped one by more than 100 x the kernel tolerance, so a kernel
+    that dropped or mis-scaled the tanh cap fails those cases."""
+    import torch
+
+    from repro_torch.kernels.paged_attention.ops import paged_decode_plain
+    from repro_torch.kernels.paged_attention.ref import gather_pages
+
+    gen = torch.Generator().manual_seed(SEED + 7)
+    q, kp, vp, table, lens_t = _paged_inputs(dev, gen, [1, 5, 17, 24, 33, 44, 16, 40], torch.float32, HOT_Q)
+    kv, scale = PAGED_SHAPE["kv"], PAGED_SHAPE["scale"]
+    kd = gather_pages(kp, table)  # (B, NB * page, KV, hd)
+    s = torch.einsum("bgrd,btgd->bgrt", q.view(q.shape[0], kv, -1, q.shape[-1]), kd) * scale
+    live = torch.arange(kd.shape[1], device=dev)[None, :] < lens_t[:, None]
+    s_max = float(s.abs().masked_fill(~live[:, None, None, :], 0.0).max())
+    uncapped = paged_decode_plain(q, kp, vp, table, lens_t, scale=scale)
+    for softcap in (30.0, 50.0):
+        capped = paged_decode_plain(q, kp, vp, table, lens_t, scale=scale, softcap=softcap)
+        diff = float((capped - uncapped).abs().max())
+        tol = KERNEL_TOL * max(1.0, float(capped.abs().max()))
+        ph.check(s_max >= 30.0 and diff > 100 * tol,
+                 f"paged_attention hot cases: softcap={softcap:g} moves the plain output by {diff:.3g} "
+                 f"(needs > 100 x tol {tol:.3g}), max |s| {s_max:.1f} (needs >= 30)")
+        print(f"[kernel] paged_attention softcap control: q*{HOT_Q:g} max|s|={s_max:.1f}; plain output at "
+              f"softcap={softcap:g} vs uncapped max_abs_diff={diff:.4g} = {diff / tol:.0f} x the kernel tolerance",
+              flush=True)
 
 
 # the case whose numbers stand for each kernel in the JSON line: the main
@@ -347,6 +504,7 @@ JSON_CASE = {
     "freq_outer": "d=2048 freq_outer",
     "freq_mat": "d=2048 freq_mat",
     "xcorr_offdiag": "d=2048 xcorr",
+    "paged_attention": "main bf16 softcap=50 window=4096",
 }
 
 
@@ -362,13 +520,18 @@ def phase_kernels(ph: Phase, dev):
         ph.check(rel <= KERNEL_TOL, f"{name} [{label}] rel err {rel:.3g} > {KERNEL_TOL}")
         k_ms = _time_ms(kern)
         p_ms = _time_ms(plain)
-        l_ms = _time_ms(lib)
+        l_ms = _time_ms(lib) if lib is not None else None
         b_ms, by = _bound(nbytes, flops)
+        if lib is None:
+            lib_txt, lib_dev = "library_ms=none (no single PyTorch call)", "none"
+        else:
+            lib_txt = f"library_ms={l_ms:.5f}" + (" (gather excluded)" if name == "paged_attention" else "")
+            lib_dev = _fmt(_device_ms(lib))
         print(
             f"[kernel] {name:<10} {label}: max_abs_err={err:.3g} rel={rel:.3g} "
-            f"kernel_ms={k_ms:.5f} plain_ms={p_ms:.5f} library_ms={l_ms:.5f} "
+            f"kernel_ms={k_ms:.5f} plain_ms={p_ms:.5f} {lib_txt} "
             f"bound_ms={b_ms:.5f} ({by}) | device-only ms: kernel={_fmt(_device_ms(kern))} "
-            f"plain={_fmt(_device_ms(plain))} library={_fmt(_device_ms(lib))}",
+            f"plain={_fmt(_device_ms(plain))} library={lib_dev}",
             flush=True,
         )
         if label.startswith(JSON_CASE[name]):
@@ -378,6 +541,7 @@ def phase_kernels(ph: Phase, dev):
                 "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": by,
                 "library_ms": l_ms,
             }
+    _softcap_control(ph, dev)
     _grad_checks(ph, dev)
     return rows
 
@@ -743,6 +907,277 @@ def _profile_train(dev, batches, arm, state, step):
 
 
 # ---------------------------------------------------------------------------
+# phase 5: paged continuous-batching LM serving of gemma2-2b at full width
+# ---------------------------------------------------------------------------
+
+
+def _lm_model(dev, dtype):
+    """gemma2-2b at its published width and depth in ``dtype``, random
+    weights from ``init_params(seed=0)``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    cfg = dataclasses.replace(get_config("gemma2-2b"), param_dtype=dtype, compute_dtype=dtype)
+    return cfg, init_params(cfg, seed=SEED, device=dev)
+
+
+class _CheckedSteps:
+    """Stands in for ``engine.step_logits``: every decode tick runs first on
+    the plain (gather) route from a clone of the pool, then on the engine's
+    own route on the pool itself.  Records the worst logit difference over
+    the live lanes and, per (request, token index), the plain route's top-2
+    logit gap and both routes' argmax.  The plain re-runs launch no kernel."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.orig = engine.step_logits
+        self.req_index = {}
+        self.max_abs = 0.0
+        self.max_rel = 0.0
+        self.ticks = 0
+        self.steps = {}
+        engine.step_logits = self
+
+    def __call__(self, caches, lens, toks, block_tables, impl=None):
+        import torch
+
+        clone = {name: {k: v.clone() for k, v in leafs.items()} for name, leafs in caches.items()}
+        p_logits = self.orig(clone, lens, toks, block_tables, "plain")[0]
+        del clone
+        logits, hidden, caches = self.orig(caches, lens, toks, block_tables, impl)
+        pool = self.engine.pool
+        active = pool.active_indices()
+        idx = torch.tensor(active, device=logits.device)
+        kl, pl = logits[idx], p_logits[idx]
+        diff = float((kl - pl).abs().max())
+        self.max_abs = max(self.max_abs, diff)
+        self.max_rel = max(self.max_rel, diff / max(1.0, float(pl.abs().max())))
+        top2 = torch.topk(pl, 2, dim=-1).values
+        gaps = (top2[:, 0] - top2[:, 1]).tolist()
+        pa, ka = pl.argmax(-1).tolist(), kl.argmax(-1).tolist()
+        for j, i in enumerate(active):
+            slot = pool[i]
+            self.steps[(self.req_index[id(slot.future)], len(slot.emitted))] = (gaps[j], pa[j], ka[j])
+        self.ticks += 1
+        return logits, hidden, caches
+
+
+def _lm_service(cfg, params, dev, n_slots, max_len, max_prompt, probe=False, record=False, **engine_kw):
+    from repro_torch.decorr.config import DecorrConfig
+    from repro_torch.serve.engine import ContinuousLMEngine
+    from repro_torch.serve.probes import DecorrProbe
+    from repro_torch.serve.service import LMService
+
+    engine = ContinuousLMEngine(cfg, params, n_slots=n_slots, max_len=max_len, max_prompt_len=max_prompt,
+                                 device=dev, **engine_kw)
+    pr = DecorrProbe(DecorrConfig(style="vic", reg="sum", q=2), perm_seed=SEED, device=dev) if probe else None
+    return LMService(engine, probe=pr, record_probe_rows=record).warmup()
+
+
+def _lm_drive(service, stream, checked=None):
+    """Submit the whole stream, drain it; returns (outputs, wall s, futures)."""
+    import torch
+
+    futs = [service.submit(t, m) for t, m in stream]
+    if checked is not None:
+        checked.req_index = {id(f): i for i, f in enumerate(futs)}
+    t0 = time.perf_counter()
+    service.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return [f.result(timeout=60) for f in futs], wall, futs
+
+
+def _lm_checked_run(ph, tag, cfg, params, dev, stream, n_slots, max_len, max_prompt, **engine_kw):
+    """Checks (a)-(c) of one f32 workload; returns the kernel run's launch
+    counts and its decode ticks."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.serve.loadgen import lm_probe_oracle_err
+
+    shape = dict(n_slots=n_slots, max_len=max_len, max_prompt=max_prompt)
+    # (a) the dense engine vs the paged engine on the plain route, bit for bit
+    dense, _, _ = _lm_drive(_lm_service(cfg, params, dev, **shape), stream)
+    plain_svc = _lm_service(cfg, params, dev, paged=True, page_size=LM_PAGE, impl="plain", **shape, **engine_kw)
+    plain, _, _ = _lm_drive(plain_svc, stream)
+    bad = [i for i, (a, b) in enumerate(zip(dense, plain)) if not np.array_equal(a, b)]
+    ph.check(not bad, f"[lm] {tag}: (a) paged plain-route tokens differ from the dense engine's in requests {bad}")
+    print(f"[lm] {tag}: (a) paged plain route == dense engine, bit for bit, in "
+          f"{len(stream) - len(bad)}/{len(stream)} requests ({sum(len(o) for o in plain)} tokens)", flush=True)
+    del plain_svc
+
+    # (b) + (c) the kernel route, each tick checked against the plain route
+    svc = _lm_service(cfg, params, dev, probe=True, record=True, paged=True, page_size=LM_PAGE, **shape, **engine_kw)
+    checked = _CheckedSteps(svc.engine)
+    kernels.reset_launch_counts()
+    kern, wall, _ = _lm_drive(svc, stream, checked)
+    counts = kernels.launch_counts()
+    ticks = svc.engine.pool.steps
+    ph.check(checked.max_rel <= LOGIT_TOL,
+             f"[lm] {tag}: (b) kernel vs plain logits rel {checked.max_rel:.3g} > {LOGIT_TOL}")
+    ph.check(counts["paged_attention"] > 0 and counts["paged_attention"] == cfg.n_layers * ticks,
+             f"[lm] {tag}: paged_attention launched {counts['paged_attention']} times in {ticks} ticks "
+             f"(expected {cfg.n_layers} per tick)")
+    for name in LM_PROBE_KERNELS:
+        ph.check(counts[name] > 0, f"[lm] {tag}: the probe never launched {name} in the kernel-route run")
+    exempt = 0
+    for r, (k, p) in enumerate(zip(kern, plain)):
+        if np.array_equal(k, p):
+            continue
+        n = min(len(k), len(p))
+        t = int(np.argmax(k[:n] != p[:n])) if np.any(k[:n] != p[:n]) else n
+        gap = checked.steps.get((r, t), (None,))[0]
+        ok = gap is not None and gap < 2 * checked.max_abs
+        exempt += ok
+        print(f"[lm] {tag}: (c) request {r} first differs at token {t}: plain top-2 gap "
+              f"{'n/a' if gap is None else f'{gap:.4g}'} vs 2 x logit diff {2 * checked.max_abs:.4g} "
+              f"-> {'exempt from here on' if ok else 'FAIL'}", flush=True)
+        ph.check(ok, f"[lm] {tag}: (c) request {r} differs at token {t} with plain top-2 gap {gap}")
+    m = svc.metrics()
+    err = lm_probe_oracle_err(svc)
+    ph.check(err is not None and err < LM_PROBE_TOL, f"[lm] {tag}: probe vs oracle {err} (limit {LM_PROBE_TOL})")
+    ph.check(m["dispatch_errors"] == 0, f"[lm] {tag}: dispatch_errors={m['dispatch_errors']}")
+    ph.check(all(np.isfinite(v) for k, v in m.items() if k.startswith("decorr_")), f"[lm] {tag}: probe not finite")
+    print(f"[lm] {tag}: (b) {checked.ticks} ticks, kernel vs plain logits max_abs={checked.max_abs:.4g} "
+          f"rel={checked.max_rel:.4g}; (c) {len(stream) - exempt}/{len(stream)} requests' tokens identical, "
+          f"{exempt} exempt; paged_attention launches={counts['paged_attention']} over {ticks} ticks "
+          f"({counts['paged_attention'] / max(ticks, 1):.1f}/tick); probe launches "
+          + ", ".join(f"{k}={counts[k]}" for k in LM_PROBE_KERNELS) + f"; probe_steps={m.get('decorr_probe_steps', 0):.0f} "
+          f"probe_oracle_rel_err={err}; dispatch_errors={m['dispatch_errors']:.0f}; "
+          f"peak pages={m['paged_pages_peak']:.0f} of {m['paged_pages_total']:.0f}; wall_s={wall:.3f}", flush=True)
+    return counts
+
+
+def _lm_timed(ph, cfg, params, dev, stream, max_len, max_prompt):
+    """The config's own dtype on the kernel route: tok/s, TTFT, decode tick
+    and prefill ms; then a profiled window of ticks and the kernel-vs-plain
+    logit difference on a live pool (reported, not gated).  Returns the
+    run's launch counts (the main path's)."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+
+    svc = _lm_service(cfg, params, dev, n_slots=LM_SLOTS, max_len=max_len, max_prompt=max_prompt,
+                      probe=True, paged=True, page_size=LM_PAGE)
+    eng = svc.engine
+    times = {"decode": [], "insert": []}
+
+    def timed(name, fn):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)  # both end in a host sync (token ids to the host)
+            times[name].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+
+    eng.decode_step, eng.insert = timed("decode", eng.decode_step), timed("insert", eng.insert)
+    kernels.reset_launch_counts()
+    outs, wall, futs = _lm_drive(svc, stream)
+    counts = kernels.launch_counts()
+    ticks = eng.pool.steps
+    m = svc.metrics()
+    ttft = np.asarray([f.ttft_s for f in futs]) * 1e3
+    n_tok = sum(len(o) for o in outs)
+    ph.check(counts["paged_attention"] == cfg.n_layers * ticks > 0,
+             f"[lm] bf16: paged_attention launched {counts['paged_attention']} times in {ticks} ticks")
+    for name in LM_PROBE_KERNELS:
+        ph.check(counts[name] > 0, f"[lm] bf16: the probe never launched {name}")
+    ph.check(m["dispatch_errors"] == 0, f"[lm] bf16: dispatch_errors={m['dispatch_errors']}")
+    ph.check(all(o.shape == (mn,) for o, (_, mn) in zip(outs, stream)), "[lm] bf16: wrong output lengths")
+    print(f"[lm] bf16 timed: {len(stream)} requests {n_tok} tokens wall_s={wall:.4f} tok_per_s={n_tok / wall:.1f} "
+          f"ttft_p50_ms={np.percentile(ttft, 50):.3f} ttft_p99_ms={np.percentile(ttft, 99):.3f} "
+          f"decode_tick_ms median={statistics.median(times['decode']):.3f} mean={statistics.mean(times['decode']):.3f} "
+          f"({ticks} ticks, occupancy {m['slots_occupancy']:.3f}) prefill_ms median={statistics.median(times['insert']):.3f} "
+          f"mean={statistics.mean(times['insert']):.3f} | launches {dict((k, v) for k, v in counts.items() if v)}",
+          flush=True)
+
+    # a full pool, then LM_PROFILE_TICKS ticks under the profiler
+    rng = np.random.default_rng(SEED + 3)
+    for _ in range(LM_SLOTS):
+        svc.submit(rng.integers(0, cfg.vocab_size, 24).astype(np.int32), LM_PROFILE_TICKS + 6)
+    svc.step()
+    wall_box = [0.0]
+
+    def window():
+        t0 = time.perf_counter()
+        for _ in range(LM_PROFILE_TICKS):
+            svc.step()
+        torch.cuda.synchronize()
+        wall_box[0] = time.perf_counter() - t0
+
+    events = _device_events(window)
+    by_name = {}
+    for name, us in events:
+        by_name[name] = by_name.get(name, 0.0) + us
+    busy_ms = sum(by_name.values()) / 1e3
+    wall_ms = wall_box[0] * 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    symbols = {"paged_attention": "paged_decode_kernel", "cmatmul": "cmatmul_kernel", "ctwiddle": "ctwiddle_kernel"}
+    ported = {k: [us for n, us in events if sym in n] for k, sym in symbols.items()}
+    print(f"[profile] lm bf16: {LM_PROFILE_TICKS} decode ticks, 8 live slots, wall_ms={wall_ms:.3f} "
+          f"device_busy_ms={busy_ms:.4f} idle_share={1 - busy_ms / wall_ms:.4f} device events={len(events)} | "
+          + " ".join(f"{k} ms={sum(us) / 1e3:.4f} ({len(us)} launches)" for k, us in ported.items()) + " | top: " + "; ".join(f"{n[:60]}={us / 1e3:.4f}ms" for n, us in top),
+          flush=True)
+
+    # kernel vs plain on the live pool, a few ticks (reported, not gated)
+    worst = 0.0
+    for _ in range(3):
+        lens = torch.as_tensor(eng.pool.cache_lens(), device=dev)
+        toks = torch.as_tensor(eng.pool.last_tokens(), device=dev)
+        bt = torch.as_tensor(eng.pager.block_tables(), device=dev)
+        got = {}
+        for impl in (None, "plain"):
+            clone = {n: {k: v.clone() for k, v in leafs.items()} for n, leafs in eng.caches.items()}
+            got[impl] = eng.step_logits(clone, lens, toks, bt, impl)[0]
+        worst = max(worst, float((got[None] - got["plain"]).abs().max()) / max(1.0, float(got["plain"].abs().max())))
+        svc.step()
+    print(f"[lm] bf16: kernel vs plain logits rel diff over 3 live ticks = {worst:.4g} (reported, not gated)", flush=True)
+    svc.drain()
+    return counts
+
+
+def phase_lm(ph: Phase, dev):
+    """The LM serving path at full width; returns the bf16 run's launch counts."""
+    import gc
+
+    import torch
+
+    from repro_torch.serve.loadgen import LMLoadConfig
+
+    load = LMLoadConfig()
+    max_len = -(-max(load.max_request_len + 8, 32) // LM_PAGE) * LM_PAGE
+    max_prompt = max(load.prompt_lens)
+    cfg, params = _lm_model(dev, torch.float32)
+    print(f"[lm] {cfg.name}: {cfg.n_layers} layers d={cfg.d_model} heads {cfg.n_heads}/{cfg.n_kv_heads} "
+          f"hd={cfg.hd} vocab={cfg.vocab_size} params={cfg.param_count() / 1e9:.3f}B; f32 gate: "
+          f"{load.n_requests} requests, {LM_SLOTS} slots, page {LM_PAGE}, max_len {max_len}", flush=True)
+    stream = load.request_stream(cfg.vocab_size)
+    _lm_checked_run(ph, "f32 24 requests", cfg, params, dev, stream, LM_SLOTS, max_len, max_prompt)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    long_load = LMLoadConfig(n_requests=2, prompt_lens=(LONG_PROMPT,), new_tokens=(LONG_NEW,), seed=SEED + 1)
+    rows = LONG_PROMPT + LONG_NEW - 1
+    total_pages = 2 * (-(-rows // LM_PAGE)) + 1
+    print(f"[lm] f32 long context: 2 requests of {LONG_PROMPT} + {LONG_NEW} tokens, max_len {LONG_MAX_LEN}, "
+          f"{total_pages} pages of {LM_PAGE} (window {cfg.window_size} on the local layers)", flush=True)
+    _lm_checked_run(ph, "f32 long context", cfg, params, dev, long_load.request_stream(cfg.vocab_size), 2,
+                    LONG_MAX_LEN, LONG_PROMPT, total_pages=total_pages)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg, params = _lm_model(dev, torch.bfloat16)
+    return _lm_timed(ph, cfg, params, dev, stream, max_len, max_prompt)
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -770,8 +1205,10 @@ def main() -> int:
     launches = ph.run("service", phase_service, ph, dev) or {}
     ph.run("profile", phase_profile, dev)
     train_fwd, train_bwd = ph.run("train", phase_train, ph, dev) or ({}, {})
-    for k, v in train_fwd.items():
-        launches[k] = launches.get(k, 0) + v
+    lm = ph.run("lm", phase_lm, ph, dev) or {}
+    for part in (train_fwd, lm):
+        for k, v in part.items():
+            launches[k] = launches.get(k, 0) + v
     for name in REPLACES:
         ph.check(name in rows, f"no timing row for {name}")
         ph.check(launches.get(name, 0) > 0, f"{name} never launched on the main path")

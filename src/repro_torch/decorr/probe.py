@@ -18,7 +18,7 @@ correlation probe ``z2 is z1``; pass a second view to probe cross-correlation.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import torch
 
@@ -26,6 +26,20 @@ from repro_torch.decorr import engine
 from repro_torch.decorr.config import DecorrConfig
 
 Tensor = torch.Tensor
+
+def slot_probe_rows(hidden: Tensor, active: Sequence[int]) -> Tensor:
+    """The in-flight slots' representation rows of one continuous-batching
+    decode step.
+
+    ``hidden``: (n_slots, d) final hidden states of the step, on the step's
+    device (free-slot lanes carry garbage); ``active``: the slots that held
+    live requests WHEN the step ran.  Returns the (n_active, d) f32 rows in
+    slot order, on the same device: the stream ``serve.DecorrProbe``
+    buffers into its fixed probe windows, so a reading only ever mixes rows
+    of real, in-flight requests.
+    """
+    return hidden[torch.as_tensor(list(active), dtype=torch.long, device=hidden.device)].float()
+
 
 # r_off materializes d x d — beyond this width the probe drops it and relies
 # on the O(n d log d) r_sum statistic alone.

@@ -21,6 +21,7 @@ from typing import Dict
 
 def _wrappers():
     from repro_torch.kernels.grouped_sumvec import kernel as gk
+    from repro_torch.kernels.paged_attention import kernel as pk
     from repro_torch.kernels.sumvec_fft import kernel as fk
     from repro_torch.kernels.xcorr_offdiag import kernel as xk
 
@@ -31,6 +32,7 @@ def _wrappers():
         "freq_outer": gk.freq_outer,
         "freq_mat": gk.freq_mat,
         "xcorr_offdiag": xk.off_diagonal_sq_sum_raw,
+        "paged_attention": pk.paged_decode_attention,
     }
 
 

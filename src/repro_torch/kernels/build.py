@@ -27,7 +27,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-FAMILIES = ("sumvec_fft", "grouped_sumvec", "xcorr_offdiag")
+FAMILIES = ("sumvec_fft", "grouped_sumvec", "xcorr_offdiag", "paged_attention")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
@@ -102,15 +102,23 @@ def library(family: str) -> ctypes.CDLL:
         return lib
 
 
+def _ctype(arg):
+    """C type of one launch argument: int -> int, float -> float, anything
+    else (a tensor, None) -> a pointer."""
+    if isinstance(arg, int):
+        return ctypes.c_int
+    if isinstance(arg, float):
+        return ctypes.c_float
+    return ctypes.c_void_p
+
+
 def _function(family: str, name: str, args) -> "ctypes._CFuncPtr":
     fn = _FNS.get((family, name))
     if fn is None:
         fn = getattr(library(family), f"{family}_{name}")
         # pointers (tensors, or None for NULL) and the stream as c_void_p: a
         # bare Python int would be passed as a 32-bit int and cut the address
-        fn.argtypes = [ctypes.c_int if isinstance(a, int) else ctypes.c_void_p for a in args] + [
-            ctypes.c_void_p
-        ]
+        fn.argtypes = [_ctype(a) for a in args] + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _FNS[(family, name)] = fn
     return fn
@@ -119,8 +127,8 @@ def _function(family: str, name: str, args) -> "ctypes._CFuncPtr":
 def launch(family: str, name: str, device: torch.device, *args) -> None:
     """Call ``<family>_<name>`` on ``device``'s current stream and raise if
     the launch failed.  ``args``: CUDA tensors (passed by data pointer),
-    None (a NULL pointer) or Python ints (C ints), in the C signature's
-    order; the stream is appended.  Does not synchronise."""
+    None (a NULL pointer), Python ints (C ints) or floats (C floats), in the
+    C signature's order; the stream is appended.  Does not synchronise."""
     fn = _function(family, name, args)
     conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     with torch.cuda.device(device):

@@ -1,0 +1,267 @@
+"""GQA attention with RoPE, local / global windows and logit softcap, over
+a dense KV cache (prefill, scalar and per-slot decode) or a paged one
+(block-table decode).  Port of ``repro/models/attention.py``.
+
+The reference is functional (``.at[].set`` returns a new cache); here the
+cache tensors are updated in place (``index_put_``), so a decode step writes
+the new token's k / v straight into the caller's pool and returns the same
+dict.  The chunked (flash-style) long-prompt prefill, the offset prefill of
+chunked serving and M-RoPE belong to a later slice and raise.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch import DeviceLike, resolve_device
+from repro_torch.kernels.paged_attention.kernel import paged_decode_attention
+from repro_torch.models.common import ArchConfig, BlockSpec, softcap
+
+Tensor = torch.Tensor
+
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# Rotary embeddings
+# ---------------------------------------------------------------------------
+
+
+def _rope_freqs(hd: int, theta: float, device) -> Tensor:
+    return 1.0 / (theta ** (torch.arange(0, hd, 2, dtype=torch.float32, device=device) / hd))
+
+
+def apply_rope(x: Tensor, positions: Tensor, theta: float) -> Tensor:
+    """x: (B, S, H, hd); positions: (B, S) int.  Rotates the two halves."""
+    hd = x.shape[-1]
+    freqs = _rope_freqs(hd, theta, x.device)
+    ang = positions[..., None].float() * freqs  # (B, S, hd/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+
+
+def attn_shapes(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
+    """Leaf shapes of one layer's attention parameters."""
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    shapes = {"wq": (d, h * hd), "wk": (d, kv * hd), "wv": (d, kv * hd), "wo": (h * hd, d)}
+    if cfg.qkv_bias:
+        shapes.update(bq=(h * hd,), bk=(kv * hd,), bv=(kv * hd,))
+    return shapes
+
+
+def _project_qkv(params, x: Tensor, cfg: ArchConfig, positions: Tensor):
+    b, s, _ = x.shape
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    cd = cfg.compute_dtype
+    q = x @ params["wq"].to(cd)
+    k = x @ params["wk"].to(cd)
+    v = x @ params["wv"].to(cd)
+    if cfg.qkv_bias:
+        q = q + params["bq"].to(cd)
+        k = k + params["bk"].to(cd)
+        v = v + params["bv"].to(cd)
+    q = apply_rope(q.reshape(b, s, h, hd), positions, cfg.rope_theta)
+    k = apply_rope(k.reshape(b, s, kv, hd), positions, cfg.rope_theta)
+    return q, k, v.reshape(b, s, kv, hd)
+
+
+def _repeat_kv(x: Tensor, n_rep: int) -> Tensor:
+    """(B, S, KV, hd) -> (B, S, KV * n_rep, hd): head h reads kv head h // n_rep."""
+    if n_rep == 1:
+        return x
+    return torch.repeat_interleave(x, n_rep, dim=2)
+
+
+def _scale(cfg: ArchConfig, hd: int) -> float:
+    return cfg.attn_scale or (1.0 / math.sqrt(hd))
+
+
+def _softmax_attend(scores: Tensor, mask: Tensor, v: Tensor, dtype) -> Tensor:
+    """Masked softmax over the last axis (masked logits at NEG_INF carry
+    exactly 0 probability mass), then probs @ v: (B, H, Q, K) x (B, K, H, hd)."""
+    scores = torch.where(mask, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+# ---------------------------------------------------------------------------
+# Full (materialized-scores) attention — prefill and scoring
+# ---------------------------------------------------------------------------
+
+
+def _full_attention(q, k, v, cfg: ArchConfig, spec: BlockSpec) -> Tensor:
+    b, s, h, hd = q.shape
+    k = _repeat_kv(k, h // k.shape[2])
+    v = _repeat_kv(v, h // v.shape[2])
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * _scale(cfg, hd)
+    scores = softcap(scores, cfg.attn_softcap)
+    qi = torch.arange(s, device=q.device)[:, None]
+    ki = torch.arange(s, device=q.device)[None, :]
+    mask = ki <= qi
+    if spec.attn_type == "local":
+        mask &= ki > qi - cfg.window_size
+    return _softmax_attend(scores, mask[None, None], v, q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Decode with KV cache
+# ---------------------------------------------------------------------------
+
+
+def init_kv_cache(
+    cfg: ArchConfig, batch: int, max_len: int, device: DeviceLike = None, repeats: int = 1
+) -> Dict[str, Tensor]:
+    """Dense per-slot cache rows, (repeats, batch, max_len, KV, hd) in the
+    compute dtype (one pattern position's stacked layers), on ``device``
+    (``cuda`` unless ``"cpu"`` is passed)."""
+    device = resolve_device(device)
+    shape = (repeats, batch, max_len, cfg.n_kv_heads, cfg.hd)
+    return {k: torch.zeros(shape, dtype=cfg.compute_dtype, device=device) for k in ("k", "v")}
+
+
+def init_paged_kv_cache(
+    cfg: ArchConfig, num_pages: int, page: int, device: DeviceLike = None, repeats: int = 1
+) -> Dict[str, Tensor]:
+    """Block-table layout: one physical pool of ``num_pages`` pages of
+    ``page`` tokens per layer, (repeats, num_pages, page, KV, hd), shared by
+    all slots through their block tables (page 0 is the allocator's sentinel
+    — written by masked lanes, never read unmasked), on ``device`` (``cuda``
+    unless ``"cpu"`` is passed)."""
+    device = resolve_device(device)
+    shape = (repeats, num_pages, page, cfg.n_kv_heads, cfg.hd)
+    return {k: torch.zeros(shape, dtype=cfg.compute_dtype, device=device) for k in ("k_pages", "v_pages")}
+
+
+def _decode_attention(q, cache_k, cache_v, cache_len, cfg: ArchConfig, spec: BlockSpec) -> Tensor:
+    """q: (B, 1, H, hd); cache_(k|v): (B, L, KV, hd); cache_len: an int, a
+    0-d tensor, or (B,) per-row lengths (continuous batching: each slot
+    decodes at its own position)."""
+    b, _, h, hd = q.shape
+    k = _repeat_kv(cache_k, h // cache_k.shape[2])
+    v = _repeat_kv(cache_v, h // cache_v.shape[2])
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * _scale(cfg, hd)
+    scores = softcap(scores, cfg.attn_softcap)
+    ki = torch.arange(k.shape[1], device=q.device)[None, None, None, :]
+    cl = cache_len.reshape(b, 1, 1, 1) if torch.is_tensor(cache_len) and cache_len.ndim == 1 else cache_len
+    mask = ki < cl
+    if spec.attn_type == "local":
+        mask &= ki >= cl - cfg.window_size
+    return _softmax_attend(scores, mask, v, q.dtype)
+
+
+def use_kernel(x: Tensor, impl: Optional[str]) -> bool:
+    """Route of the paged attention: the CUDA kernel for a CUDA tensor, the
+    gather + ``_decode_attention`` route for a CPU tensor.  ``impl="plain"``
+    forces the gather route (on-card comparison); ``impl="kernel"`` forces
+    the kernel wrapper (on the CPU it runs the kernel's plain version)."""
+    if impl not in (None, "kernel", "plain"):
+        raise ValueError(f"impl must be None, 'kernel' or 'plain', got {impl!r}")
+    return impl == "kernel" or (impl is None and x.is_cuda)
+
+
+def _paged_decode(q, k, v, cache, cache_len, block_tables, cfg: ArchConfig, spec: BlockSpec, impl=None):
+    """Single-token decode through block-table pages: scatter the new token's
+    k / v into row ``len % page`` of page ``block_tables[b, len // page]``
+    (in place), then attend over the table.
+
+    The plain route gathers the pages back into a (B, NB * page, KV, hd)
+    dense view and reuses ``_decode_attention`` verbatim: when NB * page
+    equals the dense pool's max_len (the engine guarantees it), paged decode
+    is bit-identical to the dense path — rows past ``cache_len`` differ only
+    in masked positions whose probability mass is exactly 0.  On a CUDA
+    tensor the block-table kernel (``kernels/paged_attention``) attends
+    instead and never materializes the gather — the switch the reference
+    makes with ``best_impl("paged_attention")``.
+    """
+    b, _, h, hd = q.shape
+    kp, vp = cache["k_pages"], cache["v_pages"]
+    page = kp.shape[1]
+    cl = cache_len if torch.is_tensor(cache_len) and cache_len.ndim == 1 else torch.full(
+        (b,), int(cache_len), dtype=torch.int32, device=q.device
+    )
+    cl = cl.long()
+    tables = block_tables.long()
+    phys = tables[torch.arange(b, device=q.device), cl // page]
+    kp[phys, cl % page] = k[:, 0].to(kp.dtype)
+    vp[phys, cl % page] = v[:, 0].to(vp.dtype)
+    if use_kernel(kp, impl):
+        out = paged_decode_attention(
+            q[:, 0].float().contiguous(), kp, vp,
+            block_tables.to(torch.int32).contiguous(), (cl + 1).to(torch.int32),
+            scale=_scale(cfg, hd),
+            softcap=cfg.attn_softcap or 0.0,
+            window=cfg.window_size if spec.attn_type == "local" else 0,
+        )
+        return out[:, None].to(q.dtype), cache
+    kv = kp.shape[2]
+    kd = kp[tables].reshape(b, -1, kv, hd)
+    vd = vp[tables].reshape(b, -1, kv, hd)
+    return _decode_attention(q, kd, vd, cl + 1, cfg, spec), cache
+
+
+# ---------------------------------------------------------------------------
+# Public entry
+# ---------------------------------------------------------------------------
+
+
+def attn_apply(
+    params: Dict[str, Tensor],
+    x: Tensor,
+    cfg: ArchConfig,
+    spec: BlockSpec,
+    positions: Tensor,
+    cache: Optional[Dict[str, Tensor]] = None,
+    cache_len=None,
+    block_tables: Optional[Tensor] = None,
+    impl: Optional[str] = None,
+) -> Tuple[Tensor, Optional[Dict[str, Tensor]]]:
+    """Returns (output (B, S, d), the cache or None).
+
+    * cache is None: scoring forward over the full sequence.
+    * cache given, S == 1: single-token decode (writes position cache_len,
+      in place).  A cache with ``k_pages`` routes through the paged
+      (block-table) path; otherwise ``cache_len`` is a scalar or (B,).
+    * cache given, S > 1: prefill — writes rows [0, S) and attends causally.
+    """
+    b, s, _ = x.shape
+    h, hd = cfg.n_heads, cfg.hd
+    cd = cfg.compute_dtype
+    q, k, v = _project_qkv(params, x, cfg, positions)
+
+    if cache is not None and s == 1:
+        if "k_pages" in cache:
+            out, cache = _paged_decode(q, k, v, cache, cache_len, block_tables, cfg, spec, impl)
+        else:
+            ck, cv = cache["k"], cache["v"]
+            if torch.is_tensor(cache_len) and cache_len.ndim == 1:
+                # per-slot decode: row i writes its token at its own position
+                rows = torch.arange(b, device=x.device)
+                ck[rows, cache_len.long()] = k[:, 0]
+                cv[rows, cache_len.long()] = v[:, 0]
+            else:
+                ck[:, int(cache_len)] = k[:, 0]
+                cv[:, int(cache_len)] = v[:, 0]
+            out = _decode_attention(q, ck, cv, cache_len + 1, cfg, spec)
+        return out.reshape(b, s, h * hd) @ params["wo"].to(cd), cache
+    if cache is not None:
+        cache["k"][:, :s] = k
+        cache["v"][:, :s] = v
+
+    if s > cfg.attn_chunk_threshold and s % cfg.attn_chunk_size == 0:
+        raise NotImplementedError(
+            f"a {s}-token prompt takes the reference's chunked (flash-style) prefill, "
+            "which slice 3b of the port brings"
+        )
+    out = _full_attention(q, k, v, cfg, spec)
+    return out.reshape(b, s, h * hd) @ params["wo"].to(cd), cache

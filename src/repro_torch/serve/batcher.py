@@ -26,13 +26,14 @@ class Backpressure(RuntimeError):
 
 
 class ServeFuture:
-    """Minimal thread-safe future for one request's embedding."""
+    """Minimal thread-safe future for one request's result."""
 
     def __init__(self):
         self._done = threading.Event()
         self._value: Any = None
         self._error: Optional[BaseException] = None
         self.t_submit = time.perf_counter()
+        self.t_first: Optional[float] = None  # first token emitted (LM requests)
         self.t_done: Optional[float] = None
 
     def set_result(self, value: Any):
@@ -63,6 +64,11 @@ class ServeFuture:
     def latency_s(self) -> Optional[float]:
         """Submit-to-done wall time in seconds (None while pending)."""
         return None if self.t_done is None else self.t_done - self.t_submit
+
+    @property
+    def ttft_s(self) -> Optional[float]:
+        """Submit-to-first-token wall time in seconds (LM requests)."""
+        return None if self.t_first is None else self.t_first - self.t_submit
 
 
 class Request:
@@ -157,4 +163,29 @@ class MicroBatcher:
                 break
             batch.append(nxt)
             rows += nxt.rows
+        return batch
+
+    def next_requests(self, max_n: int, timeout: Optional[float] = None) -> Optional[List[Request]]:
+        """Pop up to ``max_n`` whole requests — continuous-batching
+        admission: a freed decode slot takes the next queued request NOW, it
+        never waits to coalesce a batch (``max_wait_ms`` does not apply).
+        Returns [] when nothing is queued within ``timeout`` (or ``max_n ==
+        0``) and None once ``shutdown`` was called and the queue has drained."""
+        if max_n <= 0:
+            return None if self._shutdown.is_set() and self._q.empty() else []
+        try:
+            first = self._q.get(block=timeout != 0.0, timeout=timeout)
+        except queue.Empty:
+            return None if self._shutdown.is_set() else []
+        if first is _SHUTDOWN:
+            return None if self._q.empty() else []
+        batch = [first]
+        while len(batch) < max_n:
+            try:
+                nxt = self._q.get_nowait()
+            except queue.Empty:
+                break
+            if nxt is _SHUTDOWN:
+                break
+            batch.append(nxt)
         return batch

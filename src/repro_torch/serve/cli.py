@@ -1,5 +1,5 @@
-"""Serve CLI: load-generate against the embedding service and print the
-scrape metrics (port of the embedding path of ``repro/serve/cli.py``).
+"""Serve CLI: load-generate against the embedding or LM service and print
+the scrape metrics (port of ``repro/serve/cli.py``).
 
     # reduced end-to-end smoke: naive vs micro-batched + probes, on the CPU
     PYTHONPATH=src python -m repro_torch.serve.cli --smoke --device cpu
@@ -8,8 +8,15 @@ scrape metrics (port of the embedding path of ``repro/serve/cli.py``).
     PYTHONPATH=src python -m repro_torch.serve.cli --d 2048 --max-batch 256 \
         --probe-block 128
 
-The token-model paths (``--lm-arch``, continuous batching, paging, the
-fabric), pre-tuning and telemetry belong to later slices of the port.
+    # LM serving (reduced gemma2-2b): continuous batching vs whole-request
+    # greedy, paged KV cache vs dense, the in-flight probe vs its oracle
+    PYTHONPATH=src python -m repro_torch.serve.cli --smoke --lm-arch gemma2-2b \
+        --continuous --paged --block-size 16 --device cpu
+
+Like the reference, the LM paths serve ``cfg.reduced()``; ``chip_smoke.py``
+runs the full published width on the card.  Sampling, chunked prefill, the
+prefix cache, speculative decoding, the fabric, pre-tuning and telemetry
+belong to later slices of the port.
 """
 
 from __future__ import annotations
@@ -94,6 +101,100 @@ def _run_embedding(args) -> int:
     return 0 if g["microbatch_beats_naive"] or not args.gate else 1
 
 
+def _run_lm(args) -> int:
+    from repro_torch import resolve_device
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.serve.common import make_prompt, timed_generate
+    from repro_torch.serve.engine import LMServeEngine
+
+    device = resolve_device(args.device)
+    cfg = get_config(args.lm_arch).reduced()
+    params = init_params(cfg, seed=args.seed, device=device)
+    if args.continuous:
+        return _run_lm_continuous(args, cfg, params, device)
+    if args.paged:
+        raise SystemExit("--paged serves the continuous-batching pool; add --continuous")
+    engine = LMServeEngine(cfg, device)
+    prompt = make_prompt(cfg, args.seed + 1, args.max_batch, args.prompt_len, device=device)
+    out, stats = timed_generate(params, cfg, prompt, args.new_tokens, steps=engine.steps)
+    print(
+        f"[serve] lm arch={cfg.name} (reduced): batch={prompt.shape[0]} "
+        f"prompt={args.prompt_len} -> {args.new_tokens} tokens in "
+        f"{stats['seconds']:.2f}s ({stats['tok_per_s']:.1f} tok/s)"
+    )
+    print("sample:", out[0].tolist()[:8])
+    return 0
+
+
+def _run_lm_continuous(args, cfg, params, device) -> int:
+    """Continuous batching vs whole-request greedy on a mixed-length
+    workload (identical tokens required), the in-flight probe replayed
+    against its oracle, and with ``--paged`` the paged pool against the
+    dense one (identical tokens, peak cache bytes below the dense pool's)."""
+    from repro_torch.decorr.config import DecorrConfig
+    from repro_torch.serve.loadgen import LMLoadConfig, compare_lm_policies, compare_paged_dense
+    from repro_torch.serve.probes import DecorrProbe
+
+    engine_kw = dict(paged=True, page_size=args.block_size) if args.paged else {}
+    load = LMLoadConfig(n_requests=args.requests, seed=args.seed)
+    probe_cfg = DecorrConfig(style=args.probe_style, reg="sum", q=2, block_size=args.probe_block)
+    report = compare_lm_policies(
+        cfg, params, load, n_slots=args.slots,
+        probe_fn=lambda: DecorrProbe(probe_cfg, device=device),
+        record_probe_rows=True, engine_kw=engine_kw, device=device,
+    )
+    for name in ("whole_request", "continuous"):
+        r = report[name]
+        print(
+            f"[serve] {name:>14}: p50={r['p50_ms']:.2f}ms p99={r['p99_ms']:.2f}ms "
+            f"{r['tok_per_s']:.0f} tok/s ({r['requests']:.0f} requests)"
+        )
+    g = report["gate"]
+    m = report["service_metrics"]
+    probe_err = g.get("probe_oracle_rel_err")
+    print(
+        f"[serve] continuous-batching speedup: {g['speedup']:.2f}x "
+        f"(beats whole-request: {g['continuous_beats_whole_request']}, "
+        f"token mismatches: {g['token_mismatches']:.0f})"
+    )
+    print(
+        f"[serve] occupancy={m['slots_occupancy']:.2f} ttft_p50={m['ttft_p50_ms']:.2f}ms "
+        f"probe_steps={m.get('decorr_probe_steps', 0):.0f} "
+        f"probe_oracle_rel_err={float('nan') if probe_err is None else probe_err:.2e} "
+        f"dispatch_errors={m['dispatch_errors']:.0f}"
+    )
+    paged_ok = True
+    if args.paged:
+        rep = compare_paged_dense(
+            cfg, params, load, n_slots=args.slots, page_size=args.block_size or 16, device=device
+        )
+        pg = rep["gate"]
+        print(
+            f"[serve] paged vs dense: peak_cache_bytes_ratio={pg['peak_cache_bytes_ratio']:.3f} "
+            f"(paged<dense: {pg['paged_peak_lt_dense']}, token mismatches: {pg['token_mismatches']:.0f}, "
+            f"tok/s ratio {pg['tok_per_s_ratio']:.2f})"
+        )
+        paged_ok = pg["paged_peak_lt_dense"] and pg["token_mismatches"] == 0
+        report["paged_vs_dense"] = rep
+    if args.json:
+        print(json.dumps(report, indent=2, sort_keys=True, default=float))
+    # fail-closed: a probe that never fired a full window means the oracle
+    # check did not run
+    healthy = (
+        g["token_mismatches"] == 0
+        and probe_err is not None
+        and probe_err < 1e-3
+        and m["dispatch_errors"] == 0
+        and paged_ok
+    )
+    print(f"[serve] healthy={healthy} (tokens identical, probe vs oracle < 1e-3, no dispatch error"
+          + (", paged == dense and below its bytes)" if args.paged else ")"))
+    if not healthy:
+        return 1
+    return 0 if g["continuous_beats_whole_request"] or not args.gate else 1
+
+
 def main(argv=None) -> int:
     """Argparse entry point (see the module docstring for usage)."""
     p = argparse.ArgumentParser(prog="repro_torch.serve.cli", description=__doc__)
@@ -113,17 +214,35 @@ def main(argv=None) -> int:
     p.add_argument("--probe-style", default="vic", choices=["bt", "vic"])
     p.add_argument("--probe-block", type=int, default=None)
     p.add_argument("--gate", action="store_true",
-                   help="also exit 1 unless micro-batched throughput beats naive "
-                        "(every run exits 1 on a dispatch error, a probe that never "
-                        "fired, or a non-finite row or probe value)")
+                   help="also exit 1 unless micro-batched throughput beats naive (LM: "
+                        "continuous batching beats whole-request generate); every run "
+                        "exits 1 on a dispatch error, a probe that never fired, a "
+                        "non-finite value, or (LM) a token or probe-oracle mismatch")
     p.add_argument("--json", action="store_true", help="dump the full report as JSON")
     p.add_argument("--seed", type=int, default=0)
+    # token-model path
+    p.add_argument("--lm-arch", default=None, help="serve a token model instead (gemma2-2b)")
+    p.add_argument("--prompt-len", type=int, default=16)
+    p.add_argument("--new-tokens", type=int, default=8)
+    p.add_argument("--continuous", action="store_true",
+                   help="with --lm-arch: continuous batching vs whole-request generate "
+                        "on a mixed-length workload")
+    p.add_argument("--slots", type=int, default=8, help="continuous-batching decode slot pool size")
+    p.add_argument("--paged", action="store_true",
+                   help="with --continuous: paged (block-table) KV cache; also holds it "
+                        "against the dense pool (tokens, peak cache bytes)")
+    p.add_argument("--block-size", type=int, default=None,
+                   help="KV page size in tokens (default 16)")
     args = p.parse_args(argv)
 
     if args.smoke:
         args.requests = min(args.requests, 192)
         args.input_dim, args.backbone, args.d = 32, 64, 256
         args.max_batch = min(args.max_batch, 32)
+        if args.lm_arch and args.continuous:
+            args.requests = min(args.requests, 24)
+    if args.lm_arch:
+        return _run_lm(args)
     return _run_embedding(args)
 
 

@@ -1,5 +1,5 @@
-"""Load generation + policy comparison for the embedding path (port of the
-embedding part of ``repro/serve/loadgen.py``).
+"""Load generation + policy comparison for the serving paths (port of the
+embedding and LM parts of ``repro/serve/loadgen.py``).
 
 Deterministic synthetic traffic (seeded inputs, seeded exponential
 inter-arrivals — numpy, so the port and the reference see the same rows)
@@ -10,17 +10,22 @@ driven through two serving policies:
     coalesced by the admission policy into bucketed batches.
 
 Both report per-request p50/p99 latency and sustained throughput.
+
+The LM path runs a deterministic mixed-length workload (``LMLoadConfig``)
+through whole-request greedy generation and the continuous-batching
+service, dense and paged, and holds their tokens against each other.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch import DeviceLike
 from repro_torch.serve.buckets import BucketPolicy
 from repro_torch.serve.engine import ServeEngine
 from repro_torch.serve.service import EmbeddingService
@@ -128,3 +133,208 @@ def compare_policies(
         "speedup": micro["throughput_rps"] / max(naive["throughput_rps"], 1e-9),
     }
     return out
+
+
+# ---------------------------------------------------------------------------
+# LM path: whole-request generate vs continuous batching
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class LMLoadConfig:
+    """Mixed-length LM workload: request i draws its prompt length and token
+    budget round-robin from the ladders below (deterministic given seed;
+    the same numpy stream as the reference's)."""
+
+    n_requests: int = 24
+    prompt_lens: Tuple[int, ...] = (4, 8, 14, 24)
+    new_tokens: Tuple[int, ...] = (4, 12, 20)
+    seed: int = 0
+
+    def request_stream(self, vocab_size: int) -> List[Tuple[np.ndarray, int]]:
+        """Deterministic ``(tokens, max_new)`` request list."""
+        rng = np.random.default_rng(self.seed)
+        out = []
+        for i in range(self.n_requests):
+            s = self.prompt_lens[i % len(self.prompt_lens)]
+            m = self.new_tokens[(i // len(self.prompt_lens)) % len(self.new_tokens)]
+            out.append((rng.integers(0, vocab_size, size=s).astype(np.int32), int(m)))
+        return out
+
+    @property
+    def max_request_len(self) -> int:
+        """Worst-case rows one request needs (prompt + new tokens)."""
+        return max(self.prompt_lens) + max(self.new_tokens)
+
+
+def _lm_summary(latencies_s: List[float], tokens: int, wall_s: float) -> Dict[str, float]:
+    out = _summary(latencies_s, wall_s)
+    out["tokens"] = float(tokens)
+    out["tok_per_s"] = tokens / max(wall_s, 1e-9)
+    return out
+
+
+def run_whole_request(engine, params, load: LMLoadConfig, max_len: int) -> Tuple[Dict[str, float], List[np.ndarray]]:
+    """Each request runs greedy generation to completion at batch 1 before
+    the next starts; ``max_len`` is pinned for every request (the cache
+    extent the continuous engine uses).  One untimed pass warms up first."""
+    device = params["embed"].device
+    stream = load.request_stream(engine.cfg.vocab_size)
+
+    def one(tokens: np.ndarray, max_new: int) -> torch.Tensor:
+        out = engine.generate(params, torch.as_tensor(tokens[None], device=device), max_new, max_len=max_len)
+        _sync(out)
+        return out
+
+    for tokens, max_new in stream:
+        one(tokens, max_new)
+    lat, outs, n_tok = [], [], 0
+    t_run = time.perf_counter()
+    for tokens, max_new in stream:
+        t0 = time.perf_counter()
+        out = one(tokens, max_new)
+        lat.append(time.perf_counter() - t0)
+        outs.append(out[0].cpu().numpy())
+        n_tok += int(out.shape[1])
+    return _lm_summary(lat, n_tok, time.perf_counter() - t_run), outs
+
+
+def run_continuous(service, load: LMLoadConfig, timeout_s: float = 600.0):
+    """The workload through the continuous-batching service: all requests
+    submitted up front (closed-loop burst), drained by synchronous
+    decode-step ticks.  Returns (summary with TTFT percentiles, per-request
+    outputs)."""
+    stream = load.request_stream(service.engine.cfg.vocab_size)
+    service.warmup()
+    futures = []
+    t_run = time.perf_counter()
+    for tokens, max_new in stream:
+        futures.append(service.submit(tokens, max_new, block=True, timeout=timeout_s))
+    service.drain()
+    outs = [f.result(timeout=timeout_s) for f in futures]
+    wall = time.perf_counter() - t_run
+    summary = _lm_summary([f.latency_s for f in futures], sum(len(o) for o in outs), wall)
+    ttfts = [f.ttft_s for f in futures]
+    summary["ttft_p50_ms"] = float(np.percentile(ttfts, 50) * 1e3)
+    summary["ttft_p99_ms"] = float(np.percentile(ttfts, 99) * 1e3)
+    return summary, outs
+
+
+def compare_lm_policies(
+    arch_cfg,
+    params,
+    load: LMLoadConfig,
+    *,
+    n_slots: int = 8,
+    max_len: Optional[int] = None,
+    probe_fn=None,
+    record_probe_rows: bool = False,
+    engine_kw: Optional[Dict] = None,
+    device: DeviceLike = None,
+) -> Dict[str, Dict[str, float]]:
+    """Whole-request generate vs continuous batching on one mixed-length
+    workload; both must emit IDENTICAL token streams per request (greedy
+    decoding is deterministic, and slot interleaving must not change any
+    request's result).  ``engine_kw`` forwards engine options
+    (``paged=True``, ``page_size``, ...); both engines run on ``device``
+    (``cuda`` unless ``"cpu"`` is passed), where ``params`` must lie."""
+    from repro_torch.serve.engine import ContinuousLMEngine, LMServeEngine
+    from repro_torch.serve.service import LMService
+
+    max_len = int(max_len or max(load.max_request_len + 8, 32))
+    engine = ContinuousLMEngine(
+        arch_cfg, params, n_slots=n_slots, max_len=max_len,
+        max_prompt_len=max(load.prompt_lens), device=device, **(engine_kw or {}),
+    )
+    # the paged engine rounds max_len up to a page multiple; the oracle
+    # decodes at the SAME cache extent
+    max_len = engine.pool.max_len
+    whole, whole_outs = run_whole_request(LMServeEngine(arch_cfg, device), params, load, max_len)
+    probe = probe_fn() if probe_fn is not None else None
+    service = LMService(engine, probe=probe, record_probe_rows=record_probe_rows)
+    cont, cont_outs = run_continuous(service, load)
+    mismatches = sum(1 for a, b in zip(whole_outs, cont_outs) if not np.array_equal(a, b))
+    out = {
+        "whole_request": whole,
+        "continuous": cont,
+        "service_metrics": service.metrics(),
+        "gate": {
+            "continuous_beats_whole_request": cont["tok_per_s"] >= whole["tok_per_s"],
+            "speedup": cont["tok_per_s"] / max(whole["tok_per_s"], 1e-9),
+            "token_mismatches": float(mismatches),
+        },
+    }
+    if record_probe_rows:
+        err = lm_probe_oracle_err(service)
+        if err is not None:
+            out["gate"]["probe_oracle_rel_err"] = err
+    return out
+
+
+def compare_paged_dense(
+    arch_cfg,
+    params,
+    load: LMLoadConfig,
+    *,
+    n_slots: int = 8,
+    max_len: Optional[int] = None,
+    page_size: int = 16,
+    device: DeviceLike = None,
+) -> Dict[str, Dict[str, float]]:
+    """Dense vs paged continuous batching on one workload, on ``device``
+    (``cuda`` unless ``"cpu"`` is passed): identical greedy tokens per
+    request, tok/s for both, and the paged pool's PEAK allocated cache bytes
+    against the dense pool's permanent ``n_slots * max_len`` rows."""
+    from repro_torch.serve.engine import ContinuousLMEngine
+    from repro_torch.serve.paging import dense_cache_bytes
+    from repro_torch.serve.service import LMService
+
+    max_len = int(max_len or max(load.max_request_len + 8, 32))
+    max_len = -(-max_len // page_size) * page_size  # identical shapes both ways
+
+    def run(**engine_kw):
+        engine = ContinuousLMEngine(
+            arch_cfg, params, n_slots=n_slots, max_len=max_len,
+            max_prompt_len=max(load.prompt_lens), device=device, **engine_kw,
+        )
+        service = LMService(engine)
+        summary, outs = run_continuous(service, load)
+        return summary, outs, service
+
+    dense, dense_outs, _ = run()
+    paged, paged_outs, paged_svc = run(paged=True, page_size=page_size)
+    mismatches = sum(1 for a, b in zip(dense_outs, paged_outs) if not np.array_equal(a, b))
+    dense_bytes = dense_cache_bytes(arch_cfg, n_slots, max_len)
+    peak_bytes = paged_svc.engine.pager.peak_cache_bytes()
+    return {
+        "dense": dict(dense, cache_bytes=float(dense_bytes)),
+        "paged": dict(paged, **paged_svc.engine.pager.metrics()),
+        "gate": {
+            "token_mismatches": float(mismatches),
+            "paged_peak_lt_dense": bool(peak_bytes < dense_bytes),
+            "peak_cache_bytes_ratio": peak_bytes / max(dense_bytes, 1),
+            "tok_per_s_ratio": paged["tok_per_s"] / max(dense["tok_per_s"], 1e-9),
+        },
+    }
+
+
+def lm_probe_oracle_err(service) -> Optional[float]:
+    """Replay the last full probe window against the probe's offline oracle:
+    ``probe_metrics`` on the plain route (``impl="plain"``) with the same
+    step's permutation.  Needs ``record_probe_rows=True`` and a fired probe;
+    returns the max relative error across the exported metrics, or None."""
+    from repro_torch.decorr.probe import probe_metrics
+
+    probe = service.probe
+    if probe is None or probe.steps == 0 or not service.probe_rows:
+        return None
+    w = probe.sample_rows
+    flat = np.concatenate(service.probe_rows, axis=0)
+    step = probe.steps - 1
+    window = torch.as_tensor(flat[step * w : (step + 1) * w], device=probe.device)
+    perm = probe.permutation(step, window.shape[1])
+    oracle = probe_metrics(window, None, probe.cfg, perm, include_off=probe._include_off, impl="plain")
+    got = probe.metrics()
+    return max(
+        abs(got[f"decorr_{k}"] - float(v)) / max(abs(float(v)), 1e-6) for k, v in oracle.items()
+    )

@@ -124,6 +124,11 @@ class DecorrProbe:
 
     # -- scrape surface -----------------------------------------------------
 
+    @property
+    def steps(self) -> int:
+        """Probe updates folded so far (window t used ``permutation(t, d)``)."""
+        return self._step
+
     def feature_moments(self):
         """(EMA mean, EMA var) per feature — length-d drift vectors."""
         if self._mean_ema is None:

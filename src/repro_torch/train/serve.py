@@ -1,0 +1,176 @@
+"""Serving steps: prefill + decode factories, per-slot cache surgery and a
+batched greedy generator (port of ``repro/train/serve.py``).
+
+Continuous batching (``repro_torch.serve.engine.ContinuousLMEngine``) drives
+the decode step with a *vector* ``cache_len`` — one position per slot — and
+manages per-slot state with the surgery helpers below.
+
+JAX's functional updates (``.at[].set`` under ``donate_argnums``) become in
+place writes here: every helper mutates the pool it is given
+(``index_put_`` / ``index_copy_`` / ``zero_``) and returns it, and the step
+functions return the caches they were handed, written in place.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.models.common import ArchConfig
+from repro_torch.models.transformer import forward, init_caches, logits_from_hidden
+
+Tensor = torch.Tensor
+
+
+def make_prefill_step(cfg: ArchConfig):
+    """Prefill (B, S) prompts from row 0; returns (last-row logits (B, 1, V),
+    caches).  Only the last row goes through the LM head."""
+
+    def prefill(params, caches, tokens, impl=None):
+        out = forward(params, cfg, tokens, caches=caches, cache_len=0, impl=impl, head=False)
+        return logits_from_hidden(params, cfg, out.hidden[:, -1:]), out.caches
+
+    return prefill
+
+
+def make_decode_step(cfg: ArchConfig, return_hidden: bool = False):
+    """One-token decode step.  ``cache_len`` may be an int (whole-batch
+    position, the ``greedy_generate`` regime) or a (B,) tensor of per-slot
+    positions (continuous batching).  ``block_tables`` routes the paged
+    attention path when the caches are page pools; ``impl`` picks its route
+    (``models.attention.use_kernel``).  With ``return_hidden`` the step also
+    yields the final hidden state of the new token — the decorrelation
+    probe's sampling target for in-flight slots."""
+
+    def decode(params, caches, cache_len, tokens, block_tables=None, impl=None):
+        out = forward(params, cfg, tokens, caches=caches, cache_len=cache_len,
+                      block_tables=block_tables, impl=impl)
+        if return_hidden:
+            return out.logits[:, 0], out.hidden[:, 0], out.caches
+        return out.logits[:, 0], out.caches
+
+    return decode
+
+
+def make_prefill_at_step(cfg: ArchConfig):
+    """Prefill a right-padded prompt and read the outputs at the TRUE last
+    prompt token (``true_len - 1``), not the padded end.
+
+    Causal attention never lets position ``true_len - 1`` see the padding
+    rows, so the logits / hidden row are exactly the unpadded prefill's; the
+    cache rows the padding wrote are masked by the slot's ``cache_len``
+    during decode and overwritten as the slot advances.  Returns (logits
+    (B, V), hidden (B, d), caches)."""
+
+    def prefill_at(params, caches, tokens, true_len: int, impl=None):
+        out = forward(params, cfg, tokens, caches=caches, cache_len=0, impl=impl, head=False)
+        hidden = out.hidden[:, max(int(true_len) - 1, 0)]
+        return logits_from_hidden(params, cfg, hidden), hidden, out.caches
+
+    return prefill_at
+
+
+# ---------------------------------------------------------------------------
+# Per-slot cache pool surgery (continuous batching)
+# ---------------------------------------------------------------------------
+#
+# Dense leaves are (repeats, batch, ...) — axis 1 is the slot axis; paged
+# leaves are page pools (repeats, P, page, KV, hd) addressed through block
+# tables.  Every helper writes the pool in place and returns it.
+
+
+def _index(idx, device) -> Tensor:
+    return torch.as_tensor(np.asarray(idx), dtype=torch.long, device=device)
+
+
+def insert_slot_state(pool, one, slot: int):
+    """Copy a batch-1 cache tree ``one`` into slot ``slot`` of the dense pool
+    (leaf shapes (repeats, 1, ...) -> (repeats, B, ...))."""
+    for name, leafs in pool.items():
+        for key, leaf in leafs.items():
+            leaf[:, slot] = one[name][key][:, 0].to(leaf.dtype)
+    return pool
+
+
+def reset_slot_state(pool, slot: int):
+    """Zero slot ``slot`` across every leaf (decode masks freed slots by
+    ``cache_len`` anyway; zeroing keeps retired KV out of later reads)."""
+    for leafs in pool.values():
+        for leaf in leafs.values():
+            leaf[:, slot].zero_()
+    return pool
+
+
+def insert_slot_state_paged(pool, one, bt_row):
+    """Scatter a prefilled batch-1 DENSE cache tree ``one`` into the paged
+    pool: template rows [j * page, (j + 1) * page) land in physical page
+    ``bt_row[j]``.  Only the blocks the slot owns are written (the reference
+    also writes its unassigned, sentinel entries, whose rows page 0 absorbs
+    and no unmasked read ever sees; it also takes the slot for recurrent
+    state, which attention-only patterns lack).  ``bt_row``: (NB,) ints
+    with NB * page == the template's max_len."""
+    row = np.asarray(bt_row)
+    blocks = np.nonzero(row)[0]
+    if not blocks.size:
+        return pool
+    for name, leafs in pool.items():
+        page = leafs["k_pages"].shape[2]
+        dst = _index(row[blocks], leafs["k_pages"].device)
+        src = _index(blocks, leafs["k_pages"].device)
+        for key, dense in (("k_pages", "k"), ("v_pages", "v")):
+            rows = one[name][dense][:, 0]  # (repeats, L, KV, hd), L == NB * page
+            rows = rows.reshape(rows.shape[0], -1, page, *rows.shape[2:])
+            leafs[key][:, dst] = rows[:, src].to(leafs[key].dtype)
+    return pool
+
+
+def reset_slot_state_paged(pool, bt_row):
+    """Zero a retired slot's pages.  Sentinel entries of ``bt_row`` zero
+    page 0 too, which is harmless (it is never read unmasked)."""
+    for leafs in pool.values():
+        idx = _index(bt_row, leafs["k_pages"].device)
+        for key in ("k_pages", "v_pages"):
+            leafs[key][:, idx] = 0
+    return pool
+
+
+def apply_page_moves(pool, src, dst):
+    """Copy physical pages ``src[i] -> dst[i]`` across every paged leaf (the
+    device half of allocator compaction).  Every source page is read before
+    any destination is written — as the reference reads the old pool — so a
+    chain of moves (a -> b, b -> c) never sees a page that already moved.
+    Identity moves (src == dst) are no-ops."""
+    for leafs in pool.values():
+        s = _index(src, leafs["k_pages"].device)
+        d = _index(dst, leafs["k_pages"].device)
+        for key in ("k_pages", "v_pages"):
+            moved = leafs[key][:, s]  # a gathered copy: all reads first
+            leafs[key][:, d] = moved
+    return pool
+
+
+def greedy_generate(
+    params,
+    cfg: ArchConfig,
+    prompt_tokens: Tensor,
+    max_new_tokens: int,
+    max_len: Optional[int] = None,
+    steps: Optional[Tuple] = None,
+) -> Tensor:
+    """Host-loop batched greedy decoding.  ``prompt_tokens``: (B, S) ids on
+    the params' device; returns (B, max_new_tokens) int32 ids.  ``steps``:
+    an optional ``(prefill, decode)`` pair (``LMServeEngine`` passes its own)."""
+    b, s = prompt_tokens.shape[:2]
+    max_len = max_len or (s + max_new_tokens)
+    caches = init_caches(cfg, b, max_len, device=prompt_tokens.device)
+    if steps is None:
+        steps = (make_prefill_step(cfg), make_decode_step(cfg))
+    prefill, decode = steps
+    logits, caches = prefill(params, caches, prompt_tokens)
+    toks = [torch.argmax(logits[:, 0], dim=-1).to(torch.int32)]
+    for pos in range(s, s + max_new_tokens - 1):
+        logits, caches = decode(params, caches, pos, toks[-1][:, None])
+        toks.append(torch.argmax(logits, dim=-1).to(torch.int32))
+    return torch.stack(toks, dim=1)

@@ -210,10 +210,12 @@ def test_freq_outer_backward_counts_freq_mat_under_both(cuda_branch):
     b = torch.randn(3, 10, 5, requires_grad=True)
     torch.autograd.grad(tg.freq_outer(a, b).sum(), (a, b))
     assert kernels.launch_counts() == {
-        "cmatmul": 0, "ctwiddle": 0, "pmatmul": 0, "freq_outer": 1, "freq_mat": 2, "xcorr_offdiag": 0
+        "cmatmul": 0, "ctwiddle": 0, "pmatmul": 0, "freq_outer": 1, "freq_mat": 2, "xcorr_offdiag": 0,
+        "paged_attention": 0,
     }
     assert kernels.backward_launch_counts() == {
-        "cmatmul": 0, "ctwiddle": 0, "pmatmul": 0, "freq_outer": 2, "freq_mat": 2, "xcorr_offdiag": 0
+        "cmatmul": 0, "ctwiddle": 0, "pmatmul": 0, "freq_outer": 2, "freq_mat": 2, "xcorr_offdiag": 0,
+        "paged_attention": 0,
     }
 
 

@@ -6,6 +6,7 @@ no CUDA device is present.  On a GPU machine with the CUDA toolkit run
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -169,3 +170,111 @@ def test_ssl_train_step_on_card_matches_plain_route(dev, loss):
     torch.testing.assert_close(out[None][0], out["plain"][0], rtol=5e-4, atol=0.0)
     for a, b in zip(out[None][1], out["plain"][1]):
         torch.testing.assert_close(a, b, rtol=5e-4, atol=1e-5)
+
+
+def _paged_case(dev, b, h, kv, hd, page, lens, dtype, seed=0, q_gain=1.0):
+    """Seeded q (times ``q_gain``), page pools in ``dtype``, a permuted block
+    table with a ragged page count per slot (unused entries on the sentinel
+    page 0)."""
+    gen = torch.Generator().manual_seed(seed)
+    nb = -(-max(lens) // page)
+    need = [-(-n // page) for n in lens]
+    p_total = sum(need) + 1
+    ids = (torch.randperm(p_total - 1, generator=gen) + 1).tolist()
+    table = torch.zeros((b, nb), dtype=torch.int32)
+    for i, k in enumerate(need):
+        table[i, :k] = torch.tensor(ids[:k], dtype=torch.int32)
+        ids = ids[k:]
+    q = torch.randn(b, h, hd, generator=gen) * q_gain
+    kp = torch.randn(p_total, page, kv, hd, generator=gen).to(dtype)
+    vp = torch.randn(p_total, page, kv, hd, generator=gen).to(dtype)
+    lens_t = torch.tensor(lens, dtype=torch.int32)
+    return [t.to(dev) for t in (q, kp, vp, table, lens_t)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("softcap,window", [(0.0, 0), (30.0, 0), (0.0, 7), (50.0, 9)])
+@pytest.mark.parametrize(
+    "b,h,kv,hd,page,lens",
+    [(3, 4, 2, 16, 8, [5, 17, 32]), (8, 8, 4, 256, 16, [1, 5, 17, 24, 33, 44, 16, 40]), (2, 3, 1, 48, 5, [1, 23]),
+     (3, 8, 2, 128, 16, [70, 1, 33])],
+    ids=["reference-shape", "gemma2-shape", "odd-page-hd48-mqa", "hd128-nrep4"],
+)
+def test_paged_attention_kernel_matches_plain(dev, dtype, softcap, window, b, h, kv, hd, page, lens):
+    from repro_torch.kernels.paged_attention import kernel as K
+    from repro_torch.kernels.paged_attention.ops import paged_decode_plain
+
+    q, kp, vp, table, lens_t = _paged_case(dev, b, h, kv, hd, page, lens, dtype)
+    kw = dict(scale=hd ** -0.5, softcap=softcap, window=window)
+    before = K.paged_decode_attention.launches
+    got = K.paged_decode_attention(q, kp, vp, table, lens_t, **kw)
+    want = paged_decode_plain(q, kp, vp, table, lens_t, **kw)
+    torch.cuda.synchronize()
+    assert K.paged_decode_attention.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (b, h, hd)
+    torch.testing.assert_close(got, want, rtol=0.0, atol=2e-4 * max(1.0, float(want.abs().max())))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("softcap,window", [(30.0, 0), (50.0, 0), (50.0, 9)])
+def test_paged_attention_softcap_at_large_scores(dev, dtype, softcap, window):
+    """q * 40 at gemma2's shape lifts |scale * q.k| to ~30-150, where the cap
+    moves the output by far more than the tolerance (checked on the plain
+    version), so the kernel's tanh cap is what the comparison holds."""
+    from repro_torch.kernels.paged_attention import kernel as K
+    from repro_torch.kernels.paged_attention.ops import paged_decode_plain
+
+    lens = [1, 5, 17, 24, 33, 44, 16, 40]
+    q, kp, vp, table, lens_t = _paged_case(dev, 8, 8, 4, 256, 16, lens, dtype, seed=1, q_gain=40.0)
+    kw = dict(scale=1.0 / 16.0, window=window)
+    got = K.paged_decode_attention(q, kp, vp, table, lens_t, softcap=softcap, **kw)
+    want = paged_decode_plain(q, kp, vp, table, lens_t, softcap=softcap, **kw)
+    uncapped = paged_decode_plain(q, kp, vp, table, lens_t, **kw)
+    tol = 2e-4 * max(1.0, float(want.abs().max()))
+    assert float((want - uncapped).abs().max()) > 100 * tol
+    torch.testing.assert_close(got, want, rtol=0.0, atol=tol)
+
+
+def test_paged_attention_wrapper_rejects_wrong_layouts(dev):
+    from repro_torch.kernels.paged_attention import kernel as K
+
+    q, kp, vp, table, lens_t = _paged_case(dev, 2, 4, 2, 16, 8, [3, 9], torch.float32)
+    with pytest.raises(TypeError, match="int32"):
+        K.paged_decode_attention(q, kp, vp, table.long(), lens_t, scale=0.25)
+    with pytest.raises(ValueError, match="contiguous"):
+        K.paged_decode_attention(q.transpose(0, 1).contiguous().transpose(0, 1), kp, vp, table, lens_t, scale=0.25)
+    n = (kp.shape[0] - 1) * kp[0].numel()
+    shifted = kp.reshape(-1)[1 : 1 + n].reshape(kp.shape[0] - 1, *kp.shape[1:])  # contiguous, 4 bytes off
+    with pytest.raises(ValueError, match="16-byte"):
+        K.paged_decode_attention(q, shifted, shifted, table.clamp(max=shifted.shape[0] - 1), lens_t, scale=0.25)
+
+
+@pytest.mark.parametrize("page", [8, 16])
+def test_paged_engine_kernel_route_matches_plain_route(dev, page):
+    """Reduced gemma2 on the card: the paged engine's tokens on the kernel
+    route equal the plain (gather) route's, and the kernel launched once per
+    layer per decode tick."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.serve.engine import ContinuousLMEngine
+    from repro_torch.serve.service import LMService
+
+    cfg = get_config("gemma2-2b").reduced()
+    params = init_params(cfg, seed=0, device=dev)
+    rng = np.random.default_rng(0)
+    spec = [(rng.integers(0, cfg.vocab_size, s).astype(np.int32), m) for s, m in
+            [(4, 5), (9, 3), (13, 8), (24, 2), (1, 4), (7, 7)]]
+    outs = {}
+    for impl in (None, "plain"):
+        eng = ContinuousLMEngine(cfg, params, n_slots=4, max_len=48, max_prompt_len=24,
+                                 paged=True, page_size=page, impl=impl, device=dev)
+        svc = LMService(eng).warmup()
+        kernels.reset_launch_counts()
+        futs = [svc.submit(t, m) for t, m in spec]
+        svc.drain()
+        outs[impl] = [f.result(timeout=30) for f in futs]
+        launches = kernels.launch_counts()["paged_attention"]
+        assert launches == (cfg.n_layers * eng.pool.steps if impl is None else 0)
+    for a, b in zip(outs[None], outs["plain"]):
+        np.testing.assert_array_equal(a, b)

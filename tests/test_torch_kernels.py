@@ -12,6 +12,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels.grouped_sumvec import kernel as rg  # noqa: E402
 from repro.kernels.sumvec_fft import kernel as rf  # noqa: E402
 from repro_torch.kernels.grouped_sumvec import kernel as tg  # noqa: E402
+from repro_torch.kernels.paged_attention import kernel as pk  # noqa: E402
 from repro_torch.kernels.sumvec_fft import kernel as tf  # noqa: E402
 from repro_torch.kernels.xcorr_offdiag import kernel as xk  # noqa: E402
 
@@ -88,6 +89,11 @@ def test_cpu_route_never_counts_a_launch():
     tg.freq_outer(torch.ones(2, 3, 4), torch.ones(2, 3, 4))
     tg.freq_mat(torch.ones(2, 3, 4), torch.ones(2, 4, 5))
     xk.off_diagonal_sq_sum_raw(torch.ones(3, 4), torch.ones(3, 4))
-    zeros = {"cmatmul": 0, "ctwiddle": 0, "pmatmul": 0, "freq_outer": 0, "freq_mat": 0, "xcorr_offdiag": 0}
+    pk.paged_decode_attention(
+        torch.ones(2, 4, 8), torch.ones(3, 4, 2, 8), torch.ones(3, 4, 2, 8),
+        torch.ones(2, 2, dtype=torch.int32), torch.full((2,), 5, dtype=torch.int32), scale=0.5,
+    )
+    zeros = {"cmatmul": 0, "ctwiddle": 0, "pmatmul": 0, "freq_outer": 0, "freq_mat": 0, "xcorr_offdiag": 0,
+             "paged_attention": 0}
     assert kernels.launch_counts() == zeros
     assert kernels.backward_launch_counts() == zeros

@@ -106,6 +106,7 @@ def _rows():
     x = arr(21, 12)
     out.append(row("serve/engine encode", "n=21 (two buckets)", port.encode(x), np.asarray(ref.encode(x))))
     out.extend(_training_rows(arr, row))
+    out.extend(_lm_rows(row))
     return out
 
 
@@ -266,6 +267,84 @@ def _curve_rows(row):
                 got.append(float(m[f"{kw['style']}_loss"]))
             out.append(row("train/ssl make_ssl_train_step", f"20-step loss curve, {arm}, {impl} route",
                            np.array(got), np.array(want)))
+    return out
+
+
+def _lm_rows(row):
+    """The LM serving slice on reduced gemma2-2b (the reference's weights):
+    the paged kernel's plain version, the model's forward / prefill /
+    decode, and the engine's tokens, paged and dense."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from repro.configs import get_config as ref_config
+    from repro.kernels.paged_attention import ops as rpo
+    from repro.models import init_params as ref_init
+    from repro.models.transformer import forward as ref_forward
+    from repro.models.transformer import init_caches as ref_caches
+    from repro.models.transformer import init_paged_caches as ref_paged
+    from repro.serve.engine import LMServeEngine as RefLM
+    from repro.train import serve as rserve
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.paged_attention.ops import paged_decode_plain
+    from repro_torch.models import forward, init_caches, params_from_jax
+    from repro_torch.serve.engine import ContinuousLMEngine
+    from repro_torch.serve.service import LMService
+    from repro_torch.train import serve
+
+    rng = np.random.default_rng(5)
+    out = []
+    b, h, kv, hd, page, nb = 3, 4, 2, 16, 8, 4
+    p_total = b * nb + 1
+    xs = [rng.standard_normal(s).astype(np.float32) for s in ((b, h, hd), (p_total, page, kv, hd), (p_total, page, kv, hd))]
+    xs += [rng.permutation(np.arange(1, p_total))[: b * nb].reshape(b, nb).astype(np.int32), np.asarray([5, 17, 32], np.int32)]
+    for softcap, window in ((0.0, 0), (30.0, 0), (0.0, 7), (50.0, 9)):
+        kw = dict(scale=0.25, softcap=softcap, window=window)
+        out.append(row("kernels/paged_attention paged_decode_plain", f"softcap={softcap:g} window={window} vs Pallas",
+                       paged_decode_plain(*(torch.from_numpy(x) for x in xs), **kw),
+                       np.asarray(rpo.paged_decode_attention(*(jnp.asarray(x) for x in xs), **kw))))
+    rcfg, cfg = ref_config("gemma2-2b").reduced(), get_config("gemma2-2b").reduced()
+    rparams = ref_init(jax.random.PRNGKey(0), rcfg)
+    params = params_from_jax(cfg, jax.tree.map(np.asarray, rparams), device="cpu")
+    toks = rng.integers(0, cfg.vocab_size, (2, 20)).astype(np.int32)
+    want, got = ref_forward(rparams, rcfg, tokens=jnp.asarray(toks)), forward(params, cfg, torch.from_numpy(toks))
+    out.append(row("models/transformer forward", "score (2,20): logits", got.logits, np.asarray(want.logits)))
+    out.append(row("models/transformer forward", "score (2,20): hidden", got.hidden, np.asarray(want.hidden)))
+    wl, wc = rserve.make_prefill_step(rcfg)(rparams, ref_caches(rcfg, 2, 32), tokens=jnp.asarray(toks))
+    gl, gc = serve.make_prefill_step(cfg)(params, init_caches(cfg, 2, 32, "cpu"), torch.from_numpy(toks))
+    out.append(row("train/serve make_prefill_step", "(2,20): logits + k/v caches",
+                   [gl] + [v for leafs in gc.values() for v in leafs.values()],
+                   [np.asarray(wl)] + [np.asarray(v) for leafs in wc.values() for v in leafs.values()]))
+    step, rstep = serve.make_decode_step(cfg, return_hidden=True), rserve.make_decode_step(rcfg, return_hidden=True)
+    cl = np.asarray([20, 19], np.int32)
+    nxt = rng.integers(0, cfg.vocab_size, (2, 1)).astype(np.int32)
+    w = rstep(rparams, wc, jnp.asarray(cl), tokens=jnp.asarray(nxt))
+    g = step(params, gc, torch.from_numpy(cl), torch.from_numpy(nxt))
+    out.append(row("train/serve make_decode_step", "dense, per-slot cache_len: logits + hidden",
+                   [g[0], g[1]], [np.asarray(w[0]), np.asarray(w[1])]))
+    vals = jax.tree.map(lambda x: rng.standard_normal(x.shape).astype(np.float32), ref_paged(rcfg, b, p_total, page))
+    tables, cl = xs[3], np.asarray([4, 27, 17], np.int32)
+    nxt = rng.integers(0, cfg.vocab_size, (b, 1)).astype(np.int32)
+    w = rstep(rparams, jax.tree.map(jnp.asarray, vals), jnp.asarray(cl), tokens=jnp.asarray(nxt),
+              block_tables=jnp.asarray(tables))
+    for impl in (None, "kernel"):
+        pools = {n: {k: torch.from_numpy(v.copy()) for k, v in leafs.items()} for n, leafs in vals.items()}
+        g = step(params, pools, torch.from_numpy(cl), torch.from_numpy(nxt), block_tables=torch.from_numpy(tables), impl=impl)
+        out.append(row("train/serve make_decode_step",
+                       f"paged, {'gather route' if impl is None else 'kernel wrapper (plain)'}: logits + hidden",
+                       [g[0], g[1]], [np.asarray(w[0]), np.asarray(w[1])]))
+    spec = [(rng.integers(0, cfg.vocab_size, s).astype(np.int32), m) for s, m in ((4, 5), (9, 3), (13, 8), (24, 2), (1, 4), (7, 7))]
+    steps = RefLM(rcfg).steps
+    want = np.concatenate([np.asarray(rserve.greedy_generate(rparams, rcfg, jnp.asarray(t[None]), m, max_len=48,
+                                                             steps=steps))[0] for t, m in spec])
+    for kw in ({}, dict(paged=True, page_size=16), dict(paged=True, page_size=8)):
+        svc = LMService(ContinuousLMEngine(cfg, params, n_slots=4, max_len=48, max_prompt_len=24, device="cpu", **kw)).warmup()
+        futs = [svc.submit(t, m) for t, m in spec]
+        svc.drain()
+        got = np.concatenate([f.result(timeout=30) for f in futs])
+        out.append(row("serve/engine ContinuousLMEngine", f"{'paged page ' + str(kw['page_size']) if kw else 'dense'}: "
+                       f"{len(got)} greedy tokens vs greedy_generate", got.astype(np.float64), want.astype(np.float64)))
     return out
 
 
