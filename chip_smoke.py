@@ -42,7 +42,7 @@ Phases (any failed check exits non-zero and prints no result):
      must agree within 5e-4 relative, and every kernel of an arm must have
      launched on the forward and (but xcorr_offdiag, whose backward is torch
      products) the backward pass.  Prints median step ms per arm and route,
-     then a profiler pass over 10 warmed steps of arm (a).
+     then a profiler pass over 10 warmed steps of arms (a) and (b) each.
   5. lm — paged continuous-batching LM serving of ``gemma2-2b`` at its full
      published width and depth (26 layers, d = 2304, 8 query / 4 kv heads of
      256, vocab 256000; random weights from ``init_params(seed=0)``) through
@@ -273,8 +273,11 @@ def _kernel_cases(dev):
             nbytes, flops,
         ))
 
-    def ctw(label, rows, d):
-        xr, xi, wr, wi = rand(rows, d), rand(rows, d), rand(d), rand(d)
+    def view(offset, *shape):  # contiguous, ``offset`` floats into its buffer
+        return rand(offset + shape[0] * shape[1])[offset:].view(*shape)
+
+    def ctw(label, rows, d, offset=0):
+        xr, xi, wr, wi = view(offset, rows, d), rand(rows, d), rand(d), rand(d)
         xc, wc = torch.complex(xr, xi), torch.complex(wr, wi)
         cases.append((
             "ctwiddle", label,
@@ -284,8 +287,8 @@ def _kernel_cases(dev):
             4 * (4 * rows * d + 2 * d), 6 * rows * d,
         ))
 
-    def pmm(label, m, k, nn, basis=None):
-        a = rand(m, k)
+    def pmm(label, m, k, nn, basis=None, offset=0):
+        a = view(offset, m, k)
         bmat = rand(k, nn) if basis is None else basis
         cases.append((
             "pmatmul", label,
@@ -365,6 +368,22 @@ def _kernel_cases(dev):
         cmm_bwd(f"bwd d={d} stage1 dA ({n * p.d2},{p.d1})x({p.d1},{p.d1}) real out", n * p.d2, p.d1, p.d1, True)
         cmm_bwd(f"bwd d={d} stage3 dA ({n * p.d1},{p.d2})x({p.d2},{p.d2})", n * p.d1, p.d2, p.d2, False)
         pmm(f"bwd d={d} block DFT dA ({n * nb},{2 * nf})x({2 * nf},{b})", n * nb, 2 * nf, b, block_basis_t)
+    # the other paths of the redesigned kernels: ctwiddle with d % 4 != 0 (the
+    # padded plan of d = 61), an operand at an odd offset, rows not a multiple
+    # of the 4 a thread owns; pmatmul with N = 65 and N = 300 (past a block's
+    # 132 columns), the vjp's dB (K = 4096, many ring stages), M = 1, A at an
+    # odd offset, K = 130 (A resident, as in the bwd dA above) at an odd
+    # offset, K = 257 (too deep to stay resident, a 1-deep last slice)
+    ctw(f"edge dp=121 twiddle ({n},121)", n, 121)
+    ctw("edge xr at +4 bytes twiddle (256,2048)", n, 2048, offset=1)
+    ctw("edge rows=257 twiddle (257,2048)", 257, 2048)
+    pmm("edge N=65 (300,128)x(128,65)", 300, 128, 65)
+    pmm(f"edge bwd dB ({b},4096)x(4096,{2 * nf})", b, 4096, 2 * nf)
+    pmm(f"edge M=1 (1,{b})x({b},{2 * nf})", 1, b, 2 * nf, block_basis)
+    pmm(f"edge A at +4 bytes ({16 * n},{b})x({b},{2 * nf})", 16 * n, b, 2 * nf, block_basis, offset=1)
+    pmm(f"edge K=130 A at +4 bytes (300,{2 * nf})x({2 * nf},{b})", 300, 2 * nf, b, block_basis_t, offset=1)
+    pmm(f"edge K=257 (77,257)x(257,{2 * nf})", 77, 257, 2 * nf)
+    pmm("edge N=300 (70,40)x(40,300)", 70, 40, 300)
     p = fft_plan(2039)  # prime: padded plan, q = 1 needs the inverse pipeline
     cmm(f"d=2039 dp={p.dp} stage1 ({n * p.d2},{p.d1})x({p.d1},{p.d1}) real A", n * p.d2, p.d1, p.d1, True)
     ctw(f"d=2039 dp={p.dp} twiddle ({n},{p.dp})", n, p.dp)
@@ -828,7 +847,7 @@ def phase_train(ph: Phase, dev):
 
     batches = _train_batches(dev, TRAIN_STEPS)
     fwd_total, bwd_total = {}, {}
-    profile_from = None
+    profiled = []  # the R_sum arms, (a) grouped and (b) ungrouped
     for arm, (loss_kw, names) in ARMS.items():
         k_grads, k_loss, k_ms, fwd, bwd, k_state, k_step = _train_route(dev, loss_kw, None, batches)
         p_grads, p_loss, p_ms, _, _, _, _ = _train_route(dev, loss_kw, "plain", batches)
@@ -852,9 +871,10 @@ def phase_train(ph: Phase, dev):
             f"launches fwd {dict((k, v) for k, v in fwd.items() if v)} bwd {dict((k, v) for k, v in bwd.items() if v)}",
             flush=True,
         )
-        if profile_from is None:
-            profile_from = (arm, k_state, k_step)
-    _profile_train(dev, batches, *profile_from)
+        if len(profiled) < 2:
+            profiled.append((arm, names, k_state, k_step))
+    for prof in profiled:
+        _profile_train(dev, batches, *prof)
     _sensitivity(dev, batches)
     return fwd_total, bwd_total
 
@@ -874,7 +894,7 @@ def _sensitivity(dev, batches):
     )
 
 
-def _profile_train(dev, batches, arm, state, step):
+def _profile_train(dev, batches, arm, names, state, step):
     """PROFILE_STEPS warmed steps of one arm under the profiler: wall time vs
     summed device time (idle share) and the largest device items."""
     import torch
@@ -896,7 +916,7 @@ def _profile_train(dev, batches, arm, state, step):
     busy_ms = sum(by_name.values()) / 1e3
     wall_ms = wall[0] * 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    ours = {k: sum(us for n, us in events if f"{k}_kernel" in n) / 1e3 for k in ("pmatmul", "freq_outer", "freq_mat")}
+    ours = {k: sum(us for n, us in events if f"{k}_kernel" in n) / 1e3 for k in names}
     print(
         f"[profile] train {arm}: {PROFILE_STEPS} steps wall_ms={wall_ms:.3f} device_busy_ms={busy_ms:.4f} "
         f"idle_share={1 - busy_ms / wall_ms:.4f} device events={len(events)} | ported kernels ms: "

@@ -128,12 +128,21 @@ def launch(family: str, name: str, device: torch.device, *args) -> None:
     """Call ``<family>_<name>`` on ``device``'s current stream and raise if
     the launch failed.  ``args``: CUDA tensors (passed by data pointer),
     None (a NULL pointer), Python ints (C ints) or floats (C floats), in the
-    C signature's order; the stream is appended.  Does not synchronise."""
+    C signature's order; the stream is appended.  Does not synchronise.
+
+    The common case — ``device`` is already the current device — costs one
+    raw stream lookup and the ctypes call: no device guard is entered and no
+    ``torch.cuda.Stream`` object is built."""
     fn = _function(family, name, args)
     conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if index == current:
         code = fn(*conv, stream)
+    else:
+        with torch.cuda.device(index):
+            code = fn(*conv, stream)
     _check_status(family, code, name)
 
 

@@ -19,10 +19,25 @@
 //
 // Design.  On the TPU the K grid axis carried the sum in the resident output
 // block; here the loop over K runs inside one CUDA block, so every output is
-// one fixed-order f32 FMA chain (no atomics, deterministic).
-//   pmatmul: a 64 x 64 output tile per block, 16-deep K slices of A and B in
-//   shared memory, 4 x 4 register outputs per thread (rows ty + 16 i,
-//   columns tx + 16 j: conflict-free shared reads, coalesced stores).
+// a fixed-order f32 FMA sum (no atomics, deterministic).
+//   pmatmul (redesigned): a block owns 16 rows and all of N up to 132
+//   columns, so the DFT's N = 130 and its vjp's N = 128 need one block
+//   column, not three 64-wide tiles of which the last holds 2 live columns.
+//   A producer warp keeps a 4-stage ring of 32-deep K slices in flight: B's
+//   slice (the contiguous slab b[k0 N, (k0 + 32) N) where N <= 132) by one
+//   bulk copy of the copy engine, A's by cp.async in 16-byte pieces.  Where
+//   A's rows are not 16-byte aligned (the vjp's K = 130, the q = 1
+//   synthesis' K = 65) the block's 16 rows of A, contiguous in memory, stay
+//   resident instead, one bulk copy: 8- or 4-byte cp.async pieces cost the
+//   warp's load units about a cycle each.  Four consumer warps hold 8 x 4
+//   register tiles fed by 4-float shared reads (12 reads per 128 FMAs); two
+//   of them take each slice's first 16 k, two the last 16, and their sums
+//   are added in a fixed order at the end.  Measured on NVIDIA H100 80GB
+//   HBM3, 700 W (tools/kernel_ab.py, PERF.md): 16 rows a block (256 blocks
+//   at M = 4096, two per SM) beat 32 and 8; 3 stages came within 2 % of 4,
+//   6 lost.
+//   Every block reads all of B (66.5 KB at the main shape), so L2 traffic
+//   as much as the FMAs holds it above its bound.
 //   freq_outer: one block per (frequency, 16 x 16 output tile), one output
 //   per thread, 64-deep slices of a[f] and b[f] staged in shared memory.  The
 //   group axis N = d / b is small (16 at d = 2048), so a one-output-per-thread
@@ -41,76 +56,389 @@
 
 #include <cuda_runtime.h>
 
+#include <atomic>
+
 namespace {
 
-constexpr int BM = 64;
-constexpr int BN = 64;
-constexpr int BK = 16;
-constexpr int TPB = 256;
+constexpr int PM_BM = 16;                      // rows of A (and C) a block owns
+constexpr int PM_TM = 8;                       // rows a thread owns
+constexpr int PM_RG = PM_BM / PM_TM;           // row groups
+constexpr int PM_KH = 2;                       // K halves: two warps share a row group
+constexpr int PM_CONSUMERS = 32 * PM_RG * PM_KH;
+constexpr int PM_THREADS = PM_CONSUMERS + 32;  // + one producer warp
+constexpr int PM_BN = 132;                     // columns a block owns: 32 lanes x 4, and a tail of 4
+constexpr int PM_KC = 32;                      // K depth of one ring stage
+constexpr int PM_STAGES = 4;
+constexpr int PM_AP = PM_KC + 4;               // row pitch of the A tile (floats)
+constexpr int PM_A_FLOATS = PM_BM * PM_AP;
+constexpr int PM_STAGE_FLOATS = PM_A_FLOATS + PM_KC * PM_BN;
+constexpr int PM_KPANEL = 256;                 // K up to which A's 16 rows may stay resident
+constexpr int PM_PANEL_FLOATS = PM_BM * PM_KPANEL + 4;  // + the last step's overhang
+constexpr int PM_RED_FLOATS = (PM_TM * 4 + 1) * 32 * PM_RG;  // one K half's sums
+// shared memory: the ring, the A panel (only when resident), the K half's
+// sums, the barriers
+constexpr int PM_SMEM_RING = (PM_STAGES * PM_STAGE_FLOATS + PM_RED_FLOATS) * 4 + 2 * PM_STAGES * 8;
+constexpr int PM_SMEM_PANEL = PM_SMEM_RING + PM_PANEL_FLOATS * 4;
 
-__global__ void __launch_bounds__(TPB) pmatmul_kernel(
-    const float* __restrict__ a, const float* __restrict__ b, float* __restrict__ c,
-    int M, int K, int N) {
-  __shared__ float sa[BK][BM + 1];
-  __shared__ float sb[BK][BN];
+// A stays resident where its rows could go only in 8- or 4-byte pieces
+// (K % 4 != 0: the vjp's K = 130, the q = 1 synthesis' K = 65)
+__host__ __device__ inline bool resident_a(int K) { return K <= PM_KPANEL && K % 4 != 0; }
 
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
 
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
 
-  for (int k0 = 0; k0 < K; k0 += BK) {
-#pragma unroll
-    for (int r = 0; r < (BM * BK) / TPB; ++r) {
-      const int e = tid + r * TPB;
-      const int kk = e % BK;
-      const int mm = e / BK;
-      const int gm = m0 + mm;
-      const int gk = k0 + kk;
-      sa[kk][mm] = (gm < M && gk < K) ? a[(long long)gm * K + gk] : 0.f;
-    }
-#pragma unroll
-    for (int r = 0; r < (BK * BN) / TPB; ++r) {
-      const int e = tid + r * TPB;
-      const int nn = e % BN;
-      const int kk = e / BN;
-      const int gk = k0 + kk;
-      const int gn = n0 + nn;
-      sb[kk][nn] = (gk < K && gn < N) ? b[(long long)gk * N + gn] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float x[4], y[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) x[i] = sa[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) y[j] = sb[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(x[i], y[j], acc[i][j]);
-    }
-    __syncthreads();
+__device__ __forceinline__ void mbar_arrive(unsigned bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
+}
+
+// wait for the completion of the barrier's phase of this parity
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// one arrival on ``bar`` once this thread's earlier cp.async copies have landed
+__device__ __forceinline__ void cp_async_arrive(unsigned bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+
+// ``bytes`` (a multiple of 16, both ends 16-byte aligned) by the copy engine;
+// completion is counted in ``bar``'s transaction bytes
+__device__ __forceinline__ void bulk_copy(unsigned dst, const void* src, unsigned bytes, unsigned bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
+               "l"(src), "r"(bytes), "r"(bar)
+               : "memory");
+}
+
+// W floats (4, 8 or 16 bytes) by one thread, asynchronously: the first
+// ``bytes`` from ``src``, zeros for the rest
+template <int W>
+__device__ __forceinline__ void cp_async(float* dst, const float* src, unsigned bytes) {
+  if constexpr (W == 4) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src), "r"(bytes)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(smem_addr(dst)), "l"(src), "n"(4 * W),
+                 "r"(bytes)
+                 : "memory");
   }
+}
 
+// The producer warp stages rows [r0, r0 + ROWS) x columns [c0, c0 + COLS) of
+// a row-major (R, C) matrix with row stride ld (shared row pitch ``pitch``)
+// in pieces of W floats, zeros outside; C % W == 0, so a piece is wholly
+// inside or outside.
+template <int W, int ROWS, int COLS>
+__device__ __forceinline__ void stage_tile(float* s, int pitch, const float* g, int ld, int r0, int c0, int R,
+                                           int C, int lane) {
+  constexpr int PER_ROW = COLS / W;
+  for (int e = lane; e < ROWS * PER_ROW; e += 32) {
+    const int r = e / PER_ROW;
+    const int c = (e % PER_ROW) * W;
+    const bool in = r0 + r < R && c0 + c < C;
+    cp_async<W>(s + r * pitch + c, in ? g + (long long)(r0 + r) * ld + c0 + c : g, in ? 4 * W : 0);
+  }
+}
+
+// ... and the ``count`` floats g[base, base + count) of a buffer of ``end``
+// floats, contiguous (W | base), zeros past its end
+template <int W>
+__device__ __forceinline__ void stage_flat(float* s, const float* g, long long base, int count, long long end,
+                                           int lane) {
+  for (int f = lane * W; f < count; f += 32 * W) {
+    const long long left = end - (base + f);
+    const unsigned bytes = left >= W ? 4 * W : left > 0 ? 4 * (unsigned)left : 0;
+    cp_async<W>(s + f, bytes ? g + base + f : g, bytes);
+  }
+}
+
+__device__ __forceinline__ void stage_flat_w(int w, float* s, const float* g, long long base, int count,
+                                             long long end, int lane) {
+  if (w == 4) stage_flat<4>(s, g, base, count, end, lane);
+  else if (w == 2) stage_flat<2>(s, g, base, count, end, lane);
+  else stage_flat<1>(s, g, base, count, end, lane);
+}
+
+template <int ROWS, int COLS>
+__device__ __forceinline__ void stage_tile_w(int w, float* s, int pitch, const float* g, int ld, int r0, int c0,
+                                             int R, int C, int lane) {
+  if (w == 4) stage_tile<4, ROWS, COLS>(s, pitch, g, ld, r0, c0, R, C, lane);
+  else if (w == 2) stage_tile<2, ROWS, COLS>(s, pitch, g, ld, r0, c0, R, C, lane);
+  else stage_tile<1, ROWS, COLS>(s, pitch, g, ld, r0, c0, R, C, lane);
+}
+
+// four consecutive floats of a row in shared memory: one 16-byte load where
+// the pitch allows, else two 8-byte or four 4-byte loads
+template <int R>
+__device__ __forceinline__ float4 load4(const float* p) {
+  if constexpr (R == 4) {
+    return *reinterpret_cast<const float4*>(p);
+  } else if constexpr (R == 2) {
+    const float2 lo = *reinterpret_cast<const float2*>(p);
+    const float2 hi = *reinterpret_cast<const float2*>(p + 2);
+    return make_float4(lo.x, lo.y, hi.x, hi.y);
+  } else {
+    return make_float4(p[0], p[1], p[2], p[3]);
+  }
+}
+
+// k = 4 k4 .. 4 k4 + 3 of one stage into a thread's 8 x 4 tile (and its
+// tail output): 8 reads of 4 floats of A (broadcast: a warp shares its rows),
+// 4 of B, 128 (+ 4) FMAs in k order; with PART only the first ``live`` k
+// (the last slice of a K that is no multiple of 4).  A rows at ``apitch``,
+// B rows at ``bpitch``.
+template <int AR, int BR, bool PART>
+__device__ __forceinline__ void pm_step(const float* sa, int apitch, const float* sb, int bpitch, int k4, int live,
+                                        int rg, int lane, bool tail, float (&acc)[PM_TM][4], float& acc_t) {
+  float4 av[PM_TM], bv[4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gm = m0 + ty + 16 * i;
-    if (gm >= M) continue;
+  for (int i = 0; i < PM_TM; ++i) av[i] = load4<AR>(sa + (rg * PM_TM + i) * apitch + 4 * k4);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gn = n0 + tx + 16 * j;
-      if (gn < N) c[(long long)gm * N + gn] = acc[i][j];
+  for (int kk = 0; kk < 4; ++kk) bv[kk] = load4<BR>(sb + (4 * k4 + kk) * bpitch + 4 * lane);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    if (PART && 4 * k4 + kk >= live) break;
+    const float4 y = bv[kk];
+#pragma unroll
+    for (int i = 0; i < PM_TM; ++i) {
+      const float x = kk == 0 ? av[i].x : kk == 1 ? av[i].y : kk == 2 ? av[i].z : av[i].w;
+      acc[i][0] = fmaf(x, y.x, acc[i][0]);
+      acc[i][1] = fmaf(x, y.y, acc[i][1]);
+      acc[i][2] = fmaf(x, y.z, acc[i][2]);
+      acc[i][3] = fmaf(x, y.w, acc[i][3]);
     }
   }
+  if (tail) {
+    const float4 x = load4<AR>(sa + (rg * PM_TM + lane / 4) * apitch + 4 * k4);
+    const float* y = sb + 4 * k4 * bpitch + 128 + lane % 4;
+    const float xs[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      if (PART && 4 * k4 + kk >= live) break;
+      acc_t = fmaf(xs[kk], y[kk * bpitch], acc_t);
+    }
+  }
+}
+
+// C = A @ B, A (M, K), B (K, N), row-major f32.  A block owns PM_BM = 16
+// rows and PM_BN = 132 columns of C, so N = 128 and N = 130 take one block
+// column.  Warp specialised:
+//   * one producer warp fills a ring of PM_STAGES stages, each a PM_KC-deep
+//     slice of B (and of A when K > PM_KPANEL).  Where N <= PM_BN the B
+//     slice is the contiguous slab b[k0 N, (k0 + PM_KC) N), kept at pitch N,
+//     and goes by one bulk copy (the copy engine, not the warp's load units)
+//     when b is 16-byte aligned.  Where A's rows are not 16-byte aligned
+//     (K % 4 != 0) and K <= PM_KPANEL the block's 16 rows of A, contiguous
+//     in memory, stay resident at pitch K, loaded with the first slice by
+//     one bulk copy where a is 16-byte aligned (the vjp's K = 130, the q = 1
+//     synthesis' K = 65).  Anything else goes by
+//     cp.async in aw- / bw-float pieces with zero fill: A otherwise in
+//     PM_KC-deep slices at pitch PM_AP, B otherwise, and the last slice
+//     of a K that is no multiple of PM_KC (the flat B slab only as deep as
+//     the consumers read).  A stage is full when its barrier has the
+//     producer's 33 arrivals and the bulk bytes; the consumers' 4 arrivals
+//     free it again.
+//   * four consumer warps: warp (h, rg) owns rows 8 rg .. 8 rg + 7; lane l
+//     owns columns 4 l .. 4 l + 3 of them (an 8 x 4 register tile) and,
+//     where the block's columns run past 128, tail output (row 8 rg + l / 4,
+//     column 128 + l % 4).  Warp h takes k % PM_KC in [16 h, 16 h + 16) of
+//     every slice, and no k past K; at the end the two halves' sums are
+//     added in shared memory, h = 0's first.  So every output is two f32
+//     FMA chains in k order and one add, always in that order:
+//     deterministic, no atomics.
+// AR, BR: the float width of A and B reads (4, 2 or 1, from the pitch).
+template <int AR, int BR>
+__global__ void __launch_bounds__(PM_THREADS) pmatmul_kernel(
+    const float* __restrict__ a, const float* __restrict__ b, float* __restrict__ c, int M, int K, int N,
+    int aw, int bw, int b_bulk) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const bool resident = resident_a(K);
+  float* panel = smem + PM_STAGES * PM_STAGE_FLOATS;
+  float* red = panel + (resident ? PM_PANEL_FLOATS : 0);
+  unsigned long long* bars = reinterpret_cast<unsigned long long*>(red + PM_RED_FLOATS);
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int m0 = blockIdx.x * PM_BM;
+  const int n0 = blockIdx.y * PM_BN;
+  const bool flat = N <= PM_BN;
+  const int pitch = flat ? N : PM_BN;
+  const int nk = (K + PM_KC - 1) / PM_KC;
+  auto full_bar = [&](int s) { return smem_addr(bars + s); };
+  auto empty_bar = [&](int s) { return smem_addr(bars + PM_STAGES + s); };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < PM_STAGES; ++s) {
+      mbar_init(full_bar(s), 33);
+      mbar_init(empty_bar(s), PM_RG * PM_KH);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == PM_RG * PM_KH) {  // the producer
+    const int rows = min(PM_BM, M - m0);
+    const bool bulk_panel = resident && aw == 4 && rows * K % 4 == 0;
+    for (int kc = 0; kc < nk; ++kc) {
+      const int s = kc % PM_STAGES;
+      mbar_wait(empty_bar(s), ((kc / PM_STAGES) & 1) ^ 1);
+      float* sa = smem + s * PM_STAGE_FLOATS;
+      float* sb = sa + PM_A_FLOATS;
+      const int k0 = kc * PM_KC;
+      const bool whole = k0 + PM_KC <= K;
+      const int depth = whole ? PM_KC : (K - k0 + 3) / 4 * 4;  // k the consumers read
+      const bool bulk_b = whole && b_bulk;
+      if (lane == 0) {
+        const int bytes_b = bulk_b ? PM_KC * N * 4 : 0;
+        mbar_arrive_expect_tx(full_bar(s), bytes_b + (kc == 0 && bulk_panel ? rows * K * 4 : 0));
+      }
+      __syncwarp();
+      if (bulk_b) {
+        if (lane == 0) bulk_copy(smem_addr(sb), b + (long long)k0 * N, PM_KC * N * 4, full_bar(s));
+      } else if (flat) {
+        stage_flat_w(bw, sb, b, (long long)k0 * N, depth * N, (long long)K * N, lane);
+      } else {
+        stage_tile_w<PM_KC, PM_BN>(bw, sb, PM_BN, b, N, k0, n0, K, N, lane);
+      }
+      if (resident) {
+        if (kc == 0 && bulk_panel) {
+          if (lane == 0) bulk_copy(smem_addr(panel), a + (long long)m0 * K, rows * K * 4, full_bar(s));
+        } else if (kc == 0) {
+          stage_flat_w(aw, panel, a, (long long)m0 * K, rows * K, (long long)M * K, lane);
+        }
+      } else {
+        stage_tile_w<PM_BM, PM_KC>(aw, sa, PM_AP, a, K, m0, k0, M, K, lane);
+      }
+      cp_async_arrive(full_bar(s));
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+  } else {  // the consumers
+    const int rg = warp % PM_RG;
+    const int h = warp / PM_RG;
+    const bool tail = n0 + 128 < N;  // uniform over the block
+    const int apitch = resident ? K : PM_AP;
+    float acc[PM_TM][4];
+#pragma unroll
+    for (int i = 0; i < PM_TM; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    float acc_t = 0.f;
+    constexpr int STEPS = PM_KC / 4 / PM_KH;  // k4 steps of a warp per slice
+    for (int kc = 0; kc < nk; ++kc) {
+      const int s = kc % PM_STAGES;
+      mbar_wait(full_bar(s), (kc / PM_STAGES) & 1);
+      const float* sa = resident ? panel + kc * PM_KC : smem + s * PM_STAGE_FLOATS;
+      const float* sb = smem + s * PM_STAGE_FLOATS + PM_A_FLOATS;
+      const int live = K - kc * PM_KC;  // k left, counted from this slice's start
+      if (live >= PM_KC) {
+#pragma unroll
+        for (int q = 0; q < STEPS; ++q)
+          pm_step<AR, BR, false>(sa, apitch, sb, pitch, h * STEPS + q, 0, rg, lane, tail, acc, acc_t);
+      } else {
+        for (int q = 0; q < STEPS; ++q) {
+          const int k4 = h * STEPS + q;
+          if (4 * k4 + 4 <= live) pm_step<AR, BR, false>(sa, apitch, sb, pitch, k4, 0, rg, lane, tail, acc, acc_t);
+          else if (4 * k4 < live) pm_step<AR, BR, true>(sa, apitch, sb, pitch, k4, live, rg, lane, tail, acc, acc_t);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty_bar(s));
+    }
+
+    // h = 1 hands its sums to h = 0, which adds them to its own and stores
+    const int t = rg * 32 + lane;
+    constexpr int T = 32 * PM_RG;
+    if (h == 1) {
+#pragma unroll
+      for (int i = 0; i < PM_TM; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) red[(i * 4 + j) * T + t] = acc[i][j];
+      red[PM_TM * 4 * T + t] = acc_t;
+    }
+    asm volatile("bar.sync 1, %0;\n" ::"n"(PM_CONSUMERS) : "memory");
+    if (h == 0) {
+#pragma unroll
+      for (int i = 0; i < PM_TM; ++i) {
+        const int gm = m0 + rg * PM_TM + i;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int gn = n0 + 4 * lane + j;
+          const float v = acc[i][j] + red[(i * 4 + j) * T + t];
+          if (gm < M && gn < N) c[(long long)gm * N + gn] = v;
+        }
+      }
+      const int tm = m0 + rg * PM_TM + lane / 4;
+      const int tn = n0 + 128 + lane % 4;
+      if (tail && tm < M && tn < N) c[(long long)tm * N + tn] = acc_t + red[PM_TM * 4 * T + t];
+    }
+  }
+}
+
+bool aligned(const void* p, unsigned bytes) {
+  return reinterpret_cast<unsigned long long>(p) % bytes == 0;
+}
+
+// the piece a row-major operand is staged in: 16 bytes where every row starts
+// on 16 bytes, 8 where on 8, else 4
+int piece(const float* p, int ld) {
+  if (ld % 4 == 0 && aligned(p, 16)) return 4;
+  if (ld % 2 == 0 && aligned(p, 8)) return 2;
+  return 1;
+}
+
+// the float width a pitch allows for 16-, 8- or 4-byte shared reads
+int width(int pitch) { return pitch % 4 == 0 ? 4 : pitch % 2 == 0 ? 2 : 1; }
+
+// the widest piece (4, 2 or 1 floats) every address p + W i is aligned to
+int base_width(const float* p) { return aligned(p, 16) ? 4 : aligned(p, 8) ? 2 : 1; }
+
+template <int AR, int BR>
+cudaError_t run_pmatmul(const float* a, const float* b, float* c, int M, int K, int N, cudaStream_t stream) {
+  // above 48 KB of dynamic shared memory a kernel must opt in, once per device
+  static std::atomic<unsigned long long> configured{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = 1ULL << (dev & 63);
+  if (!(configured.load() & bit)) {
+    err = cudaFuncSetAttribute(pmatmul_kernel<AR, BR>, cudaFuncAttributeMaxDynamicSharedMemorySize, PM_SMEM_PANEL);
+    if (err != cudaSuccess) return err;
+    configured.fetch_or(bit);
+  }
+  const bool flat = N <= PM_BN;
+  // a resident A panel starts at m0 K with m0 % 16 == 0, a flat B slab at
+  // k0 N with k0 % 32 == 0: only the base's alignment counts for them
+  const bool resident = resident_a(K);
+  const int aw = resident ? base_width(a) : piece(a, K);
+  const int bw = flat ? base_width(b) : piece(b, N);
+  const dim3 grid((M + PM_BM - 1) / PM_BM, (N + PM_BN - 1) / PM_BN);
+  const int smem = resident ? PM_SMEM_PANEL : PM_SMEM_RING;
+  pmatmul_kernel<AR, BR><<<grid, PM_THREADS, smem, stream>>>(a, b, c, M, K, N, aw, bw, flat && bw == 4);
+  return cudaGetLastError();
+}
+
+template <int AR>
+cudaError_t run_pmatmul_b(int br, const float* a, const float* b, float* c, int M, int K, int N,
+                          cudaStream_t stream) {
+  if (br == 4) return run_pmatmul<AR, 4>(a, b, c, M, K, N, stream);
+  if (br == 2) return run_pmatmul<AR, 2>(a, b, c, M, K, N, stream);
+  return run_pmatmul<AR, 1>(a, b, c, M, K, N, stream);
 }
 
 constexpr int FT = 16;   // output tile edge
@@ -217,9 +545,19 @@ extern "C" {
 
 int grouped_sumvec_pmatmul(const float* a, const float* b, float* c, int M, int K, int N,
                            cudaStream_t stream) {
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  pmatmul_kernel<<<grid, TPB, 0, stream>>>(a, b, c, M, K, N);
-  return (int)cudaGetLastError();
+  // shared reads: A at pitch K where its panel stays resident, else PM_AP;
+  // B at pitch N where N <= PM_BN, else PM_BN
+  const int ar = resident_a(K) ? width(K) : 4;
+  const int br = N <= PM_BN ? width(N) : 4;
+  cudaError_t err;
+  if (ar == 4) {
+    err = run_pmatmul_b<4>(br, a, b, c, M, K, N, stream);
+  } else if (ar == 2) {
+    err = run_pmatmul_b<2>(br, a, b, c, M, K, N, stream);
+  } else {
+    err = run_pmatmul_b<1>(br, a, b, c, M, K, N, stream);
+  }
+  return (int)err;
 }
 
 int grouped_sumvec_freq_outer(const float* a, const float* b, float* out, int F, int K, int N,

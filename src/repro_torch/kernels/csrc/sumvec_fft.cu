@@ -10,12 +10,13 @@
 //   against 8.4 MB moved -> 32 FLOP/B, above the f32 CUDA-core ridge
 //   (67 TFLOP/s / 3.35 TB/s = 20 FLOP/B): bound by operations.  Stage 1 has
 //   a real input (Ai = 0) and half the work.
-//   ctwiddle (256, 2048): 6 FLOP per 16 bytes -> bound by bytes.
+//   ctwiddle (256, 2048): 6 FLOP per 16 bytes -> bound by bytes (8.4 MB,
+//   2.5 us at 3.35 TB/s; the served path finds its input in L2).
 //
-// Design.  On the TPU the K grid axis carried the sum in the resident output
-// block; here one CUDA block owns a 64 x 64 output tile and loops over K
-// itself, staging 16-deep slices of A and B (both planes) in shared memory,
-// so each output is a fixed-order f32 FMA chain: no atomics, deterministic.
+// Design.  cmatmul: on the TPU the K grid axis carried the sum in the
+// resident output block; here one CUDA block owns a 64 x 64 output tile
+// and loops over K itself, staging 16-deep slices of A and B (both planes)
+// in shared memory, so each output is a fixed-order f32 FMA chain: no atomics, deterministic.
 // Each of the 256 threads keeps a 4 x 4 tile of both the real and imaginary
 // accumulators in registers (rows ty + 16 i, columns tx + 16 j: neighbouring
 // threads read neighbouring shared-memory words and store neighbouring
@@ -23,6 +24,12 @@
 // nothing is padded to tiles in device memory.  A null Ai folds the real
 // input case (four-step stage 1) into half the FMAs, and a null Ci (the vjp
 // of that stage needs Re dA = Re(g B^H) only) halves them again.
+// ctwiddle (redesigned): a 2-D grid of (column chunk, row group); a thread
+// owns one float4 of columns (16-byte loads and stores) and 4 rows, loads its
+// float4 of w once for all of them and issues all 8 row loads before any
+// store; 32-bit offsets unless n d >= 2^31.  A scalar twin (one float a
+// thread) takes d % 4 != 0 (the padded plan's dp = 121) and any operand not
+// on a 16-byte boundary; the entry picks it from the sizes and pointers.
 // The vjps (kernel.py) are these kernels on conjugated operands:
 // dA = cmatmul(g, B^H), dx = ctwiddle(g, conj w).  Plain f32 FMA, no
 // tensor cores: wgmma/TMA are later work.
@@ -136,19 +143,78 @@ __global__ void __launch_bounds__(TPB) cmatmul_kernel(
   }
 }
 
-__global__ void ctwiddle_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
-                                const float* __restrict__ wr, const float* __restrict__ wi,
-                                float* __restrict__ yr, float* __restrict__ yi,
-                                long long total, int d) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < total; e += stride) {
-    const int col = (int)(e % d);
-    const float a = xr[e], b = xi[e];
-    const float c = wr[col], s = wi[col];
-    yr[e] = a * c - b * s;
-    yi[e] = a * s + b * c;
+constexpr int TW_THREADS = 128;  // column vectors per block
+constexpr int TW_ROWS = 4;       // rows per thread, one twiddle load for all
+constexpr int TW_MAX_GRID_Y = 65535;
+
+__device__ __forceinline__ void cmul(float a, float b, float c, float s, float& re, float& im) {
+  re = a * c - b * s;
+  im = a * s + b * c;
+}
+
+__device__ __forceinline__ void cmul(const float4& a, const float4& b, const float4& c,
+                                     const float4& s, float4& re, float4& im) {
+  cmul(a.x, b.x, c.x, s.x, re.x, im.x);
+  cmul(a.y, b.y, c.y, s.y, re.y, im.y);
+  cmul(a.z, b.z, c.z, s.z, re.z, im.z);
+  cmul(a.w, b.w, c.w, s.w, re.w, im.w);
+}
+
+// y = x o w on (n, cols) planes of V (float4: 4 columns a vector, or float),
+// w of cols V broadcast over the rows.  Thread (blockIdx.x, threadIdx.x)
+// owns one column vector and loads its twiddle once; blockIdx.y walks row
+// groups of TW_ROWS (grid-stride past 65535 groups).  All TW_ROWS loads of
+// both planes are issued before any store.  Idx: int where n * cols < 2^31.
+template <typename V, typename Idx>
+__global__ void __launch_bounds__(TW_THREADS) ctwiddle_kernel(
+    const V* __restrict__ xr, const V* __restrict__ xi, const V* __restrict__ wr,
+    const V* __restrict__ wi, V* __restrict__ yr, V* __restrict__ yi, int n, int cols) {
+  const int col = blockIdx.x * TW_THREADS + threadIdx.x;
+  if (col >= cols) return;
+  const V c = wr[col];
+  const V s = wi[col];
+  for (int r0 = blockIdx.y * TW_ROWS; r0 < n; r0 += gridDim.y * TW_ROWS) {
+    V a[TW_ROWS], b[TW_ROWS];
+#pragma unroll
+    for (int r = 0; r < TW_ROWS; ++r) {
+      if (r0 + r < n) {
+        const Idx off = (Idx)(r0 + r) * cols + col;
+        a[r] = xr[off];
+        b[r] = xi[off];
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < TW_ROWS; ++r) {
+      if (r0 + r < n) {
+        const Idx off = (Idx)(r0 + r) * cols + col;
+        V re, im;
+        cmul(a[r], b[r], c, s, re, im);
+        yr[off] = re;
+        yi[off] = im;
+      }
+    }
   }
 }
+
+template <typename V>
+void launch_ctwiddle(const float* xr, const float* xi, const float* wr, const float* wi, float* yr,
+                     float* yi, int n, int cols, bool wide, cudaStream_t stream) {
+  const int groups = (n + TW_ROWS - 1) / TW_ROWS;
+  const dim3 grid((cols + TW_THREADS - 1) / TW_THREADS, groups < TW_MAX_GRID_Y ? groups : TW_MAX_GRID_Y);
+  const V* x_r = reinterpret_cast<const V*>(xr);
+  const V* x_i = reinterpret_cast<const V*>(xi);
+  const V* w_r = reinterpret_cast<const V*>(wr);
+  const V* w_i = reinterpret_cast<const V*>(wi);
+  V* y_r = reinterpret_cast<V*>(yr);
+  V* y_i = reinterpret_cast<V*>(yi);
+  if (wide) {
+    ctwiddle_kernel<V, long long><<<grid, TW_THREADS, 0, stream>>>(x_r, x_i, w_r, w_i, y_r, y_i, n, cols);
+  } else {
+    ctwiddle_kernel<V, int><<<grid, TW_THREADS, 0, stream>>>(x_r, x_i, w_r, w_i, y_r, y_i, n, cols);
+  }
+}
+
+bool aligned16(const void* p) { return (reinterpret_cast<unsigned long long>(p) & 15u) == 0; }
 
 }  // namespace
 
@@ -171,11 +237,17 @@ int sumvec_fft_cmatmul(const float* ar, const float* ai, const float* br, const 
 
 int sumvec_fft_ctwiddle(const float* xr, const float* xi, const float* wr, const float* wi,
                         float* yr, float* yi, int n, int d, cudaStream_t stream) {
-  const long long total = (long long)n * d;
-  const int threads = 256;
-  long long blocks = (total + threads - 1) / threads;
-  if (blocks > 65535) blocks = 65535;
-  ctwiddle_kernel<<<(unsigned)blocks, threads, 0, stream>>>(xr, xi, wr, wi, yr, yi, total, d);
+  // float4 where every row of every plane starts on 16 bytes; one float a
+  // thread otherwise (d % 4 != 0, e.g. the padded plan's dp = 121, or a
+  // contiguous view at an odd offset)
+  const bool vec = d % 4 == 0 && aligned16(xr) && aligned16(xi) && aligned16(wr) && aligned16(wi) &&
+                   aligned16(yr) && aligned16(yi);
+  const bool wide = (long long)n * d >= (1LL << 31);
+  if (vec) {
+    launch_ctwiddle<float4>(xr, xi, wr, wi, yr, yi, n, d / 4, wide, stream);
+  } else {
+    launch_ctwiddle<float>(xr, xi, wr, wi, yr, yi, n, d, wide, stream);
+  }
   return (int)cudaGetLastError();
 }
 

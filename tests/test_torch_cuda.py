@@ -44,21 +44,61 @@ def test_cmatmul_kernel_matches_plain(dev, m, k, n, real_a):
         torch.testing.assert_close(g, w, **TOL)
 
 
-@pytest.mark.parametrize("n,d", [(5, 37), (256, 2048)])
-def test_ctwiddle_kernel_matches_plain(dev, n, d):
+def _view(dev, offset, *shape):
+    """A contiguous (``shape``) view ``offset`` floats into a buffer: offset 1
+    starts 4 bytes past a 16-byte boundary, as a view at an offset may reach
+    a kernel."""
+    size = int(np.prod(shape))
+    buf = torch.randn(offset + size, generator=torch.Generator().manual_seed(sum(shape) + offset))
+    return buf.to(dev)[offset:].view(*shape)
+
+
+# (n, d, offset of xr): d % 4 != 0 (the padded plan's dp = 121), n = 1 (the
+# inverse twiddle of d = 2039), n not a multiple of the rows a thread owns,
+# and xr at an odd offset all take the kernel's other paths
+@pytest.mark.parametrize(
+    "n,d,offset",
+    [(5, 37, 0), (256, 2048, 0), (256, 121, 0), (256, 2048, 1), (1, 4080, 0), (7, 2048, 0),
+     (257, 8192, 0), (3, 121, 1)],
+)
+def test_ctwiddle_kernel_matches_plain(dev, n, d, offset):
     from repro_torch.kernels.sumvec_fft import kernel as K
 
-    args = (_rand(dev, n, d), _rand(dev, n, d) * 0.5, _rand(dev, d), _rand(dev, d) * 0.5)
-    for g, w in zip(K.ctwiddle(*args), K.ctwiddle_plain(*args)):
+    args = (_view(dev, offset, n, d), _rand(dev, n, d) * 0.5, _rand(dev, d), _rand(dev, d) * 0.5)
+    before = K.ctwiddle.launches
+    got = K.ctwiddle(*args)
+    want = K.ctwiddle_plain(*args)
+    torch.cuda.synchronize()
+    assert K.ctwiddle.launches == before + 1
+    for g, w in zip(got, want):
         torch.testing.assert_close(g, w, **TOL)
 
 
-@pytest.mark.parametrize("m,k,n", [(13, 7, 5), (4096, 128, 130)])
-def test_pmatmul_kernel_matches_plain(dev, m, k, n):
+# (m, k, n, offset of A): N in {65, 128, 130} and one past a block's 132
+# columns; K = 130 and 65, whose rows are not 16-byte aligned (A stays
+# resident), also at an odd offset, and K = 257 (too deep to stay: 4-byte
+# pieces, a 1-deep last slice); the vjp's dB (K over many ring stages);
+# M = 1, M = 16384 (d = 8192), A at an odd offset
+@pytest.mark.parametrize(
+    "m,k,n,offset",
+    [(13, 7, 5, 0), (4096, 128, 130, 0), (300, 128, 65, 0), (4096, 130, 128, 0), (256, 65, 128, 0),
+     (300, 130, 128, 1), (77, 257, 130, 0), (128, 4096, 130, 0), (1, 128, 130, 0), (16384, 128, 130, 0),
+     (4096, 128, 130, 1), (70, 40, 300, 0)],
+)
+def test_pmatmul_kernel_matches_plain(dev, m, k, n, offset):
     from repro_torch.kernels.grouped_sumvec import kernel as K
 
-    a, b = _rand(dev, m, k), _rand(dev, k, n) * 0.5
-    torch.testing.assert_close(K.pmatmul(a, b), K.pmatmul_plain(a, b), **TOL)
+    a, b = _view(dev, offset, m, k), _rand(dev, k, n) * 0.5
+    before = K.pmatmul.launches
+    got = K.pmatmul(a, b)
+    torch.cuda.synchronize()
+    assert K.pmatmul.launches == before + 1
+    # the dB shape sums 4096 products (outputs reach ~100): atol is 2e-4 of
+    # that scale there, as for freq_outer's 512-term sums
+    atol = 2e-2 if k > 512 else 2e-4
+    torch.testing.assert_close(got, K.pmatmul_plain(a, b), rtol=2e-4, atol=atol)
+    # a fixed-order sum per output, no atomics: bit-identical on a rerun
+    assert torch.equal(K.pmatmul(a, b), got)
 
 
 @pytest.mark.parametrize("f,k,n,nb", [(3, 11, 5, 7), (65, 512, 16, 16)])

@@ -97,3 +97,51 @@ def test_cpu_route_never_counts_a_launch():
              "paged_attention": 0}
     assert kernels.launch_counts() == zeros
     assert kernels.backward_launch_counts() == zeros
+
+
+@pytest.fixture
+def fake_cuda(monkeypatch):
+    """A stand-in CUDA runtime for ``build.launch``: ``current`` device,
+    raw stream 1000 + device index, and a record of the device guards
+    entered."""
+    import contextlib
+
+    state = {"current": 0, "guards": []}
+
+    @contextlib.contextmanager
+    def device(index):
+        state["guards"].append(index)
+        yield
+
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: state["current"])
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda index: 1000 + index, raising=False)
+    monkeypatch.setattr(torch.cuda, "device", device)
+    return state
+
+
+@pytest.mark.parametrize("index,current", [(0, 0), (None, 1), (1, 0)], ids=["current", "unindexed", "other"])
+def test_launch_passes_pointers_and_the_current_stream(monkeypatch, fake_cuda, index, current):
+    """``build.launch`` hands the C function each tensor's data pointer,
+    None and ints as they are, and the raw current stream of the operands'
+    device; it enters a device guard only for a device that is not current."""
+    from repro_torch.kernels import build
+
+    calls = []
+    monkeypatch.setitem(build._FNS, ("fam", "k"), lambda *args: calls.append(args) or 0)
+    fake_cuda["current"] = current
+    x = torch.ones(3)
+    build.launch("fam", "k", torch.device("cuda", index), x, None, 7)
+    want = current if index is None else index
+    assert calls == [(x.data_ptr(), None, 7, 1000 + want)]
+    assert fake_cuda["guards"] == ([] if want == current else [want])
+
+
+def test_launch_raises_on_a_failed_launch(monkeypatch, fake_cuda):
+    import types
+
+    from repro_torch.kernels import build
+
+    monkeypatch.setitem(build._FNS, ("fam", "k"), lambda *args: 9)
+    monkeypatch.setattr(build, "library", lambda fam: types.SimpleNamespace(fam_error_string=lambda code: b"refused"))
+    with pytest.raises(RuntimeError, match=r"k: CUDA launch failed \(9\): refused"):
+        build.launch("fam", "k", torch.device("cuda", 0), torch.ones(2))
