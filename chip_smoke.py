@@ -12,9 +12,13 @@ Phases (any failed check exits non-zero and prints no result):
      the shapes the
      serving and training paths give it (d = 2048 and 8192, b = 128,
      n = 256; the prime d = 2039 for the padded plan's q = 1 inverse path
-     and the ragged R_off tiles), forward and, labelled ``bwd``, as the vjps
-     call it, and is held against its plain PyTorch version on the same
-     inputs.  Prints max error, kernel / plain / library time and the bound.
+     and the ragged R_off tiles; the LM probe's d = 2304), forward and,
+     labelled ``bwd``, as the vjps call it, and at edge shapes that take the
+     kernels' other paths, and is held against its plain PyTorch version on
+     the same inputs.  Prints max error, kernel / plain / library time and
+     the bound; a cmatmul line names its library yardstick: complex ``@``,
+     or, for the real-input stage and the vjp's Re-only output, the one real
+     ``matmul`` that computes the same function.
      Then the gradient of the regularizer at the paper's width (n = 256,
      d = 8192; b = 128 and ungrouped, q = 2) on the kernel route against the
      ``impl="plain"`` route (``[grad]`` lines).  paged_attention also runs
@@ -78,6 +82,7 @@ attention: the live rows only — min(len, window) per slot).
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -257,24 +262,28 @@ def _kernel_cases(dev):
     n, b = 256, 128
     cases = []
 
-    def cmm(label, m, k, nn, real_a, sign=-1):
-        br, bi = full_dft_matrices(k, sign, dev)  # (k, k): every case has k == nn
-        ar = rand(m, k)
+    def cmm(label, m, k, nn, real_a, sign=-1, offset=0, basis=None):
+        # B: the DFT basis of the plan (k == nn), or a random (k, nn) one
+        br, bi = full_dft_matrices(k, sign, dev) if basis is None else (rand(k, nn), rand(k, nn))
+        ar = view(offset, m, k)
         ai = None if real_a else rand(m, k)
-        ac = torch.complex(ar, torch.zeros_like(ar) if ai is None else ai)
-        bc = torch.complex(br, bi)
+        if real_a:  # one real product computes the same function: Ar @ [Br | Bi]
+            bcat = torch.cat([br, bi], 1)
+            lib, yard = (lambda: ar @ bcat), "real ar @ [br|bi]"
+        else:
+            ac, bc = torch.complex(ar, ai), torch.complex(br, bi)
+            lib, yard = (lambda: ac @ bc), "complex @"
         nbytes = 4 * (m * k * (1 if real_a else 2) + 2 * k * nn + 2 * m * nn)
         flops = (4 if real_a else 8) * m * k * nn
         cases.append((
-            "cmatmul", label,
+            "cmatmul", f"{label} [library: {yard}]",
             lambda: fk.cmatmul(ar, ai, br, bi),
             lambda: fk.cmatmul_plain(ar, ai, br, bi),
-            lambda: ac @ bc,
-            nbytes, flops,
+            lib, nbytes, flops,
         ))
 
     def view(offset, *shape):  # contiguous, ``offset`` floats into its buffer
-        return rand(offset + shape[0] * shape[1])[offset:].view(*shape)
+        return rand(offset + math.prod(shape))[offset:].view(*shape)
 
     def ctw(label, rows, d, offset=0):
         xr, xi, wr, wi = view(offset, rows, d), rand(rows, d), rand(d), rand(d)
@@ -300,23 +309,28 @@ def _kernel_cases(dev):
 
     def cmm_bwd(label, m, k, nn, real_out):
         # the vjp's dA = g @ B^H at the forward's shape; the real-input first
-        # stage asks for Re dA only
+        # stage asks for Re dA only, which one real product computes:
+        # [Gr | Gi] @ [BHr ; -BHi]
         bhr, bhi = full_dft_adjoint(k, -1, dev)
         gr, gi = rand(m, nn), rand(m, nn)
-        gc, bhc = torch.complex(gr, gi), torch.complex(bhr, bhi)
+        if real_out:
+            gcat, bcat = torch.cat([gr, gi], 1), torch.cat([bhr, -bhi], 0)
+            lib, yard = (lambda: gcat @ bcat), "real [gr|gi] @ [bhr;-bhi]"
+        else:
+            gc, bhc = torch.complex(gr, gi), torch.complex(bhr, bhi)
+            lib, yard = (lambda: gc @ bhc), "complex @"
         pick = (lambda c: c[0]) if real_out else (lambda c: c)
         nbytes = 4 * (2 * m * nn + 2 * nn * k + (1 if real_out else 2) * m * k)
         flops = (4 if real_out else 8) * m * nn * k
         cases.append((
-            "cmatmul", label,
+            "cmatmul", f"{label} [library: {yard}]",
             lambda: pick(fk._cmatmul_launch(gr, gi, bhr, bhi, real_out=real_out)),
             lambda: pick(fk.cmatmul_plain(gr, gi, bhr, bhi)),
-            (lambda: (gc @ bhc).real) if real_out else (lambda: gc @ bhc),
-            nbytes, flops,
+            lib, nbytes, flops,
         ))
 
-    def fm(label, f, k, nn, n2):
-        a, m = rand(f, k, nn), rand(f, nn, n2)
+    def fm(label, f, k, nn, n2, offset=0):
+        a, m = view(offset, f, k, nn), rand(f, nn, n2)
         cases.append((
             "freq_mat", label,
             lambda: gk.freq_mat(a, m),
@@ -384,6 +398,25 @@ def _kernel_cases(dev):
     pmm(f"edge K=130 A at +4 bytes (300,{2 * nf})x({2 * nf},{b})", 300, 2 * nf, b, block_basis_t, offset=1)
     pmm(f"edge K=257 (77,257)x(257,{2 * nf})", 77, 257, 2 * nf)
     pmm("edge N=300 (70,40)x(40,300)", 70, 40, 300)
+    # the other paths of the redesigned cmatmul and freq_mat: N = 11 (the
+    # dp = 121 plan of d = 61, scalar twin), M = 1, M no multiple of a strip's
+    # rows, A 4 bytes off a 16-byte boundary (no bulk copy), K too deep for B
+    # to stay resident (a ring of K slices); freq_mat with N = N2 = 9 and a at
+    # an odd offset (scalar twin), K no multiple of a block's rows
+    cmm("edge dp=121 stage1 (2816,11)x(11,11) real A", 2816, 11, 11, True)
+    cmm("edge dp=121 stage3 (2816,11)x(11,11)", 2816, 11, 11, False)
+    cmm("edge M=1 (1,64)x(64,64)", 1, 64, 64, False)
+    cmm("edge M=8191 (8191,64)x(64,64)", 8191, 64, 64, False)
+    cmm("edge A at +4 bytes (8192,64)x(64,64)", 8192, 64, 64, False, offset=1)
+    cmm("edge K=600 (64,600)x(600,40)", 64, 600, 40, False, basis="random")
+    cmm_bwd("edge bwd M=8191 real out (8191,64)x(64,64)", 8191, 64, 64, True)
+    fm(f"edge N=N2=9 freq_mat ({nf},{2 * n},9)x({nf},9,9)", nf, 2 * n, 9, 9)
+    fm(f"edge a at +4 bytes freq_mat ({nf},{2 * n},16)x({nf},16,16)", nf, 2 * n, 16, 16, offset=1)
+    fm(f"edge K=500 freq_mat ({nf},500,16)x({nf},16,16)", nf, 500, 16, 16)
+    # the LM path's probe: ungrouped R_sum of 8-row windows at d = 2304
+    p = fft_plan(2304)
+    cmm(f"lm d=2304 stage1 ({8 * p.d2},{p.d1})x({p.d1},{p.d1}) real A", 8 * p.d2, p.d1, p.d1, True)
+    cmm(f"lm d=2304 stage3 ({8 * p.d1},{p.d2})x({p.d2},{p.d2})", 8 * p.d1, p.d2, p.d2, False)
     p = fft_plan(2039)  # prime: padded plan, q = 1 needs the inverse pipeline
     cmm(f"d=2039 dp={p.dp} stage1 ({n * p.d2},{p.d1})x({p.d1},{p.d1}) real A", n * p.d2, p.d1, p.d1, True)
     ctw(f"d=2039 dp={p.dp} twiddle ({n},{p.dp})", n, p.dp)

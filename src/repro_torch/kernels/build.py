@@ -5,8 +5,8 @@ with a plain C interface (no PyTorch headers: a build takes seconds, not
 minutes), and is loaded with ``ctypes``.  All sources start compiling
 together, one ``nvcc`` process each, the first time any kernel is asked for.
 Libraries land in ``build/kernels/`` at the repository root (git-ignored),
-named by a hash of their source and flags, so an edited source never loads a
-stale library.
+named by a hash of their source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited source never loads a stale library.
 
 Target: ``sm_90a`` (Hopper).  Nothing here runs at import time: the CPU-only
 tests import every module, and only a launch on a CUDA tensor builds.
@@ -54,8 +54,10 @@ def _nvcc() -> str:
 
 
 def _target(family: str) -> Path:
+    # the source, every shared header beside it and the flags name the library
     src = (CSRC / f"{family}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{family}_{digest}.so"
 
 

@@ -42,12 +42,15 @@
 //   per thread, 64-deep slices of a[f] and b[f] staged in shared memory.  The
 //   group axis N = d / b is small (16 at d = 2048), so a one-output-per-thread
 //   tile keeps every thread busy where a larger register tile would idle.
-//   freq_mat: m[f] is at most 64 x 64 on the paper's widths (16 KiB), a
-//   slab of it fits in shared memory beside a 64-row slice of a[f]; the
-//   TPU kernel's K grid axis has no counterpart: each block owns 64 output
-//   rows x 16 output columns of one frequency outright and loops over the
-//   contraction N in 64-wide slices (one pass when N <= 64).  Four outputs
-//   per thread (rows ty + 16 i, column tx).
+//   freq_mat (redesigned): a stream of rows of a[f] against one m[f] (at
+//   most 64 x 64 = 16 KiB on the paper's widths).  One wave of small blocks,
+//   each owning up to 128 rows of y[f] and all its columns (up to 64): at
+//   the main path's shapes the block's rows of a (contiguous) and m[f] come
+//   by one bulk copy each; a thread keeps a 4-row x 4- (N2 <= 28) or 8-
+//   (N2 > 28) column strip in registers and stores it with 16-byte stores.
+//   The old 64 x 16 tiles staged three quarters zeros at N = 16.  A scalar
+//   twin (4-byte pieces and stores) takes N or N2 % 4 != 0 and operands off
+//   a 16-byte boundary; the entry picks it from sizes and pointers.
 // Ragged edges are masked at load (zero fill) and at store; nothing is
 // padded in device memory.  Plain f32 FMA, no tensor cores (later work).
 //
@@ -56,9 +59,14 @@
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <atomic>
 
+#include "sm90_async.cuh"
+
 namespace {
+
+using namespace sm90;
 
 constexpr int PM_BM = 16;                      // rows of A (and C) a block owns
 constexpr int PM_TM = 8;                       // rows a thread owns
@@ -83,62 +91,6 @@ constexpr int PM_SMEM_PANEL = PM_SMEM_RING + PM_PANEL_FLOATS * 4;
 // A stays resident where its rows could go only in 8- or 4-byte pieces
 // (K % 4 != 0: the vjp's K = 130, the q = 1 synthesis' K = 65)
 __host__ __device__ inline bool resident_a(int K) { return K <= PM_KPANEL && K % 4 != 0; }
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(unsigned bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_expect_tx(unsigned bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
-}
-
-// wait for the completion of the barrier's phase of this parity
-__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n"
-      "}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-// one arrival on ``bar`` once this thread's earlier cp.async copies have landed
-__device__ __forceinline__ void cp_async_arrive(unsigned bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
-}
-
-// ``bytes`` (a multiple of 16, both ends 16-byte aligned) by the copy engine;
-// completion is counted in ``bar``'s transaction bytes
-__device__ __forceinline__ void bulk_copy(unsigned dst, const void* src, unsigned bytes, unsigned bar) {
-  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
-               "l"(src), "r"(bytes), "r"(bar)
-               : "memory");
-}
-
-// W floats (4, 8 or 16 bytes) by one thread, asynchronously: the first
-// ``bytes`` from ``src``, zeros for the rest
-template <int W>
-__device__ __forceinline__ void cp_async(float* dst, const float* src, unsigned bytes) {
-  if constexpr (W == 4) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src), "r"(bytes)
-                 : "memory");
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(smem_addr(dst)), "l"(src), "n"(4 * W),
-                 "r"(bytes)
-                 : "memory");
-  }
-}
 
 // The producer warp stages rows [r0, r0 + ROWS) x columns [c0, c0 + COLS) of
 // a row-major (R, C) matrix with row stride ld (shared row pitch ``pitch``)
@@ -288,7 +240,7 @@ __global__ void __launch_bounds__(PM_THREADS) pmatmul_kernel(
       mbar_init(full_bar(s), 33);
       mbar_init(empty_bar(s), PM_RG * PM_KH);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
@@ -327,7 +279,7 @@ __global__ void __launch_bounds__(PM_THREADS) pmatmul_kernel(
       }
       cp_async_arrive(full_bar(s));
     }
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    cp_async_wait_all();
   } else {  // the consumers
     const int rg = warp % PM_RG;
     const int h = warp / PM_RG;
@@ -388,10 +340,6 @@ __global__ void __launch_bounds__(PM_THREADS) pmatmul_kernel(
       if (tail && tm < M && tn < N) c[(long long)tm * N + tn] = acc_t + red[PM_TM * 4 * T + t];
     }
   }
-}
-
-bool aligned(const void* p, unsigned bytes) {
-  return reinterpret_cast<unsigned long long>(p) % bytes == 0;
 }
 
 // the piece a row-major operand is staged in: 16 bytes where every row starts
@@ -480,63 +428,165 @@ __global__ void __launch_bounds__(FT * FT) freq_outer_kernel(
   if (i < N && j < NB) out[((long long)f * N + i) * NB + j] = acc;
 }
 
-constexpr int MK = 64;   // freq_mat: rows of a[f] (and of y[f]) per block
-constexpr int MN = 16;   // output columns per block
-constexpr int MC = 64;   // contraction slice depth
+constexpr int FM_THREADS = 128;   // freq_mat: threads a block aims at, row slots x column lanes
+constexpr int FM_MAX_ROWS = 128;  // rows of a[f] (and y[f]) a block owns at most
+constexpr int FM_CS = 64;         // contraction depth staged at once
+constexpr int FM_NT = 64;         // output columns a block owns at most (16 chunks of 4)
+constexpr int FM_TR = 4;          // rows a thread owns where N2 <= 28
+constexpr int FM_TR_WIDE = 4;     // ... and where N2 > 28, with 2 chunks of 4 columns
+constexpr int FM_U_WIDE = 2;
+// shared memory: a barrier, the a tile (rows at pitch FM_CS + 4), the m slab
+constexpr int FM_SMEM_MAX = (4 + FM_MAX_ROWS * (FM_CS + 4) + FM_CS * FM_NT) * 4;
 
-// y[f, k, j] = sum_c a[f, k, c] * m[f, c, j];  a: (F, K, N), m: (F, N, N2)
-__global__ void __launch_bounds__(256) freq_mat_kernel(
-    const float* __restrict__ a, const float* __restrict__ m, float* __restrict__ y,
-    int K, int N, int N2) {
-  __shared__ float sa[MK][MC + 1];
-  __shared__ float sm[MC][MN];
-
-  const int f = blockIdx.z;
-  const int k0 = blockIdx.y * MK;
-  const int j0 = blockIdx.x * MN;
-  const int tx = threadIdx.x % MN;
-  const int ty = threadIdx.x / MN;
+// y[f, k, j] = sum_c a[f, k, c] * m[f, c, j];  a: (F, K, N), m: (F, N, N2).
+// Block (x, f, z) owns rows [x rb, x rb + rb) of y[f] and its columns
+// [64 z, 64 z + 64): one wave of small blocks, all their loads in flight at
+// once.  Where one slice holds the contraction (N <= FM_CS), the tile holds
+// all N2 columns and every operand sits on 16 bytes (the main path's
+// shapes), the block's rows of a (rb N contiguous floats) and m[f] (N N2)
+// arrive by one bulk copy each, at pitch N and N2.  Otherwise, per
+// contraction slice of up to FM_CS, every thread issues cp.async pieces of
+// the a rows (pitch depth + 4) and of the m slab (pitch 4 x lanes x U), zeros
+// outside the operands; one wait and one barrier.  Thread t is column lane
+// t % lanes (chunks of 4 columns lane + lanes u, u < U) of rows t / lanes +
+// slots i, i < TR: a TR x 4U register tile fed by 16-byte shared reads,
+// FMAs in c order.  VEC (N, N2 % 4 == 0, every operand on 16 bytes): 16-byte
+// pieces and stores; the scalar twin: 4-byte pieces and stores.
+template <bool VEC, int TR, int U>
+__global__ void __launch_bounds__(FM_THREADS) freq_mat_kernel(
+    const float* __restrict__ a, const float* __restrict__ m, float* __restrict__ y, int K, int N, int N2, int rb) {
+  extern __shared__ float4 fm_smem4[];
+  float* smem = reinterpret_cast<float*>(fm_smem4);
+  constexpr int W = VEC ? 4 : 1;
+  const int f = blockIdx.y;
+  const long long r0 = (long long)blockIdx.x * rb;
+  const int j0 = blockIdx.z * FM_NT;
+  const int cols = min(FM_NT, N2 - j0);
+  const int lanes = ((cols + 3) / 4 + U - 1) / U;
+  const int mp = 4 * lanes * U;  // pitch of the m slab
+  const int slots = rb / TR;
+  const bool bulk = VEC && N > 0 && N <= FM_CS && mp == N2;
+  const int ap = bulk ? N : min(FM_CS, (N + 3) / 4 * 4) + 4;  // pitch of the a tile
+  const unsigned bar = smem_addr(smem);
+  float* sa = smem + 4;
+  float* sm = sa + rb * ap;
+  const int t = threadIdx.x;
+  const int cl = t % lanes;
+  const int slot = t / lanes;
   const float* af = a + (long long)f * K * N;
   const float* mf = m + (long long)f * N * N2;
 
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int c0 = 0; c0 < N; c0 += MC) {
-    // a slice: MK rows x MC columns, read along c (coalesced)
+  float acc[TR][U][4];
 #pragma unroll
-    for (int r = 0; r < (MK * MC) / 256; ++r) {
-      const int e = threadIdx.x + r * 256;
-      const int cc = e % MC;
-      const int kk = e / MC;
-      const int gk = k0 + kk;
-      const int gc = c0 + cc;
-      sa[kk][cc] = (gk < K && gc < N) ? af[(long long)gk * N + gc] : 0.f;
-    }
-    // m slab: MC rows x MN columns
+  for (int i = 0; i < TR; ++i)
 #pragma unroll
-    for (int r = 0; r < (MC * MN) / 256; ++r) {
-      const int e = threadIdx.x + r * 256;
-      const int jj = e % MN;
-      const int cc = e / MN;
-      const int gc = c0 + cc;
-      const int gj = j0 + jj;
-      sm[cc][jj] = (gc < N && gj < N2) ? mf[(long long)gc * N2 + gj] : 0.f;
-    }
-    __syncthreads();
-    const int depth = min(MC, N - c0);
-    for (int cc = 0; cc < depth; ++cc) {
-      const float mv = sm[cc][tx];
+    for (int u = 0; u < U; ++u)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) acc[i] = fmaf(sa[ty + 16 * i][cc], mv, acc[i]);
+      for (int j = 0; j < 4; ++j) acc[i][u][j] = 0.f;
+
+  auto consume = [&](int d4) {
+    if (slot >= slots) return;
+    for (int c4 = 0; c4 < d4 / 4; ++c4) {
+      float4 av[TR];
+#pragma unroll
+      for (int i = 0; i < TR; ++i) av[i] = *reinterpret_cast<const float4*>(sa + (slot + slots * i) * ap + 4 * c4);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        float4 mv[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+          mv[u] = *reinterpret_cast<const float4*>(sm + (4 * c4 + kk) * mp + 4 * (cl + lanes * u));
+#pragma unroll
+        for (int i = 0; i < TR; ++i) {
+          const float x = kk == 0 ? av[i].x : kk == 1 ? av[i].y : kk == 2 ? av[i].z : av[i].w;
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            acc[i][u][0] = fmaf(x, mv[u].x, acc[i][u][0]);
+            acc[i][u][1] = fmaf(x, mv[u].y, acc[i][u][1]);
+            acc[i][u][2] = fmaf(x, mv[u].z, acc[i][u][2]);
+            acc[i][u][3] = fmaf(x, mv[u].w, acc[i][u][3]);
+          }
+        }
+      }
     }
-    __syncthreads();
+  };
+
+  if (bulk) {
+    if (t == 0) {
+      mbar_init(bar, 1);
+      mbar_init_fence();
+      const unsigned bytes_a = (unsigned)(min((long long)rb, K - r0) * N * 4);
+      const unsigned bytes_m = (unsigned)(N * N2 * 4);
+      mbar_arrive_expect_tx(bar, bytes_a + bytes_m);
+      bulk_copy(smem_addr(sa), af + r0 * N, bytes_a, bar);
+      bulk_copy(smem_addr(sm), mf, bytes_m, bar);
+    }
+    __syncthreads();  // the barrier is initialised before anyone waits on it
+    mbar_wait(bar, 0);
+    consume(N);
+  } else {
+    for (int c0 = 0; c0 < N; c0 += FM_CS) {
+      const int d4 = (min(FM_CS, N - c0) + 3) / 4 * 4;
+      stage_rows<W>(sa, ap, af, N, r0, c0, rb, d4, K, N, t, blockDim.x);
+      stage_rows<W>(sm, mp, mf, N2, c0, j0, d4, mp, N, N2, t, blockDim.x);
+      cp_async_wait_all();
+      __syncthreads();
+      consume(d4);
+      __syncthreads();
+    }
   }
-  const int j = j0 + tx;
-  if (j >= N2) return;
+  if (slot >= slots) return;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int k = k0 + ty + 16 * i;
-    if (k < K) y[((long long)f * K + k) * N2 + j] = acc[i];
+  for (int i = 0; i < TR; ++i) {
+    const long long row = r0 + slot + slots * i;
+    if (row >= K) continue;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int col = 4 * (cl + lanes * u);
+      if (col >= cols) continue;
+      float* yr = y + ((long long)f * K + row) * N2 + j0 + col;
+      if (VEC) {
+        *reinterpret_cast<float4*>(yr) = make_float4(acc[i][u][0], acc[i][u][1], acc[i][u][2], acc[i][u][3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (col + j < cols) yr[j] = acc[i][u][j];
+      }
+    }
   }
+}
+
+template <bool VEC, int TR, int U>
+cudaError_t run_freq_mat(const float* a, const float* m, float* y, int F, int K, int N, int N2,
+                         cudaStream_t stream) {
+  static std::atomic<unsigned long long> configured{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = 1ULL << (dev & 63);
+  if (!(configured.load() & bit)) {
+    err = cudaFuncSetAttribute(freq_mat_kernel<VEC, TR, U>, cudaFuncAttributeMaxDynamicSharedMemorySize, FM_SMEM_MAX);
+    if (err != cudaSuccess) return err;
+    configured.fetch_or(bit);
+  }
+  const int lanes = ((std::min(N2, FM_NT) + 3) / 4 + U - 1) / U;
+  // row slots: FM_THREADS threads a block, at most FM_MAX_ROWS rows, no
+  // more slots than K's rows need
+  int slots = std::max(1, std::min(FM_THREADS / lanes, FM_MAX_ROWS / TR));
+  slots = std::min(slots, (K + TR - 1) / TR);
+  const int rb = slots * TR;
+  const int depth = std::min(FM_CS, (N + 3) / 4 * 4);
+  const int smem = (4 + rb * (depth + 4) + depth * 4 * lanes * U) * 4;
+  const dim3 grid((K + rb - 1) / rb, F, (N2 + FM_NT - 1) / FM_NT);
+  freq_mat_kernel<VEC, TR, U><<<grid, slots * lanes, smem, stream>>>(a, m, y, K, N, N2, rb);
+  return cudaGetLastError();
+}
+
+template <bool VEC>
+cudaError_t run_freq_mat_tile(const float* a, const float* m, float* y, int F, int K, int N, int N2,
+                              cudaStream_t stream) {
+  if (N2 > 28) return run_freq_mat<VEC, FM_TR_WIDE, FM_U_WIDE>(a, m, y, F, K, N, N2, stream);
+  return run_freq_mat<VEC, FM_TR, 1>(a, m, y, F, K, N, N2, stream);
 }
 
 }  // namespace
@@ -569,9 +619,11 @@ int grouped_sumvec_freq_outer(const float* a, const float* b, float* out, int F,
 
 int grouped_sumvec_freq_mat(const float* a, const float* m, float* y, int F, int K, int N, int N2,
                             cudaStream_t stream) {
-  const dim3 grid((N2 + MN - 1) / MN, (K + MK - 1) / MK, F);
-  freq_mat_kernel<<<grid, 256, 0, stream>>>(a, m, y, K, N, N2);
-  return (int)cudaGetLastError();
+  // 16-byte pieces and stores where every row of every operand starts on 16
+  // bytes; 4-byte ones otherwise (N or N2 % 4 != 0, or a view at an offset)
+  const bool vec = N % 4 == 0 && N2 % 4 == 0 && aligned(a, 16) && aligned(m, 16) && aligned(y, 16);
+  return (int)(vec ? run_freq_mat_tile<true>(a, m, y, F, K, N, N2, stream)
+                   : run_freq_mat_tile<false>(a, m, y, F, K, N, N2, stream));
 }
 
 const char* grouped_sumvec_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -29,19 +29,39 @@ def _rand(dev, *shape):
     return torch.randn(*shape, generator=torch.Generator().manual_seed(sum(shape))).to(dev)
 
 
-@pytest.mark.parametrize("m,k,n,real_a", [(13, 7, 5, False), (200, 33, 130, False), (1000, 32, 32, True)])
-def test_cmatmul_kernel_matches_plain(dev, m, k, n, real_a):
+# (m, k, n, real A, offset of Ar, Re output only): the plan widths N = 32
+# (stage 1, real A), 48 (the LM probe's d = 2304), 64, 128 (d = 8192's
+# stage 3 at a reduced M), 11 (the dp = 121 plan), 60 / 68 (d = 2039's
+# padded plan); M = 1 and M no multiple of a strip's rows; Ar 4 bytes off a
+# 16-byte boundary (no bulk copy); the vjp's Re-output case; N past one
+# 128-column tile; K too deep for B to stay resident (a ring of K slices)
+@pytest.mark.parametrize(
+    "m,k,n,real_a,offset,real_out",
+    [(13, 7, 5, False, 0, False), (200, 33, 130, False, 0, False), (1000, 32, 32, True, 0, False),
+     (4100, 32, 32, True, 0, False), (384, 48, 48, False, 0, False), (2000, 128, 128, False, 0, False),
+     (300, 11, 11, False, 0, False), (1000, 60, 60, True, 0, False), (1000, 68, 68, False, 0, False),
+     (1, 64, 64, False, 0, False), (8191, 64, 64, False, 0, False), (500, 64, 64, False, 1, False),
+     (4100, 32, 32, False, 0, True), (8192, 64, 64, False, 0, True), (64, 600, 40, False, 0, False)],
+)
+def test_cmatmul_kernel_matches_plain(dev, m, k, n, real_a, offset, real_out):
     from repro_torch.kernels.sumvec_fft import kernel as K
 
-    ar, br, bi = _rand(dev, m, k), _rand(dev, k, n), _rand(dev, k, n)
+    ar, br, bi = _view(dev, offset, m, k), _rand(dev, k, n), _rand(dev, k, n)
     ai = None if real_a else _rand(dev, m, k) * 0.5
+    if real_out:  # the vjp of the real-input stage asks for Re(A @ B) only
+        run = lambda: K._cmatmul_launch(ar, ai, br, bi, real_out=True)[:1]
+        want = K.cmatmul_plain(ar, ai, br, bi)[:1]
+    else:
+        run = lambda: K.cmatmul(ar, ai, br, bi)
+        want = K.cmatmul_plain(ar, ai, br, bi)
     before = K.cmatmul.launches
-    got = K.cmatmul(ar, ai, br, bi)
-    want = K.cmatmul_plain(ar, ai, br, bi)
+    got = run()
     torch.cuda.synchronize()
     assert K.cmatmul.launches == before + 1
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, **TOL)
+    # a fixed-order sum per output, no atomics: bit-identical on a rerun
+    assert all(torch.equal(g, r) for g, r in zip(got, run()))
 
 
 def _view(dev, offset, *shape):
@@ -129,16 +149,25 @@ def test_r_sum_kernel_route_matches_plain_route(dev, block, q):
     torch.testing.assert_close(got, want, rtol=5e-4, atol=0.0)
 
 
-@pytest.mark.parametrize("f,k,n,n2", [(3, 11, 5, 7), (65, 512, 16, 16), (65, 512, 64, 64), (2, 70, 130, 9)])
-def test_freq_mat_kernel_matches_plain(dev, f, k, n, n2):
+# (f, k, n, n2, offset of a): N = N2 = 9 and a 4 bytes off a 16-byte
+# boundary (the scalar twin), K no multiple of a block's rows, N2 past one
+# 64-column tile
+@pytest.mark.parametrize(
+    "f,k,n,n2,offset",
+    [(3, 11, 5, 7, 0), (65, 512, 16, 16, 0), (65, 512, 64, 64, 0), (2, 70, 130, 9, 0), (65, 512, 9, 9, 0),
+     (65, 512, 16, 16, 1), (65, 500, 16, 16, 0), (65, 77, 64, 64, 0), (2, 70, 20, 130, 0)],
+)
+def test_freq_mat_kernel_matches_plain(dev, f, k, n, n2, offset):
     from repro_torch.kernels.grouped_sumvec import kernel as K
 
-    a, m = _rand(dev, f, k, n), _rand(dev, f, n, n2) * 0.5
+    a, m = _view(dev, offset, f, k, n), _rand(dev, f, n, n2) * 0.5
     before = K.freq_mat.launches
     got = K.freq_mat(a, m)
     torch.cuda.synchronize()
     assert K.freq_mat.launches == before + 1
     torch.testing.assert_close(got, K.freq_mat_plain(a, m), **TOL)
+    # a fixed-order sum per output, no atomics: bit-identical on a rerun
+    assert torch.equal(K.freq_mat(a, m), got)
 
 
 @pytest.mark.parametrize("n,d", [(5, 37), (256, 2048), (256, 2039), (300, 130)])

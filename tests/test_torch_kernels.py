@@ -28,7 +28,13 @@ def _t(*xs):
     return [torch.from_numpy(x) for x in xs]
 
 
-@pytest.mark.parametrize("m,k,n,real_a", [(13, 7, 5, False), (40, 33, 130, False), (21, 9, 11, True)])
+# ragged shapes, and the four-step plans' widths: N = 32 (real A, stage 1
+# at d = 2048), 48 (d = 2304) and 64 (stage 3 at d = 2048)
+@pytest.mark.parametrize(
+    "m,k,n,real_a",
+    [(13, 7, 5, False), (40, 33, 130, False), (21, 9, 11, True), (24, 32, 32, True), (16, 48, 48, False),
+     (12, 64, 64, False)],
+)
 def test_cmatmul_plain_matches_reference(m, k, n, real_a):
     ar, ai, br, bi = _arrays(m + k + n, (m, k), (m, k), (k, n), (k, n))
     if real_a:
@@ -62,6 +68,16 @@ def test_freq_outer_plain_matches_reference(f, k, n, nb):
     a, b = _arrays(f * k * n, (f, k, n), (f, k, nb))
     want = rg._freq_outer_raw(jnp.asarray(a), jnp.asarray(b))
     got = tg.freq_outer(*_t(a, b))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+# N = N2 = 16 (d = 2048, b = 128), N = N2 = 64 (d = 8192) at a small K, and
+# ragged shapes
+@pytest.mark.parametrize("f,k,n,n2", [(3, 11, 5, 7), (2, 20, 16, 16), (2, 8, 64, 64), (2, 70, 130, 9)])
+def test_freq_mat_plain_matches_reference(f, k, n, n2):
+    a, m = _arrays(f * k + n2, (f, k, n), (f, n, n2))
+    want = rg._freq_mat_raw(jnp.asarray(a), jnp.asarray(m))
+    got = tg.freq_mat(*_t(a, m))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
