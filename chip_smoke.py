@@ -14,8 +14,12 @@ Phases (any failed check exits non-zero and prints no result):
      n = 256; the prime d = 2039 for the padded plan's q = 1 inverse path
      and the ragged R_off tiles; the LM probe's d = 2304), forward and,
      labelled ``bwd``, as the vjps call it, and at edge shapes that take the
-     kernels' other paths, and is held against its plain PyTorch version on
-     the same inputs.  Prints max error, kernel / plain / library time and
+     kernels' other paths (R_off: one tile, ragged last tiles, batches of 1,
+     17 and 300, an operand 4 bytes off; paged attention: lengths around a
+     split's CHUNK rows, a length of 1 in a wide table, a window that starts
+     mid-chunk or exceeds every length, n_rep 1 to 8, hd 48 to 256, pages of
+     5 and 16), and is held against its plain PyTorch version on the same
+     inputs.  Prints max error, kernel / plain / library time and
      the bound; a cmatmul line names its library yardstick: complex ``@``,
      or, for the real-input stage and the vjp's Re-only output, the one real
      ``matmul`` that computes the same function.
@@ -34,7 +38,11 @@ Phases (any failed check exits non-zero and prints no result):
      have launched (counters cleared just before each run).
   3. profile — the same two service runs, warmed, under ``torch.profiler``:
      wall time vs summed device time (the device's idle share) and the
-     device work by kernel name.
+     device work by kernel name.  A ported kernel's device ms sums every
+     ``__global__`` function of its source (``DEVICE_KERNELS``: R_off's tile
+     pass and partials sum, paged attention's decode pass and split
+     combine); a kernel whose launch counter moved in a profiled window but
+     that shows no device time fails the phase (here, in 4 and in 5).
   4. train — ``make_ssl_train_step`` with LARS at the full ``ssl-paper``
      width (batch 256, ``ssl_batch`` data, random weights from a seed), 20
      steps of three arms on the kernel route and on the ``impl="plain"``
@@ -46,7 +54,8 @@ Phases (any failed check exits non-zero and prints no result):
      must agree within 5e-4 relative, and every kernel of an arm must have
      launched on the forward and (but xcorr_offdiag, whose backward is torch
      products) the backward pass.  Prints median step ms per arm and route,
-     then a profiler pass over 10 warmed steps of arms (a) and (b) each.
+     then a profiler pass over 10 warmed steps of each arm (its kernels'
+     device ms must be > 0).
   5. lm — paged continuous-batching LM serving of ``gemma2-2b`` at its full
      published width and depth (26 layers, d = 2304, 8 query / 4 kv heads of
      256, vocab 256000; random weights from ``init_params(seed=0)``) through
@@ -84,6 +93,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -151,6 +161,19 @@ SOURCES = {
     "xcorr_offdiag": "src/repro_torch/kernels/csrc/xcorr_offdiag.cu",
     "paged_attention": "src/repro_torch/kernels/csrc/paged_attention.cu",
 }
+# every __global__ function of each kernel's source, by the kernel whose
+# wrapper launches it: the profiler's device time of a kernel is the sum over
+# these names (xcorr_offdiag's tile pass and its partials sum, paged
+# attention's decode pass and its split combine)
+DEVICE_KERNELS = {
+    "cmatmul": ("cmatmul_kernel",),
+    "ctwiddle": ("ctwiddle_kernel",),
+    "pmatmul": ("pmatmul_kernel",),
+    "freq_outer": ("freq_outer_kernel",),
+    "freq_mat": ("freq_mat_kernel",),
+    "xcorr_offdiag": ("xcorr_tile_kernel", "sum_partials_kernel"),
+    "paged_attention": ("paged_decode_kernel", "paged_combine_kernel"),
+}
 # the training arms: (DecorrConfig keywords, the kernels the arm runs)
 ARMS = {
     "a bt r_sum b=128 q=2": (dict(style="bt", reg="sum", block_size=128, q=2), ("pmatmul", "freq_outer", "freq_mat")),
@@ -197,6 +220,33 @@ def _device_ms(fn, iters: int = 20):
     fn()
     events = _device_events(lambda: [fn() for _ in range(iters)])
     return sum(us for _, us in events) / iters / 1e3 if events else None
+
+
+_OWNER = {sym: kernel for kernel, symbols in DEVICE_KERNELS.items() for sym in symbols}
+_SYMBOL = re.compile(r"(?<![A-Za-z0-9_])(" + "|".join(_OWNER) + r")(?![A-Za-z0-9_])")
+
+
+def kernel_of(device_name: str):
+    """The ported kernel a profiler device event belongs to (by the
+    ``DEVICE_KERNELS`` names, matched as whole identifiers), or None."""
+    found = _SYMBOL.search(device_name)
+    return _OWNER[found.group(1)] if found else None
+
+
+def _ported_ms(ph, events, counts, names, where):
+    """{kernel: (device ms, device launches)} of ``names`` in a profiled
+    window's events; a kernel whose launch counter moved in the window but
+    that shows no device time fails the phase."""
+    ours = {k: [0.0, 0] for k in names}
+    for name, us in events:
+        k = kernel_of(name)
+        if k in ours:
+            ours[k][0] += us / 1e3
+            ours[k][1] += 1
+    for k in names:
+        ph.check(counts.get(k, 0) == 0 or ours[k][0] > 0,
+                 f"[profile] {where}: {k} launched {counts.get(k, 0)} times but shows no device time")
+    return ours
 
 
 def _fmt(ms):
@@ -339,8 +389,8 @@ def _kernel_cases(dev):
             4 * (f * k * nn + f * nn * n2 + f * k * n2), 2 * f * k * nn * n2,
         ))
 
-    def xc(label, rows, d):
-        z1, z2 = rand(rows, d), rand(rows, d)
+    def xc(label, rows, d, offset=0):
+        z1, z2 = view(offset, rows, d), rand(rows, d)
 
         def library():  # cuBLAS C = z1^T z2 (TF32 off), then the square-sum
             c = z1.T @ z2
@@ -425,6 +475,17 @@ def _kernel_cases(dev):
     ctw(f"d=2039 inverse twiddle (1,{p.dp})", 1, p.dp)
     cmm(f"d=2039 inverse ({p.d2},{p.d1})x({p.d1},{p.d1})", p.d2, p.d1, p.d1, False, sign=1)
     xc(f"d=2039 xcorr ({n},2039) ragged tiles", n, 2039)
+    # the redesigned xcorr_offdiag's other paths: one tile, a ragged last
+    # tile column of 1 or 2 (d % 4 != 0: the scalar twin), a batch of 1, a
+    # batch that is no multiple of a ring stage's rows, z1 4 bytes off a
+    # 16-byte boundary (the scalar twin at d = 2048)
+    xc("edge d=128 xcorr (256,128)", n, 128)
+    xc("edge d=129 n=17 xcorr (17,129)", 17, 129)
+    xc("edge d=130 n=300 xcorr (300,130)", 300, 130)
+    xc("edge n=1 xcorr (1,2039)", 1, 2039)
+    xc("edge n=17 xcorr (17,8192)", 17, 8192)
+    xc("edge n=300 xcorr (300,2048)", 300, 2048)
+    xc("edge z1 at +4 bytes xcorr (256,2048)", n, 2048, offset=1)
     _paged_cases(cases, dev, gen)
     return cases
 
@@ -437,16 +498,16 @@ PAGED_SHAPE = dict(h=8, kv=4, hd=256, page=LM_PAGE, scale=1.0 / 16.0)
 HOT_Q = 40.0
 
 
-def _paged_inputs(dev, gen, lens, dtype, q_gain=1.0):
+def _paged_inputs(dev, gen, lens, dtype, q_gain=1.0, shape=PAGED_SHAPE, nb=0):
     """q (B, H, hd) f32, k/v page pools in ``dtype``, a permuted block table
     with a ragged page count per slot (unused entries on the sentinel page
-    0) and int32 lengths, all on ``dev``."""
+    0; at least ``nb`` entries wide) and int32 lengths, all on ``dev``."""
     import torch
 
-    h, kv, hd, page = (PAGED_SHAPE[k] for k in ("h", "kv", "hd", "page"))
+    h, kv, hd, page = (shape[k] for k in ("h", "kv", "hd", "page"))
     b = len(lens)
     need = [-(-n // page) for n in lens]
-    nb = max(need)
+    nb = max(max(need), nb)
     p_total = sum(need) + 1
     ids = (torch.randperm(p_total - 1, generator=gen) + 1).tolist()
     table = torch.zeros((b, nb), dtype=torch.int32)
@@ -478,12 +539,11 @@ def _paged_cases(cases, dev, gen):
     from repro_torch.kernels.paged_attention.ops import paged_decode_plain
     from repro_torch.kernels.paged_attention.ref import gather_pages
 
-    h, kv, hd, page, scale = (PAGED_SHAPE[k] for k in ("h", "kv", "hd", "page", "scale"))
-
-    def case(label, lens, dtype, softcap, window, q_gain=1.0):
+    def case(label, lens, dtype, softcap, window, q_gain=1.0, shape=PAGED_SHAPE, nb=0):
+        h, kv, hd, page, scale = (shape[k] for k in ("h", "kv", "hd", "page", "scale"))
         b = len(lens)
-        nb = max(-(-n // page) for n in lens)
-        q, kp, vp, table, lens_t = _paged_inputs(dev, gen, lens, dtype, q_gain)
+        nb = max(max(-(-n // page) for n in lens), nb)
+        q, kp, vp, table, lens_t = _paged_inputs(dev, gen, lens, dtype, q_gain, shape, nb)
         kw = dict(scale=scale, softcap=softcap, window=window)
         lib = None
         if not softcap and not window:
@@ -515,6 +575,26 @@ def _paged_cases(cases, dev, gen):
         for softcap in (30.0, 50.0):
             case(f"hot {tag} softcap={softcap:g} window=4096 q*{HOT_Q:g}", main_lens, dtype, softcap, 4096, HOT_Q)
     case(f"hot long bf16 softcap=50 window=4096 q*{HOT_Q:g}", long_lens, torch.bfloat16, 50.0, 4096, HOT_Q)
+    # the split kernel's edges (CHUNK rows a block): lengths at CHUNK - 1,
+    # CHUNK, CHUNK + 1 and past two chunks; a length of 1 in a 4096-row
+    # table (15 of 16 chunks empty); a window whose start lo falls inside a
+    # page and leaves a ragged last chunk; a window longer than every
+    # length; n_rep 1, 4 and 8 with hd 128 and 48 and a page of 5
+    ch = pk.CHUNK
+    edge = [ch - 1, ch, ch + 1, 1, 2 * ch + 1, 3 * ch - 1, 3 * ch, 3 * ch + 1]
+    case(f"edge lens at CHUNK-1/CHUNK/CHUNK+1 bf16 softcap=50 window=0 (lens {edge})", edge, torch.bfloat16, 50.0, 0)
+    case("edge len=1 in a wide table f32 softcap=0 window=0 (NB=256)", [1, 1, 2, 1, 1, 3, 1, 1], torch.float32,
+         0.0, 0, nb=256)
+    case("edge window=700 lo mid-chunk bf16 softcap=50", [1000, 777, 300, 5000, 4097, 17, 2600, 1],
+         torch.bfloat16, 50.0, 700)
+    case("edge window=9000 > len bf16 softcap=30", long_lens, torch.bfloat16, 30.0, 9000)
+    for h_, kv_, hd_, page_ in ((4, 4, 128, 5), (8, 2, 128, 16), (8, 1, 48, 5)):
+        shape = dict(h=h_, kv=kv_, hd=hd_, page=page_, scale=hd_ ** -0.5)
+        for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            case(f"edge n_rep={h_ // kv_} hd={hd_} page={page_} {tag} softcap=50 window=300",
+                 [300, 1, ch + 1, 40, 2 * ch, 999], dtype, 50.0, 300, shape=shape)
+        case(f"edge n_rep={h_ // kv_} hd={hd_} page={page_} f32 softcap=0 window=0",
+             [300, 1, ch + 1, 40, 2 * ch, 999], torch.float32, 0.0, 0, shape=shape)
 
 
 def _softcap_control(ph: Phase, dev):
@@ -721,11 +801,12 @@ def _serve_once(ph: Phase, dev, block_size, expect):
     return counts
 
 
-def _profile_once(dev, block_size):
+def _profile_once(ph: Phase, dev, block_size):
     """Serve 512 requests on a warmed service under the profiler: wall time
     vs summed device time, and the device work by kernel name."""
     import time as _time
 
+    from repro_torch import kernels
     from repro_torch.decorr.config import DecorrConfig
     from repro_torch.serve.engine import ServeEngine
     from repro_torch.serve.loadgen import LoadConfig, request_stream
@@ -748,34 +829,33 @@ def _profile_once(dev, block_size):
             f.result(timeout=60)
         wall[0] = _time.perf_counter() - t0
 
+    kernels.reset_launch_counts()
     try:
         events = _device_events(serve)
     finally:
         service.stop()
+    counts = kernels.launch_counts()
     by_name = {}
     for name, us in events:
         by_name[name] = by_name.get(name, 0.0) + us
     busy_ms = sum(by_name.values()) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     tops = "; ".join(f"{n[:60]}={us / 1e3:.4f}ms" for n, us in top)
-    # this package's kernels (their device names end in <kernel>_kernel)
-    ours = {
-        k: sum(us for n, us in events if f"{k}_kernel" in n) / 1e3 for k in REPLACES
-    }
+    ours = _ported_ms(ph, events, counts, REPLACES, f"probe block={block_size}")
     wall_ms = wall[0] * 1e3
     print(
         f"[profile] probe block={block_size}: {N_REQUESTS} requests wall_ms={wall_ms:.3f} "
         f"device_busy_ms={busy_ms:.4f} idle_share={1 - busy_ms / wall_ms:.4f} "
         f"device events={len(events)} | ported kernels ms: "
-        + " ".join(f"{k}={v:.4f}" for k, v in ours.items())
+        + " ".join(f"{k}={ms:.4f}" for k, (ms, _) in ours.items())
         + f" | top: {tops}",
         flush=True,
     )
 
 
-def phase_profile(dev):
+def phase_profile(ph: Phase, dev):
     for block in (None, 128):
-        _profile_once(dev, block)
+        _profile_once(ph, dev, block)
 
 
 def phase_service(ph: Phase, dev):
@@ -880,7 +960,7 @@ def phase_train(ph: Phase, dev):
 
     batches = _train_batches(dev, TRAIN_STEPS)
     fwd_total, bwd_total = {}, {}
-    profiled = []  # the R_sum arms, (a) grouped and (b) ungrouped
+    profiled = []
     for arm, (loss_kw, names) in ARMS.items():
         k_grads, k_loss, k_ms, fwd, bwd, k_state, k_step = _train_route(dev, loss_kw, None, batches)
         p_grads, p_loss, p_ms, _, _, _, _ = _train_route(dev, loss_kw, "plain", batches)
@@ -904,10 +984,9 @@ def phase_train(ph: Phase, dev):
             f"launches fwd {dict((k, v) for k, v in fwd.items() if v)} bwd {dict((k, v) for k, v in bwd.items() if v)}",
             flush=True,
         )
-        if len(profiled) < 2:
-            profiled.append((arm, names, k_state, k_step))
+        profiled.append((arm, names, k_state, k_step))
     for prof in profiled:
-        _profile_train(dev, batches, *prof)
+        _profile_train(ph, dev, batches, *prof)
     _sensitivity(dev, batches)
     return fwd_total, bwd_total
 
@@ -927,10 +1006,13 @@ def _sensitivity(dev, batches):
     )
 
 
-def _profile_train(dev, batches, arm, names, state, step):
+def _profile_train(ph: Phase, dev, batches, arm, names, state, step):
     """PROFILE_STEPS warmed steps of one arm under the profiler: wall time vs
-    summed device time (idle share) and the largest device items."""
+    summed device time (idle share), the arm's kernels' device ms and the
+    largest device items."""
     import torch
+
+    from repro_torch import kernels
 
     wall = [0.0]
 
@@ -942,18 +1024,22 @@ def _profile_train(dev, batches, arm, names, state, step):
         torch.cuda.synchronize()
         wall[0] = time.perf_counter() - t0
 
+    kernels.reset_launch_counts()
     events = _device_events(run)
+    counts = kernels.launch_counts()
     by_name = {}
     for name, us in events:
         by_name[name] = by_name.get(name, 0.0) + us
     busy_ms = sum(by_name.values()) / 1e3
     wall_ms = wall[0] * 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    ours = {k: sum(us for n, us in events if f"{k}_kernel" in n) / 1e3 for k in names}
+    ours = _ported_ms(ph, events, counts, names, f"train {arm}")
+    for name in names:
+        ph.check(ours[name][0] > 0, f"[profile] train {arm}: no device time of {name}")
     print(
         f"[profile] train {arm}: {PROFILE_STEPS} steps wall_ms={wall_ms:.3f} device_busy_ms={busy_ms:.4f} "
         f"idle_share={1 - busy_ms / wall_ms:.4f} device events={len(events)} | ported kernels ms: "
-        + " ".join(f"{k}={v:.4f}" for k, v in ours.items())
+        + " ".join(f"{k}={ms:.4f} ({n} device launches)" for k, (ms, n) in ours.items())
         + " | top: " + "; ".join(f"{n[:60]}={us / 1e3:.4f}ms" for n, us in top),
         flush=True,
     )
@@ -1164,18 +1250,22 @@ def _lm_timed(ph, cfg, params, dev, stream, max_len, max_prompt):
         torch.cuda.synchronize()
         wall_box[0] = time.perf_counter() - t0
 
+    kernels.reset_launch_counts()
     events = _device_events(window)
+    window_counts = kernels.launch_counts()
     by_name = {}
     for name, us in events:
         by_name[name] = by_name.get(name, 0.0) + us
     busy_ms = sum(by_name.values()) / 1e3
     wall_ms = wall_box[0] * 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    symbols = {"paged_attention": "paged_decode_kernel", "cmatmul": "cmatmul_kernel", "ctwiddle": "ctwiddle_kernel"}
-    ported = {k: [us for n, us in events if sym in n] for k, sym in symbols.items()}
+    ported = _ported_ms(ph, events, window_counts, ("paged_attention",) + LM_PROBE_KERNELS, "lm bf16")
+    ph.check(ported["paged_attention"][0] > 0, "[profile] lm bf16: no device time of paged_attention")
     print(f"[profile] lm bf16: {LM_PROFILE_TICKS} decode ticks, 8 live slots, wall_ms={wall_ms:.3f} "
           f"device_busy_ms={busy_ms:.4f} idle_share={1 - busy_ms / wall_ms:.4f} device events={len(events)} | "
-          + " ".join(f"{k} ms={sum(us) / 1e3:.4f} ({len(us)} launches)" for k, us in ported.items()) + " | top: " + "; ".join(f"{n[:60]}={us / 1e3:.4f}ms" for n, us in top),
+          + " ".join(f"{k} ms={ms:.4f} ({n} device launches, {window_counts[k]} wrapper launches)"
+                     for k, (ms, n) in ported.items())
+          + " | top: " + "; ".join(f"{n[:60]}={us / 1e3:.4f}ms" for n, us in top),
           flush=True)
 
     # kernel vs plain on the live pool, a few ticks (reported, not gated)
@@ -1256,7 +1346,7 @@ def main() -> int:
         return 1
     rows = ph.run("kernels", phase_kernels, ph, dev) or {}
     launches = ph.run("service", phase_service, ph, dev) or {}
-    ph.run("profile", phase_profile, dev)
+    ph.run("profile", phase_profile, ph, dev)
     train_fwd, train_bwd = ph.run("train", phase_train, ph, dev) or ({}, {})
     lm = ph.run("lm", phase_lm, ph, dev) or {}
     for part in (train_fwd, lm):

@@ -3,8 +3,12 @@
 Port of ``repro/kernels/paged_attention/kernel.py``.  The CUDA C++ source
 is ``kernels/csrc/paged_attention.cu``, whose header note names the TPU
 kernel it replaces, its bound on an H100 and its design: one block per
-(slot, kv head) holds that head's ``n_rep`` query rows and walks the slot's
-pages through its own block-table entries with an online softmax.
+(slot, kv head, split) holds that head's ``n_rep`` query rows and walks
+``CHUNK`` of the slot's live rows through its own block-table entries with
+an online softmax; with more than one split a second pass of the same C
+entry merges the splits' partial states in a fixed order.  The split count
+(``split_count``) comes from the table's width, the page size and the
+window alone, so the wrapper never reads the lengths on the host.
 
 The wrapper checks device, dtypes, shapes and contiguity, runs the plain
 version (``ops.paged_decode_plain``) for CPU tensors and launches the
@@ -27,6 +31,16 @@ FAMILY = "paged_attention"
 MAX_HEAD_DIM = 256
 MAX_N_REP = 8
 PAGE_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# rows of a slot one block of the kernel takes (``CH`` in paged_attention.cu)
+CHUNK = 256
+
+
+def split_count(nb: int, page: int, window: int) -> int:
+    """Blocks a (slot, kv head) is split over: enough CHUNK-row chunks for
+    the most live rows a slot of an (NB, page) table can hold under
+    ``window`` — from sizes the host knows, never from the lengths."""
+    rows = nb * page if not window else min(nb * page, window)
+    return max(1, -(-rows // CHUNK))
 
 
 def _check(name: str, x: Tensor, shape, dtypes) -> None:
@@ -53,7 +67,7 @@ def paged_decode_attention(
 
     q: (B, H, hd) f32; k/v_pages: (P, page, KV, hd) f32 or bf16, H a
     multiple of KV (never head-expanded); block_tables: (B, NB) int32;
-    lens: (B,) int32 valid rows per slot, each >= 1 (rows at ``pos >= len``,
+    lens: (B,) int32 valid rows per slot, 1 <= len <= NB * page (rows at ``pos >= len``,
     and with ``window > 0`` rows at ``pos < len - window``, carry no
     probability mass).  Returns (B, H, hd) f32.
     """
@@ -81,9 +95,15 @@ def paged_decode_attention(
         raise ValueError("paged_attention: page pools must start on a 16-byte boundary (the kernel's vector loads)")
     out = torch.empty((b, h, hd), dtype=torch.float32, device=q.device)
     if b:
+        window = int(window or 0)
+        splits = split_count(nb, page, window)
+        # the splits' partial states: (B, KV, S, n_rep, hd) accumulators, then
+        # (B, KV, S, n_rep, 2) running max and normaliser
+        part = torch.empty((b * kv * splits * n_rep * (hd + 2),), dtype=torch.float32, device=q.device) \
+            if splits > 1 else None
         build.launch(
-            FAMILY, "decode", q.device, q, k_pages, v_pages, block_tables, lens, out,
-            b, kv, n_rep, hd, page, nb, float(scale), float(softcap or 0.0), int(window or 0),
+            FAMILY, "decode", q.device, q, k_pages, v_pages, block_tables, lens, out, part,
+            b, kv, n_rep, hd, page, nb, splits, float(scale), float(softcap or 0.0), window,
             PAGE_DTYPES[k_pages.dtype],
         )
         count_launch(paged_decode_attention)

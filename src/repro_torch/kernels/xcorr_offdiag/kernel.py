@@ -3,9 +3,10 @@
 Port of ``repro/kernels/xcorr_offdiag/kernel.py``.  The CUDA C++ source is
 ``kernels/csrc/xcorr_offdiag.cu``, whose header note names the TPU kernel it
 replaces, its bound on an H100 and what the design does about it: the d x d
-matrix C = Z1^T Z2 is formed tile by tile in registers, squared,
-diagonal-masked and folded into per-tile partials that a second pass sums
-in a fixed order.
+matrix C = Z1^T Z2 is formed in 128 x 128 tiles in registers from batch
+slices staged through a ring in shared memory, squared, diagonal-masked and
+folded into one partial per tile (``TILE``) that a second pass sums in a
+fixed order.
 
 Beside the kernel: a plain PyTorch version (``*_plain``, run for CPU tensors
 and compared with the kernel on the card), a launcher that checks device,
@@ -24,7 +25,7 @@ from repro_torch.kernels.utils import check_operand, route
 
 Tensor = torch.Tensor
 FAMILY = "xcorr_offdiag"
-TILE = 64  # the CUDA kernel's C tile edge: one partial per tile
+TILE = 128  # the CUDA kernel's C tile edge: one partial per tile
 
 
 def off_diagonal_sq_sum_plain(z1: Tensor, z2: Tensor) -> Tensor:

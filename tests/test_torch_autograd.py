@@ -152,7 +152,8 @@ def _fake_launch(family, name, device, *args):
         out.copy_(tg.freq_mat_plain(a, m))
     elif key == ("xcorr_offdiag", "off_diagonal_sq_sum"):
         z1, z2, partial, out, n, d = args
-        assert z1.shape == (n, d) and partial.numel() == (-(-d // tx.TILE)) ** 2
+        assert z1.shape == z2.shape == (n, d) and partial.numel() == (-(-d // tx.TILE)) ** 2
+        assert partial.shape == ((-(-d // 128)) ** 2,) and out.shape == () and n > 0 and d > 0
         out.copy_(tx.off_diagonal_sq_sum_plain(z1, z2))
     else:
         raise AssertionError(f"unknown kernel {key}")
@@ -234,3 +235,23 @@ def test_constant_bases_get_no_gradient_work(cuda_branch, monkeypatch):
     cr, ci = tf.cmatmul(x, None, br, bi)
     torch.autograd.grad((cr * cr + ci).sum(), x)
     assert seen == [("cmatmul", False), ("cmatmul", True)]
+
+
+@pytest.mark.parametrize("n,d", [(8, 37), (17, 128), (5, 129), (3, 300)])
+def test_xcorr_offdiag_cuda_branch_takes_kernel_layouts(cuda_branch, n, d):
+    """The R_off wrapper's CUDA branch: one partial per 128 x 128 tile of C
+    (``TILE``), a 0-d output, one launch; the loss route's gradient is the
+    Gram trick in torch products, so the backward pass launches nothing."""
+    from repro_torch.kernels.xcorr_offdiag import off_diagonal_sq_sum, off_diagonal_sq_sum_ref
+
+    assert tx.TILE == 128
+    rng = np.random.default_rng(n * d)
+    z1, z2 = (torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).requires_grad_() for _ in range(2))
+    got = off_diagonal_sq_sum(z1, z2, scale=n)
+    grads = torch.autograd.grad(got, (z1, z2))
+    want = off_diagonal_sq_sum_ref(z1, z2, scale=n)
+    np.testing.assert_allclose(float(got.detach()), float(want.detach()), rtol=2e-4)
+    for g, w in zip(grads, torch.autograd.grad(want, (z1, z2))):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=5e-4, atol=5e-4 * float(w.abs().max()))
+    assert kernels.launch_counts()["xcorr_offdiag"] == 1
+    assert kernels.backward_launch_counts()["xcorr_offdiag"] == 0

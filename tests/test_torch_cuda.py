@@ -170,13 +170,24 @@ def test_freq_mat_kernel_matches_plain(dev, f, k, n, n2, offset):
     assert torch.equal(K.freq_mat(a, m), got)
 
 
-@pytest.mark.parametrize("n,d", [(5, 37), (256, 2048), (256, 2039), (300, 130)])
-def test_xcorr_offdiag_kernel_matches_plain(dev, n, d):
+# (n, d, offset of z1): one 128-wide tile (d = 128), a last tile column 1
+# or 2 wide (d = 129, 130: the scalar twin), the ragged d = 2039, d = 8192;
+# n = 1, 17 and 300 (no multiple of a ring stage's rows); z1 4 bytes off a
+# 16-byte boundary (the scalar twin at d = 2048)
+@pytest.mark.parametrize(
+    "n,d,offset",
+    [(5, 37, 0), (256, 2048, 0), (256, 2039, 0), (300, 130, 0), (256, 128, 0), (17, 129, 0), (1, 2039, 0),
+     (17, 8192, 0), (256, 8192, 0), (300, 2048, 0), (1, 128, 0), (256, 2048, 1), (17, 130, 1)],
+)
+def test_xcorr_offdiag_kernel_matches_plain(dev, n, d, offset):
     from repro_torch.kernels.xcorr_offdiag import kernel as K
 
-    z1, z2 = _rand(dev, n, d), _rand(dev, n, d) + 0.1
+    z1, z2 = _view(dev, offset, n, d), _rand(dev, n, d) + 0.1
+    before = K.off_diagonal_sq_sum_raw.launches
     got = K.off_diagonal_sq_sum_raw(z1, z2)
     want = K.off_diagonal_sq_sum_plain(z1, z2)
+    torch.cuda.synchronize()
+    assert K.off_diagonal_sq_sum_raw.launches == before + 1
     torch.testing.assert_close(got, want, rtol=2e-4, atol=0.0)
     # two passes in a fixed order, no atomics: bit-identical on a rerun
     assert torch.equal(K.off_diagonal_sq_sum_raw(z1, z2), got)
@@ -241,12 +252,12 @@ def test_ssl_train_step_on_card_matches_plain_route(dev, loss):
         torch.testing.assert_close(a, b, rtol=5e-4, atol=1e-5)
 
 
-def _paged_case(dev, b, h, kv, hd, page, lens, dtype, seed=0, q_gain=1.0):
+def _paged_case(dev, b, h, kv, hd, page, lens, dtype, seed=0, q_gain=1.0, nb=0):
     """Seeded q (times ``q_gain``), page pools in ``dtype``, a permuted block
     table with a ragged page count per slot (unused entries on the sentinel
-    page 0)."""
+    page 0; at least ``nb`` entries wide)."""
     gen = torch.Generator().manual_seed(seed)
-    nb = -(-max(lens) // page)
+    nb = max(-(-max(lens) // page), nb)
     need = [-(-n // page) for n in lens]
     p_total = sum(need) + 1
     ids = (torch.randperm(p_total - 1, generator=gen) + 1).tolist()
@@ -282,6 +293,43 @@ def test_paged_attention_kernel_matches_plain(dev, dtype, softcap, window, b, h,
     assert K.paged_decode_attention.launches == before + 1
     assert got.dtype == torch.float32 and got.shape == (b, h, hd)
     torch.testing.assert_close(got, want, rtol=0.0, atol=2e-4 * max(1.0, float(want.abs().max())))
+    # fixed-order merges, no atomics: bit-identical on a rerun
+    assert torch.equal(K.paged_decode_attention(q, kp, vp, table, lens_t, **kw), got)
+
+
+# the split kernel's edges (CHUNK = 256 rows a block): lengths at CHUNK - 1,
+# CHUNK, CHUNK + 1 and past two chunks; a length of 1 in a 4096-row table
+# (S = 16, 15 chunks empty); a window whose start falls inside a page, with
+# a ragged last chunk; a window longer than every length; n_rep 1, 2, 4, 8
+# with hd 48, 128, 256 and pages of 5 and 16
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize(
+    "h,kv,hd,page,lens,softcap,window,nb",
+    [(8, 4, 256, 16, [255, 256, 257, 1, 513, 767], 50.0, 0, 0),
+     (8, 4, 256, 16, [1, 1, 2], 0.0, 0, 256),
+     (8, 4, 256, 16, [1000, 777, 300, 5000, 1], 50.0, 700, 0),
+     (8, 4, 256, 16, [8192, 300, 1, 40], 30.0, 9000, 0),
+     (4, 4, 128, 5, [300, 1, 257, 40], 0.0, 0, 0),
+     (8, 2, 128, 16, [513, 17, 256], 50.0, 300, 0),
+     (8, 1, 48, 5, [700, 3, 255], 50.0, 300, 0),
+     (4, 2, 48, 16, [4097, 2], 0.0, 4096, 0)],
+    ids=["lens-at-chunk", "len1-wide-table", "window-lo-mid-chunk", "window-past-len", "nrep1-hd128-page5",
+         "nrep4-hd128", "nrep8-hd48-page5", "nrep2-hd48-window4096"],
+)
+def test_paged_attention_split_edges_match_plain(dev, dtype, h, kv, hd, page, lens, softcap, window, nb):
+    from repro_torch.kernels.paged_attention import kernel as K
+    from repro_torch.kernels.paged_attention.ops import paged_decode_plain
+
+    q, kp, vp, table, lens_t = _paged_case(dev, len(lens), h, kv, hd, page, lens, dtype, seed=2, nb=nb)
+    kw = dict(scale=hd ** -0.5, softcap=softcap, window=window)
+    assert K.split_count(table.shape[1], page, window) > 1
+    before = K.paged_decode_attention.launches
+    got = K.paged_decode_attention(q, kp, vp, table, lens_t, **kw)
+    want = paged_decode_plain(q, kp, vp, table, lens_t, **kw)
+    torch.cuda.synchronize()
+    assert K.paged_decode_attention.launches == before + 1
+    torch.testing.assert_close(got, want, rtol=0.0, atol=2e-4 * max(1.0, float(want.abs().max())))
+    assert torch.equal(K.paged_decode_attention(q, kp, vp, table, lens_t, **kw), got)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])

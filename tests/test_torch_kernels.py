@@ -161,3 +161,41 @@ def test_launch_raises_on_a_failed_launch(monkeypatch, fake_cuda):
     monkeypatch.setattr(build, "library", lambda fam: types.SimpleNamespace(fam_error_string=lambda code: b"refused"))
     with pytest.raises(RuntimeError, match=r"k: CUDA launch failed \(9\): refused"):
         build.launch("fam", "k", torch.device("cuda", 0), torch.ones(2))
+
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_under_test", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod, path.parent
+
+
+def test_profiler_attribution_names_every_global_function():
+    """``chip_smoke.DEVICE_KERNELS`` lists every ``__global__`` function of
+    the CUDA sources, each under a kernel whose source holds it, so a
+    profiled window counts all of a kernel's passes (xcorr_offdiag's tile
+    pass and partials sum, paged_attention's decode and combine)."""
+    import re
+
+    cs, root = _chip_smoke()
+    found = {}
+    for src in sorted((root / "src/repro_torch/kernels/csrc").glob("*.cu")):
+        pattern = r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\("
+        for name in re.findall(pattern, src.read_text()):
+            found[name] = src.name
+    listed = {sym: k for k, syms in cs.DEVICE_KERNELS.items() for sym in syms}
+    assert sorted(listed) == sorted(found)
+    assert set(cs.DEVICE_KERNELS) == set(cs.REPLACES)
+    for sym, kernel in listed.items():
+        assert cs.SOURCES[kernel].endswith("/" + found[sym]), (sym, kernel)
+    assert cs.kernel_of("void (anonymous namespace)::xcorr_tile_kernel<true>(float const*, float const*, float*, "
+                        "int, int)") == "xcorr_offdiag"
+    assert cs.kernel_of("(anonymous namespace)::sum_partials_kernel(float const*, int, float*)") == "xcorr_offdiag"
+    assert cs.kernel_of("void (anonymous namespace)::paged_combine_kernel(float const*, float*, int, int, int, "
+                        "int)") == "paged_attention"
+    assert cs.kernel_of("void (anonymous namespace)::pmatmul_kernel<4, 4>(float const*)") == "pmatmul"
+    assert cs.kernel_of("void at::native::vectorized_elementwise_kernel<4, at::native::FillFunctor<float>>") is None
