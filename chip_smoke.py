@@ -14,12 +14,13 @@ Phases (any failed check exits non-zero and prints no result):
      n = 256; the prime d = 2039 for the padded plan's q = 1 inverse path
      and the ragged R_off tiles; the LM probe's d = 2304), forward and,
      labelled ``bwd``, as the vjps call it, and at edge shapes that take the
-     kernels' other paths (R_off: one tile, ragged last tiles, batches of 1,
-     17 and 300, an operand 4 bytes off; paged attention: lengths around a
-     split's CHUNK rows, a length of 1 in a wide table, a window that starts
-     mid-chunk or exceeds every length, n_rep 1 to 8, hd 48 to 256, pages of
-     5 and 16), and is held against its plain PyTorch version on the same
-     inputs.  Prints max error, kernel / plain / library time and
+     kernels' other paths (freq_outer: N of 1, 9 and 130, N != NB, K of 1,
+     500, 1000 and 4096, an operand 4 bytes off, on both of its kernels;
+     R_off: one tile, ragged last tiles, batches of 1, 17 and 300, an operand
+     4 bytes off; paged attention: lengths around a split's CHUNK rows, a
+     length of 1 in a wide table, a window that starts mid-chunk or exceeds
+     every length, n_rep 1 to 8, hd 48 to 256, pages of 5 and 16), and is held
+     against its plain PyTorch version on the same inputs.  Prints max error, kernel / plain / library time and
      the bound; a cmatmul line names its library yardstick: complex ``@``,
      or, for the real-input stage and the vjp's Re-only output, the one real
      ``matmul`` that computes the same function.
@@ -41,7 +42,8 @@ Phases (any failed check exits non-zero and prints no result):
      device work by kernel name.  A ported kernel's device ms sums every
      ``__global__`` function of its source (``DEVICE_KERNELS``: R_off's tile
      pass and partials sum, paged attention's decode pass and split
-     combine); a kernel whose launch counter moved in a profiled window but
+     combine, freq_outer's narrow and wide kernels); a kernel whose launch
+     counter moved in a profiled window but
      that shows no device time fails the phase (here, in 4 and in 5).
   4. train — ``make_ssl_train_step`` with LARS at the full ``ssl-paper``
      width (batch 256, ``ssl_batch`` data, random weights from a seed), 20
@@ -55,7 +57,7 @@ Phases (any failed check exits non-zero and prints no result):
      launched on the forward and (but xcorr_offdiag, whose backward is torch
      products) the backward pass.  Prints median step ms per arm and route,
      then a profiler pass over 10 warmed steps of each arm (its kernels'
-     device ms must be > 0).
+     device ms must be > 0; torch.cat's device copies are read out too).
   5. lm — paged continuous-batching LM serving of ``gemma2-2b`` at its full
      published width and depth (26 layers, d = 2304, 8 query / 4 kv heads of
      256, vocab 256000; random weights from ``init_params(seed=0)``) through
@@ -163,13 +165,14 @@ SOURCES = {
 }
 # every __global__ function of each kernel's source, by the kernel whose
 # wrapper launches it: the profiler's device time of a kernel is the sum over
-# these names (xcorr_offdiag's tile pass and its partials sum, paged
+# these names (freq_outer's register-fed kernel for narrow tiles and staged
+# kernel for wide ones, xcorr_offdiag's tile pass and its partials sum, paged
 # attention's decode pass and its split combine)
 DEVICE_KERNELS = {
     "cmatmul": ("cmatmul_kernel",),
     "ctwiddle": ("ctwiddle_kernel",),
     "pmatmul": ("pmatmul_kernel",),
-    "freq_outer": ("freq_outer_kernel",),
+    "freq_outer": ("freq_outer_kernel", "freq_outer_staged_kernel"),
     "freq_mat": ("freq_mat_kernel",),
     "xcorr_offdiag": ("xcorr_tile_kernel", "sum_partials_kernel"),
     "paged_attention": ("paged_decode_kernel", "paged_combine_kernel"),
@@ -404,14 +407,15 @@ def _kernel_cases(dev):
             4 * (2 * rows * d + 1), 2 * rows * d * d + 2 * d * d,
         ))
 
-    def fo(label, f, k, nn):
-        a, bb = rand(f, k, nn), rand(f, k, nn)
+    def fo(label, f, k, nn, nb=None, offset=0):
+        nb = nn if nb is None else nb
+        a, bb = view(offset, f, k, nn), rand(f, k, nb)
         cases.append((
             "freq_outer", label,
             lambda: gk.freq_outer(a, bb),
             lambda: gk.freq_outer_plain(a, bb),
             lambda: torch.bmm(a.mT, bb),
-            4 * (2 * f * k * nn + f * nn * nn), 2 * f * k * nn * nn,
+            4 * (f * k * nn + f * k * nb + f * nn * nb), 2 * f * k * nn * nb,
         ))
 
     nf = b // 2 + 1
@@ -463,6 +467,30 @@ def _kernel_cases(dev):
     fm(f"edge N=N2=9 freq_mat ({nf},{2 * n},9)x({nf},9,9)", nf, 2 * n, 9, 9)
     fm(f"edge a at +4 bytes freq_mat ({nf},{2 * n},16)x({nf},16,16)", nf, 2 * n, 16, 16, offset=1)
     fm(f"edge K=500 freq_mat ({nf},500,16)x({nf},16,16)", nf, 500, 16, 16)
+    # the redesigned freq_outer's other paths (d = 8192's case above is also
+    # the shape of freq_mat's vjp dm = freq_outer(a, g)).  The register-fed
+    # kernel: N = 1 (d = b = 128 grouped) and N = 9 (4-byte loads), N != NB
+    # with N past one 64-wide tile, N = 16 against NB = 64, a single K row,
+    # K = 500 and K = 4096 (many rows a thread), a 4 bytes off a 16-byte
+    # boundary (4-byte loads).  The staged kernel (N, NB >= 64): K = 1000 (a
+    # ring refilled), N = 130 and NB = 100 (a in 4-byte pieces, b's columns by
+    # a tensor copy, ragged tiles), a 4 bytes off (4-byte pieces).  Tiles
+    # halved below 64 x 64 to fit the register-fed kernel's threads (N = 50
+    # against NB = 130, N = 48 at F = 132), and K = 0 at N = 64 (zeros)
+    fo(f"edge freq_outer N=1 ({nf},{2 * n},1)", nf, 2 * n, 1)
+    fo(f"edge freq_outer N=9 ({nf},{2 * n},9)", nf, 2 * n, 9)
+    fo("edge freq_outer N=130 NB=9 (2,70,130)x(2,70,9)", 2, 70, 130, 9)
+    fo(f"edge freq_outer N=16 NB=64 ({nf},{2 * n},16)x({nf},{2 * n},64)", nf, 2 * n, 16, 64)
+    fo(f"edge freq_outer K=1 ({nf},1,16)", nf, 1, 16)
+    fo(f"edge freq_outer K=500 ({nf},500,16)", nf, 500, 16)
+    fo(f"edge freq_outer K=4096 ({nf},4096,16)", nf, 4096, 16)
+    fo(f"edge freq_outer a at +4 bytes ({nf},{2 * n},16)", nf, 2 * n, 16, offset=1)
+    fo(f"edge freq_outer K=1000 ({nf},1000,64)", nf, 1000, 64)
+    fo("edge freq_outer N=130 NB=100 (4,300,130)x(4,300,100)", 4, 300, 130, 100)
+    fo(f"edge freq_outer N=64 a at +4 bytes ({nf},{2 * n},64)", nf, 2 * n, 64, offset=1)
+    fo("edge freq_outer N=50 NB=130 (65,64,50)x(65,64,130)", 65, 64, 50, 130)
+    fo("edge freq_outer N=48 F=132 (132,64,48)", 132, 64, 48)
+    fo(f"edge freq_outer K=0 ({nf},0,64)", nf, 0, 64)
     # the LM path's probe: ungrouped R_sum of 8-row windows at d = 2304
     p = fft_plan(2304)
     cmm(f"lm d=2304 stage1 ({8 * p.d2},{p.d1})x({p.d1},{p.d1}) real A", 8 * p.d2, p.d1, p.d1, True)
@@ -1036,10 +1064,14 @@ def _profile_train(ph: Phase, dev, batches, arm, names, state, step):
     ours = _ported_ms(ph, events, counts, names, f"train {arm}")
     for name in names:
         ph.check(ours[name][0] > 0, f"[profile] train {arm}: no device time of {name}")
+    # torch.cat's device copies (arm a: the four around the two freq_outer
+    # calls of grouped_sumvec/ops.grouped_frequency_accumulator_kernel)
+    cat = [us for name, us in events if "CatArrayBatchedCopy" in name]
     print(
         f"[profile] train {arm}: {PROFILE_STEPS} steps wall_ms={wall_ms:.3f} device_busy_ms={busy_ms:.4f} "
         f"idle_share={1 - busy_ms / wall_ms:.4f} device events={len(events)} | ported kernels ms: "
         + " ".join(f"{k}={ms:.4f} ({n} device launches)" for k, (ms, n) in ours.items())
+        + f" | torch.cat ms={sum(cat) / 1e3:.4f} ({len(cat)} device launches)"
         + " | top: " + "; ".join(f"{n[:60]}={us / 1e3:.4f}ms" for n, us in top),
         flush=True,
     )

@@ -13,7 +13,9 @@
 //   4.3 MB -> 32 FLOP/B, above the f32 CUDA-core ridge (20 FLOP/B): bound
 //   by operations.
 //   freq_outer (F, K, N) = (65, 512, 16): 17 MFLOP against 4.3 MB -> 4
-//   FLOP/B: bound by bytes (each input element is used N = d/b times).
+//   FLOP/B: bound by bytes, 0.0013 ms (each input element is used N = d/b
+//   times); at d = 8192 (65, 512, 64) 273 MFLOP against 18.1 MB: bytes,
+//   0.0054 ms, with the FMAs alone at 0.0041 ms.
 //   freq_mat (65, 512, 16) x (65, 16, 16): the same 17 MFLOP against
 //   4.3 MB: bound by bytes; at d = 8192 (N = 64) 16 FLOP/B, still bytes.
 //
@@ -38,10 +40,32 @@
 //   6 lost.
 //   Every block reads all of B (66.5 KB at the main shape), so L2 traffic
 //   as much as the FMAs holds it above its bound.
-//   freq_outer: one block per (frequency, 16 x 16 output tile), one output
-//   per thread, 64-deep slices of a[f] and b[f] staged in shared memory.  The
-//   group axis N = d / b is small (16 at d = 2048), so a one-output-per-thread
-//   tile keeps every thread busy where a larger register tile would idle.
+//   freq_outer (redesigned): two kernels, picked by the entry from N and
+//   NB; each block sums all of K for its outputs.  Narrow outputs (N or NB
+//   < 64; d = 2048's N = 16): a few dependent steps, not bytes or FMAs, set
+//   the time (an empty launch takes ~1 us of device time, a trip to memory
+//   about as long), so the design keeps them few.  The output tile is halved
+//   (8 x 8 at d = 2048) until it holds at most one 4 x 4 tile a thread and
+//   the grid has a block an SM (260 blocks); each
+//   thread loads its 16-byte pieces of a's and b's rows straight into
+//   registers, 16 rows at once (all of its rows at d = 2048), for a 4 x 4
+//   register tile (no shared-memory staging, no barrier in the loop), and
+//   the 32 K groups' tiles of a 128-thread block are summed in one
+//   shared-memory pass and a fixed butterfly of shuffles.  Wide
+//   outputs (N, NB >= 64; d = 8192): the FMAs set the time.  Blocks of 64 x
+//   32 (130, one an SM) hold all of K in shared memory (four 128-row stages,
+//   192 KB): a's 64 and b's 32 columns of 128 rows by one 2-D tensor copy
+//   (TMA) each; 8 x 8 register tiles in halves, so a
+//   warp (one K group) reads contiguous 16-byte pieces.  Measured on NVIDIA
+//   H100 80GB HBM3, 700 W (PERF.md): d = 2048 about 0.0042 ms (from 0.0089;
+//   the aim of 0.0026 missed, ~3.3x the bound), d = 8192 about 0.0117 ms
+//   (from 0.048; below bmm's 0.0126, the aim of 0.0108 missed: the FMA loop,
+//   four 16-byte shared reads to 64 FMAs, runs at about a third of the f32
+//   peak).  Dropped after measuring: a K split over a thread-block cluster
+//   summed through distributed shared memory (a fixed cost that grew with
+//   the cluster, 7.7 us at K = 1 for 4 blocks), shared-memory rings for the
+//   narrow tiles, a bulk copy a row or cp.async pieces for b's columns,
+//   16 x 8 register tiles, 512 threads, 256-thread blocks for narrow tiles.
 //   freq_mat (redesigned): a stream of rows of a[f] against one m[f] (at
 //   most 64 x 64 = 16 KiB on the paper's widths).  One wave of small blocks,
 //   each owning up to 128 rows of y[f] and all its columns (up to 64): at
@@ -57,6 +81,7 @@
 // C interface: pointers to contiguous float32 device buffers, sizes as int,
 // the CUDA stream; each entry returns cudaGetLastError() after its launch.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
@@ -389,43 +414,354 @@ cudaError_t run_pmatmul_b(int br, const float* a, const float* b, float* c, int 
   return run_pmatmul<AR, 1>(a, b, c, M, K, N, stream);
 }
 
-constexpr int FT = 16;   // output tile edge
-constexpr int FK = 64;   // K slice depth
+constexpr int FO_EDGE = 64;      // freq_outer: rows / columns of G a block owns at most
+constexpr int FO_THREADS = 128;  // the register-fed kernel (N or NB < FO_EDGE)
+constexpr int FO_MIN_EDGE = 8;   // rows / columns of G its blocks own at least, where G has them
+constexpr int FO_KG = 32;        // thread groups that split a block's K rows, at most
+constexpr int FO_ROWS = 16;      // K rows a thread has in flight at once
+// the staged kernel (N and NB of at least FO_EDGE)
+constexpr int FS_THREADS = 256;
+constexpr int FS_KG = 8;         // thread groups that split a block's K rows, at most
+constexpr int FS_STAGES = 4;
+constexpr int FS_STAGE_FLOATS = 128 * (FO_EDGE + FO_EDGE / 2) + 64;  // 128 rows of a 64 x 32 block
+// how an operand's rows reach shared memory: one 2-D tensor copy (TMA) of
+// the block's columns of kc rows (rows of a multiple of 4 floats on a
+// 16-byte aligned base), or 4-byte cp.async pieces
+constexpr int FS_TENSOR = 0, FS_PIECES = 1;
+// shared memory: the barriers (128 bytes, so that the ring's tensor copies
+// land on 128 bytes), then the ring or (after it) the groups' tiles
+constexpr int FS_SMEM_MAX = 128 + std::max(FS_STAGES * FS_STAGE_FLOATS, FS_THREADS * 64) * 4;
 
-// out[f, i, j] = sum_k a[f, k, i] * b[f, k, j];  a: (F, K, N), b: (F, K, NB)
-__global__ void __launch_bounds__(FT * FT) freq_outer_kernel(
-    const float* __restrict__ a, const float* __restrict__ b, float* __restrict__ out,
-    int K, int N, int NB) {
-  __shared__ float sa[FK][FT];
-  __shared__ float sb[FK][FT + 1];
+// four consecutive floats of a row from device memory: one 16-byte load
+// (V), or four 4-byte loads with zeros past ``left`` live columns
+template <bool V>
+__device__ __forceinline__ float4 fo_load(const float* p, int left) {
+  if constexpr (V) {
+    return *reinterpret_cast<const float4*>(p);
+  } else {
+    return make_float4(left > 0 ? p[0] : 0.f, left > 1 ? p[1] : 0.f, left > 2 ? p[2] : 0.f, left > 3 ? p[3] : 0.f);
+  }
+}
 
+// out[f, i, j] = sum_k a[f, k, i] * b[f, k, j];  a: (F, K, N), b: (F, K, NB).
+// Block (x, y, f) owns rows [ei y, ei y + ei) and columns [ej x, ej x + ej)
+// of G[f] and all of K: the host halves the tile (64 x 64 at most) until
+// it holds at most FO_THREADS 4 x 4 tiles and the grid fills the card, so
+// no sum is split across blocks.  Thread t
+// holds a 4 x 4 register tile (rows 4 ti.., columns 4 tj..) and takes the
+// K rows g, g + kg_n, ..., g = t / tiles, FO_ROWS at a time: the four
+// floats of a's and of b's row it needs come straight from device memory
+// (16-byte loads where VA / VB), all FO_ROWS rows in flight before the
+// FMAs, so a block waits on memory about once per FO_ROWS kg_n rows (once
+// in all at d = 2048).  No shared-memory staging, no barrier in the loop.
+// Then every group's tile goes to shared memory (one barrier) and each
+// output is summed over the groups by ``sub`` threads of a warp, each over
+// kg_n / sub consecutive groups in order, combined by a fixed butterfly of
+// shuffles: one fixed-order f32 sum per output, deterministic, no atomics.
+template <bool VA, bool VB>
+__global__ void __launch_bounds__(FO_THREADS) freq_outer_kernel(
+    const float* __restrict__ a, const float* __restrict__ b, float* __restrict__ out, int K, int N, int NB, int ei,
+    int ej, int out_vec) {
+  __shared__ float4 part[FO_THREADS * 4];  // every group's 4 x 4 tiles
+  const int t = threadIdx.x;
   const int f = blockIdx.z;
-  const int i0 = blockIdx.y * FT;
-  const int j0 = blockIdx.x * FT;
-  const int tx = threadIdx.x % FT;
-  const int ty = threadIdx.x / FT;
+  const int i0 = blockIdx.y * ei;
+  const int j0 = blockIdx.x * ej;
+  const int rows = min(ei, N - i0), cols = min(ej, NB - j0);
+  const int tc = (cols + 3) / 4, tiles = (rows + 3) / 4 * tc;
+  int kg_n = 1;
+  while (2 * kg_n <= FO_KG && 2 * kg_n * tiles <= FO_THREADS) kg_n *= 2;
+  const int g = t / tiles, ti = t % tiles / tc, tj = t % tiles % tc;
+  const int la = rows - 4 * ti, lb = cols - 4 * tj;  // live columns of this thread's pieces
+  const float* af = a + (long long)f * K * N + i0 + 4 * ti;
+  const float* bf = b + (long long)f * K * NB + j0 + 4 * tj;
+
+  float acc[4][4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[r][j] = 0.f;
+  if (g < kg_n) {
+    for (int k = g; k < K; k += FO_ROWS * kg_n) {
+      float4 x[FO_ROWS], y[FO_ROWS];
+#pragma unroll
+      for (int r = 0; r < FO_ROWS; ++r) {
+        const int row = k + r * kg_n;
+        x[r] = y[r] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (row < K) {
+          x[r] = fo_load<VA>(af + (long long)row * N, la);
+          y[r] = fo_load<VB>(bf + (long long)row * NB, lb);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < FO_ROWS; ++r) {
+        const float xs[4] = {x[r].x, x[r].y, x[r].z, x[r].w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          acc[i][0] = fmaf(xs[i], y[r].x, acc[i][0]);
+          acc[i][1] = fmaf(xs[i], y[r].y, acc[i][1]);
+          acc[i][2] = fmaf(xs[i], y[r].z, acc[i][2]);
+          acc[i][3] = fmaf(xs[i], y[r].w, acc[i][3]);
+        }
+      }
+    }
+  }
+
+  // group g's tile goes to slab g (row-major, tc float4s a row of G)
+  const int q_n = 4 * tiles;
+  if (g < kg_n) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      part[g * q_n + (4 * ti + i) * tc + tj] = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+  }
+  __syncthreads();
+  int sub = 1;  // threads (lanes of one warp) that sum one float4 of G
+  while (2 * sub <= kg_n && 2 * sub * q_n <= FO_THREADS && 2 * sub <= 32) sub *= 2;
+  const int span = kg_n / sub;
+  for (int base = 0; base < q_n * sub; base += FO_THREADS) {  // the same trip count in every warp
+    const int q = (base + t) / sub, s = (base + t) % sub;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (q < q_n) {
+      for (int h = s * span; h < (s + 1) * span; ++h) {
+        const float4 w = part[h * q_n + q];
+        v = make_float4(v.x + w.x, v.y + w.y, v.z + w.z, v.w + w.w);
+      }
+    }
+    for (int m = sub / 2; m >= 1; m /= 2) {
+      v.x += __shfl_xor_sync(0xffffffffu, v.x, m);
+      v.y += __shfl_xor_sync(0xffffffffu, v.y, m);
+      v.z += __shfl_xor_sync(0xffffffffu, v.z, m);
+      v.w += __shfl_xor_sync(0xffffffffu, v.w, m);
+    }
+    const int i = q / tc, col = 4 * (q % tc);
+    if (s != 0 || q >= q_n || i >= rows) continue;
+    float* o = out + ((long long)f * N + i0 + i) * NB + j0 + col;
+    if (out_vec && col + 4 <= cols) {
+      *reinterpret_cast<float4*>(o) = v;
+    } else {
+      const float vs[4] = {v.x, v.y, v.z, v.w};
+      for (int j = 0; j < 4 && col + j < cols; ++j) o[j] = vs[j];
+    }
+  }
+}
+
+// the bytes of a chunk of x[f] that reach a stage by the copy engine: a
+// tensor copy's full box of kc rows x e columns (rows and columns past the
+// tensor are zero-filled and counted)
+__device__ __forceinline__ unsigned fs_copy_bytes(int mode, int e, int kc) {
+  return mode == FS_TENSOR ? 4u * kc * e : 0u;
+}
+
+// rows [k, k + n) of x[f] (rows of C floats), columns [c0, c0 + p), into a
+// ring stage at pitch p: kc rows x p columns by one tensor copy (by thread
+// 0), or 4-byte pieces by every thread (zeros past C)
+__device__ __forceinline__ void fs_stage(int mode, float* s, int p, const float* xf, const CUtensorMap* map,
+                                         int row0, int C, int c0, int k, int n, unsigned bar, int t) {
+  if (mode == FS_TENSOR) {
+    if (t == 0)
+      asm volatile(
+          "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n"
+          ::"r"(smem_addr(s)), "l"(reinterpret_cast<unsigned long long>(map)), "r"(bar), "r"(c0), "r"(row0 + k)
+          : "memory");
+  } else {
+    stage_rows<1>(s, p, xf, C, k, c0, n, p, k + n, C, t, FS_THREADS);
+  }
+}
+
+// The same function where N and NB are at least FO_EDGE (d = 8192), and the
+// FMAs, not the latency, set the time.  Block (x, y, f) owns rows [64 y,
+// 64 y + 64) of G[f] and columns [ej x, ej x + ej), ej = 64, or 32 where
+// 64 would leave most SMs idle (d = 8192: 130 blocks, one an SM).  All of
+// K is in flight at once where it fits (four stages of up to 128 rows, 192
+// KB): each operand's block columns of kc rows by one 2-D tensor copy, at
+// pitch 64 (a) and ej (b).  Thread t holds an 8 x
+// 8 register tile in two halves (rows 4 ti.. and 4 tr + 4 ti.., columns
+// likewise), so a warp, one K group, reads contiguous 16-byte pieces: 4
+// shared reads for 64 FMAs.  Group g takes rows g, g + kg_n, ... of every
+// stage; the groups' tiles then overwrite the ring and are summed in the
+// order of g.
+__global__ void __launch_bounds__(FS_THREADS, 1) freq_outer_staged_kernel(
+    const float* __restrict__ a, const float* __restrict__ b, float* __restrict__ out, int K, int N, int NB, int ej,
+    int kc, int stages, int mode_a, int mode_b, int out_vec, const __grid_constant__ CUtensorMap a_map,
+    const __grid_constant__ CUtensorMap b_map) {
+  extern __shared__ __align__(128) float4 fs_smem4[];
+  float* smem = reinterpret_cast<float*>(fs_smem4);
+  const int t = threadIdx.x;
+  const int f = blockIdx.z;
+  const int i0 = blockIdx.y * FO_EDGE;
+  const int j0 = blockIdx.x * ej;
+  const int pa = FO_EDGE, pb = ej;                // stage pitches
+  const int a_floats = (kc * pa + 31) / 32 * 32;  // regions on 128 bytes
+  const int stage_floats = a_floats + (kc * pb + 31) / 32 * 32;
+  unsigned long long* bars = reinterpret_cast<unsigned long long*>(smem);
+  float* ring = smem + 32;
+  float4* part = reinterpret_cast<float4*>(ring);
+  const int rows = min(FO_EDGE, N - i0), cols = min(ej, NB - j0);
+  const int tr = (rows + 7) / 8, tc = (cols + 7) / 8, tiles = tr * tc;
+  int kg_n = 1;
+  while (2 * kg_n <= FS_KG && 2 * kg_n * tiles <= FS_THREADS) kg_n *= 2;
+  const int g = t / tiles, ti = t % tiles / tc, tj = t % tiles % tc;
+  const int nch = (K + kc - 1) / kc;
+  const bool all_tensor = mode_a == FS_TENSOR && mode_b == FS_TENSOR;
   const float* af = a + (long long)f * K * N;
   const float* bf = b + (long long)f * K * NB;
+  auto bar = [&](int c) { return smem_addr(bars + c % stages); };
+  auto rows_of = [&](int c) { return min(kc, K - c * kc); };
+  auto bytes_of = [&](int c) {
+    return fs_copy_bytes(mode_a, pa, kc) + fs_copy_bytes(mode_b, pb, kc);
+  };
+  // the copy-engine bytes of chunk c are announced before any of its copies is issued
+  auto copy = [&](int c) {
+    float* sa = ring + c % stages * stage_floats;
+    fs_stage(mode_a, sa, pa, af, &a_map, f * K, N, i0, c * kc, rows_of(c), bar(c), t);
+    fs_stage(mode_b, sa + a_floats, pb, bf, &b_map, f * K, NB, j0, c * kc, rows_of(c), bar(c), t);
+    if (!all_tensor) cp_async_arrive(bar(c));
+  };
 
-  float acc = 0.f;
-  for (int k0 = 0; k0 < K; k0 += FK) {
-#pragma unroll
-    for (int r = 0; r < (FK * FT) / (FT * FT); ++r) {
-      const int e = threadIdx.x + r * FT * FT;
-      const int c = e % FT;
-      const int kk = e / FT;
-      const int gk = k0 + kk;
-      sa[kk][c] = (gk < K && i0 + c < N) ? af[(long long)gk * N + i0 + c] : 0.f;
-      sb[kk][c] = (gk < K && j0 + c < NB) ? bf[(long long)gk * NB + j0 + c] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 16
-    for (int kk = 0; kk < FK; ++kk) acc = fmaf(sa[kk][ty], sb[kk][tx], acc);
-    __syncthreads();
+  if (t == 0) {
+    for (int s = 0; s < stages; ++s) mbar_init(smem_addr(bars + s), all_tensor ? 1 : FS_THREADS + 1);
+    mbar_init_fence();
+    for (int c = 0; c < min(nch, stages); ++c) mbar_arrive_expect_tx(bar(c), bytes_of(c));
   }
-  const int i = i0 + ty;
-  const int j = j0 + tx;
-  if (i < N && j < NB) out[((long long)f * N + i) * NB + j] = acc;
+  __syncthreads();
+  for (int c = 0; c < min(nch, stages); ++c) copy(c);
+
+  float acc[8][8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[r][j] = 0.f;
+  for (int c = 0; c < nch; ++c) {
+    mbar_wait(bar(c), (c / stages) & 1);
+    const float* sa = ring + c % stages * stage_floats + 4 * ti;
+    const float* sb = ring + c % stages * stage_floats + a_floats + 4 * tj;
+    const int live = rows_of(c);
+    if (g < kg_n) {
+#pragma unroll 2
+      for (int kk = g; kk < live; kk += kg_n) {
+        const float4 x0 = *reinterpret_cast<const float4*>(sa + kk * pa);
+        const float4 x1 = *reinterpret_cast<const float4*>(sa + kk * pa + 4 * tr);
+        const float4 y0 = *reinterpret_cast<const float4*>(sb + kk * pb);
+        const float4 y1 = *reinterpret_cast<const float4*>(sb + kk * pb + 4 * tc);
+        const float xs[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+        const float ys[8] = {y0.x, y0.y, y0.z, y0.w, y1.x, y1.y, y1.z, y1.w};
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(xs[i], ys[j], acc[i][j]);
+      }
+    }
+    if (c + stages < nch) {  // refill stage c % stages once every thread is done with it
+      if (t == 0) mbar_arrive_expect_tx(bar(c + stages), bytes_of(c + stages));
+      __syncthreads();
+      copy(c + stages);
+    }
+  }
+  __syncthreads();  // every thread is done with the ring
+
+  // group g's tile goes to slab g (row-major, 2 tc float4s a row of G)
+  const int w = 2 * tc, q_n = 16 * tiles;
+  if (g < kg_n) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int row = i < 4 ? 4 * ti + i : 4 * tr + 4 * ti + i - 4;
+      part[g * q_n + row * w + tj] = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+      part[g * q_n + row * w + tc + tj] = make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+    }
+  }
+  __syncthreads();
+  for (int q = t; q < q_n; q += FS_THREADS) {
+    const int i = q / w, col = 4 * (q % w);
+    if (i >= rows) continue;
+    float4 v = part[q];
+    for (int h = 1; h < kg_n; ++h) {
+      const float4 u = part[h * q_n + q];
+      v = make_float4(v.x + u.x, v.y + u.y, v.z + u.z, v.w + u.w);
+    }
+    float* o = out + ((long long)f * N + i0 + i) * NB + j0 + col;
+    if (out_vec && col + 4 <= cols) {
+      *reinterpret_cast<float4*>(o) = v;
+    } else {
+      const float vs[4] = {v.x, v.y, v.z, v.w};
+      for (int j = 0; j < 4 && col + j < cols; ++j) o[j] = vs[j];
+    }
+  }
+}
+
+// the driver's tensor-map encoder, asked of the runtime once (no link to
+// the driver library); null where the driver lacks it
+using fs_encode_fn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+fs_encode_fn fs_encode() {
+  static const fs_encode_fn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<fs_encode_fn>(p);
+  }();
+  return fn;
+}
+
+cudaError_t run_freq_outer_staged(const float* a, const float* b, float* out, int F, int K, int N, int NB,
+                                  cudaStream_t stream) {
+  static std::atomic<unsigned long long> configured{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = 1ULL << (dev & 63);
+  if (!(configured.load() & bit)) {
+    err = cudaFuncSetAttribute(freq_outer_staged_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, FS_SMEM_MAX);
+    if (err != cudaSuccess) return err;
+    configured.fetch_or(bit);
+  }
+  // 64 columns a block, or 32 where 64 would leave most SMs idle
+  const long long row_tiles = (long long)F * ((N + FO_EDGE - 1) / FO_EDGE);
+  const int ej = row_tiles * ((NB + FO_EDGE - 1) / FO_EDGE) * 4 < 3LL * sm_count(dev) ? FO_EDGE / 2 : FO_EDGE;
+  const int pa = FO_EDGE, pb = ej;
+  // all of K in flight where FS_STAGES stages of it fit, else a ring of
+  // FS_STAGES stages of kc rows (kc % 4 == 0 keeps the stages on 16 bytes)
+  const int kc_max = (FS_STAGE_FLOATS - 64) / (pa + pb) / 4 * 4;  // each region rounded up to 32 floats
+  const int kc = std::max(4, std::min(kc_max, (K + FS_STAGES - 1) / FS_STAGES + 3) / 4 * 4);
+  const int stages = std::max(1, std::min(FS_STAGES, (K + kc - 1) / kc));
+  const int tiles = FO_EDGE / 8 * (ej / 8);
+  const int part = std::min(FS_KG * tiles, FS_THREADS) * 64;
+  const int ring = stages * ((kc * pa + 31) / 32 * 32 + (kc * pb + 31) / 32 * 32);
+  const int smem = 128 + std::max(ring, part) * 4;
+  // a block's columns: one tensor copy, where
+  // rows are 16-byte multiples on an aligned base; otherwise 4-byte pieces
+  CUtensorMap maps[2] = {};
+  bool encoded = true;
+  auto mode = [&](int which, const float* x, int C, int e) {
+    if (C % 4 != 0 || !aligned(x, 16)) return FS_PIECES;
+    const cuuint64_t dims[2] = {(cuuint64_t)C, (cuuint64_t)F * K};
+    const cuuint64_t stride[1] = {(cuuint64_t)C * 4};
+    const cuuint32_t box[2] = {(cuuint32_t)e, (cuuint32_t)kc};
+    const cuuint32_t elem[2] = {1, 1};
+    encoded = encoded && fs_encode() &&
+              fs_encode()(&maps[which], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(x), dims, stride, box,
+                          elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                          CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+    return FS_TENSOR;
+  };
+  const int mode_a = mode(0, a, N, pa), mode_b = mode(1, b, NB, pb);
+  if (!encoded) return cudaErrorNotSupported;  // no tensor map: the wrapper raises
+  const dim3 grid((NB + ej - 1) / ej, (N + FO_EDGE - 1) / FO_EDGE, F);
+  const int out_vec = NB % 4 == 0 && aligned(out, 16);
+  freq_outer_staged_kernel<<<grid, FS_THREADS, smem, stream>>>(a, b, out, K, N, NB, ej, kc, stages, mode_a, mode_b,
+                                                               out_vec, maps[0], maps[1]);
+  return cudaGetLastError();
+}
+
+template <bool VA, bool VB>
+cudaError_t run_freq_outer(const float* a, const float* b, float* out, int F, int K, int N, int NB, int ei, int ej,
+                           cudaStream_t stream) {
+  const dim3 grid((NB + ej - 1) / ej, (N + ei - 1) / ei, F);
+  const int out_vec = NB % 4 == 0 && ej % 4 == 0 && aligned(out, 16);
+  freq_outer_kernel<VA, VB><<<grid, FO_THREADS, 0, stream>>>(a, b, out, K, N, NB, ei, ej, out_vec);
+  return cudaGetLastError();
 }
 
 constexpr int FM_THREADS = 128;   // freq_mat: threads a block aims at, row slots x column lanes
@@ -612,9 +948,32 @@ int grouped_sumvec_pmatmul(const float* a, const float* b, float* c, int M, int 
 
 int grouped_sumvec_freq_outer(const float* a, const float* b, float* out, int F, int K, int N,
                               int NB, cudaStream_t stream) {
-  const dim3 grid((NB + FT - 1) / FT, (N + FT - 1) / FT, F);
-  freq_outer_kernel<<<grid, FT * FT, 0, stream>>>(a, b, out, K, N, NB);
-  return (int)cudaGetLastError();
+  // K = 0 takes the register-fed kernel, which writes zeros (a tensor map
+  // cannot span zero rows)
+  if (N >= FO_EDGE && NB >= FO_EDGE && K > 0) return (int)run_freq_outer_staged(a, b, out, F, K, N, NB, stream);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  // the tile: halve its longer edge (rows first) while it holds more 4 x 4
+  // register tiles than a block has threads, or while the grid has fewer
+  // blocks than SMs and an edge is longer than FO_MIN_EDGE
+  int ei = std::min(N, FO_EDGE), ej = std::min(NB, FO_EDGE);
+  auto blocks = [&] { return (long long)F * ((N + ei - 1) / ei) * ((NB + ej - 1) / ej); };
+  auto tiles = [&] { return (ei + 3) / 4 * ((ej + 3) / 4); };
+  while (tiles() > FO_THREADS || (blocks() < sm_count(dev) && std::max(ei, ej) > FO_MIN_EDGE)) {
+    if (ei >= ej) ei = (ei + 1) / 2;
+    else ej = (ej + 1) / 2;
+  }
+  // 16-byte loads of an operand where every piece a thread reads starts on
+  // 16 bytes: rows of a multiple of 4 floats, an aligned base, tile edges
+  // of a multiple of 4
+  const bool va = N % 4 == 0 && ei % 4 == 0 && aligned(a, 16);
+  const bool vb = NB % 4 == 0 && ej % 4 == 0 && aligned(b, 16);
+  if (va && vb) err = run_freq_outer<true, true>(a, b, out, F, K, N, NB, ei, ej, stream);
+  else if (va) err = run_freq_outer<true, false>(a, b, out, F, K, N, NB, ei, ej, stream);
+  else if (vb) err = run_freq_outer<false, true>(a, b, out, F, K, N, NB, ei, ej, stream);
+  else err = run_freq_outer<false, false>(a, b, out, F, K, N, NB, ei, ej, stream);
+  return (int)err;
 }
 
 int grouped_sumvec_freq_mat(const float* a, const float* m, float* y, int F, int K, int N, int N2,

@@ -121,13 +121,37 @@ def test_pmatmul_kernel_matches_plain(dev, m, k, n, offset):
     assert torch.equal(K.pmatmul(a, b), got)
 
 
-@pytest.mark.parametrize("f,k,n,nb", [(3, 11, 5, 7), (65, 512, 16, 16)])
-def test_freq_outer_kernel_matches_plain(dev, f, k, n, nb):
+# (f, k, n, nb, offset of a).  The register-fed kernel: N = 1 (d = b = 128
+# grouped) and N = 9 (4-byte loads), N != NB with N past one 64-wide tile,
+# N = 16 against NB = 64, K = 1, K = 500, K = 4096, a 4 bytes off a 16-byte
+# boundary (4-byte loads), tiles halved below 64 x 64 to fit a block's
+# threads (N = 50 against NB = 130, N = NB = 48 at F = 132), K = 0 at N =
+# NB = 64 (zeros).  The staged kernel (N, NB >= 64): N = 64 (d =
+# 8192, also freq_mat's vjp dm = freq_outer(a, g) there), K = 1, K = 1000 (a
+# ring refilled), N = 130 and NB = 100 (4-byte pieces for a, a tensor copy
+# for b, ragged tiles), a 4 bytes off
+@pytest.mark.parametrize(
+    "f,k,n,nb,offset",
+    [(3, 11, 5, 7, 0), (65, 512, 16, 16, 0), (65, 512, 1, 1, 0), (65, 512, 9, 9, 0), (65, 512, 64, 64, 0),
+     (2, 70, 130, 9, 0), (65, 512, 16, 64, 0), (65, 1, 16, 16, 0), (65, 500, 16, 16, 0), (65, 4096, 16, 16, 0),
+     (65, 512, 16, 16, 1), (65, 1, 64, 64, 0), (65, 1000, 64, 64, 0), (4, 300, 130, 100, 0), (65, 512, 64, 64, 1),
+     (65, 64, 50, 130, 0), (132, 64, 48, 48, 0), (65, 0, 64, 64, 0)],
+)
+def test_freq_outer_kernel_matches_plain(dev, f, k, n, nb, offset):
     from repro_torch.kernels.grouped_sumvec import kernel as K
 
-    a, b = _rand(dev, f, k, n), _rand(dev, f, k, nb) * 0.5
-    # sums of 512 products of unit normals reach ~10: atol is 2e-4 of that scale
-    torch.testing.assert_close(K.freq_outer(a, b), K.freq_outer_plain(a, b), rtol=2e-4, atol=2e-3)
+    a, b = _view(dev, offset, f, k, n), _rand(dev, f, k, nb) * 0.5
+    before = K.freq_outer.launches
+    got = K.freq_outer(a, b)
+    torch.cuda.synchronize()
+    assert K.freq_outer.launches == before + 1
+    # sums of 512 products of unit normals reach ~10: atol is 2e-4 of that
+    # scale; sums of 4096 reach ~100, as for pmatmul's dB
+    atol = 2e-2 if k > 512 else 2e-3
+    torch.testing.assert_close(got, K.freq_outer_plain(a, b), rtol=2e-4, atol=atol)
+    # a fixed-order sum per output (over K groups), no atomics:
+    # bit-identical on a rerun
+    assert torch.equal(K.freq_outer(a, b), got)
 
 
 def test_wrapper_rejects_non_contiguous_cuda_operand(dev):

@@ -63,7 +63,9 @@ def test_pmatmul_plain_matches_reference(m, k, n):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
-@pytest.mark.parametrize("f,k,n,nb", [(3, 11, 5, 7), (2, 20, 16, 16)])
+# N = 1 and 9 (the kernel's scalar paths), N past one 64-wide output tile
+# against a narrow NB
+@pytest.mark.parametrize("f,k,n,nb", [(3, 11, 5, 7), (2, 20, 16, 16), (2, 13, 1, 1), (2, 20, 9, 9), (2, 10, 70, 9)])
 def test_freq_outer_plain_matches_reference(f, k, n, nb):
     a, b = _arrays(f * k * n, (f, k, n), (f, k, nb))
     want = rg._freq_outer_raw(jnp.asarray(a), jnp.asarray(b))
@@ -198,4 +200,6 @@ def test_profiler_attribution_names_every_global_function():
     assert cs.kernel_of("void (anonymous namespace)::paged_combine_kernel(float const*, float*, int, int, int, "
                         "int)") == "paged_attention"
     assert cs.kernel_of("void (anonymous namespace)::pmatmul_kernel<4, 4>(float const*)") == "pmatmul"
+    assert cs.kernel_of("void (anonymous namespace)::freq_outer_kernel<true, true>(float const*)") == "freq_outer"
+    assert cs.kernel_of("(anonymous namespace)::freq_outer_staged_kernel(float const*, CUtensorMap_st)") == "freq_outer"
     assert cs.kernel_of("void at::native::vectorized_elementwise_kernel<4, at::native::FillFunctor<float>>") is None

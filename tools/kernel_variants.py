@@ -18,7 +18,9 @@ library is swapped into the package's loader and every phase-1 case of
 starts with one of ``--cases``) runs once against its plain version, once
 more for a bit-for-bit rerun check, then under the profiler: JSON lines
 ``{"variant", "round", "case", "rel", "rerun_equal", "dev_ms",
-"bound_ms"}``, and a summary line per (variant, case).
+"bound_ms"}``, and a summary line per (variant, case).  The case's library
+call (``chip_smoke``'s yardstick) is timed the same way once per case and
+round, outside the variants: ``{"library", "round", "case", "dev_ms"}``.
 
 Needs a CUDA card and ``nvcc``; exits 1 without one.
 """
@@ -98,7 +100,16 @@ def main() -> int:
     consts = {c for _, _, named in spec.values() for c in named}
     default = {c: getattr(importlib.import_module(c.rsplit(".", 1)[0]), c.rsplit(".", 1)[1]) for c in consts}
     times = {}
+    def picked(kernel, label, fams):
+        return any(cs.SOURCES[kernel].endswith(f"/{fam}.cu") for fam in fams) and (
+            not prefixes or any(label.startswith(p) for p in prefixes))
+
     for r in range(args.rounds):
+        for kernel, label, _, _, lib, _, _ in cases:
+            if lib is not None and picked(kernel, label, {fam for fam, _, _ in spec.values()}):
+                ms = cs._device_ms(lib)
+                times.setdefault(("library", label), []).append(ms)
+                print(json.dumps({"library": kernel, "round": r, "case": label, "dev_ms": ms}), flush=True)
         for name in (list(built) if r % 2 == 0 else list(reversed(list(built)))):
             fam, _, named = spec[name]
             build._LIBS[fam] = ctypes.CDLL(built[name])
@@ -108,9 +119,7 @@ def main() -> int:
                 module, const = dotted.rsplit(".", 1)
                 setattr(importlib.import_module(module), const, value)
             for kernel, label, kern, plain, _, nbytes, flops in cases:
-                if not cs.SOURCES[kernel].endswith(f"/{fam}.cu"):
-                    continue
-                if prefixes and not any(label.startswith(p) for p in prefixes):
+                if not picked(kernel, label, (fam,)):
                     continue
                 got, want = kern(), plain()
                 torch.cuda.synchronize()
