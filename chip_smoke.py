@@ -73,10 +73,35 @@ Phases (any failed check exits non-zero and prints no result):
      tick, and the probe's cmatmul and ctwiddle launch (counts of this run
      alone); probe vs its oracle < 1e-3; no dispatch error.  (2) the same
      checks on 2 requests of 4160 prompt tokens + 16 new (f32, max_len
-     4224), decoding past the 4096 window of the local layers.  (3) the
-     config's own bf16, workload (1), timed: tok/s, TTFT, decode tick and
-     prefill ms, a profiled window of 10 ticks (idle share, largest device
-     items), kernel-vs-plain logit difference (reported, not gated).
+     4224), decoding past the 4096 window of the local layers.  Then, f32,
+     kernel route: (d) chunked serving prefill (``prefill_chunk=512``, 8
+     slots, prompts of 600-2000 tokens) against the unchunked paged engine:
+     a request may first differ only at a token whose unchunked top-2 logit
+     gap is below twice the measured logit difference (the gap rule); the
+     chunk steps and the decode ticks interleaved with them are counted;
+     (e) sampling: at temperature 0 the sampling engine's tokens equal the
+     greedy engine's bit for bit, seeded tokens at T = 0.8 / top-k 50
+     reproduce on a rerun, and every decode tick re-runs on the plain route
+     from a cloned pool, the plain route's token drawn with the same Gumbel
+     noise: tokens may differ only where the top-2 perturbed gap is below
+     2 x the logit difference / T; (f) the prefix radix cache on
+     ``SharedPrefixLoadConfig()``: warm tokens == unshared bit for bit,
+     fewer peak pages, hits, a copy-on-write, probe vs oracle < 1e-3;
+     (g) speculative decoding (draft_k 4) against the unspeculative engine
+     under the gap rule, every verify (B = 40) and tick re-run on the plain
+     route from a cloned pool (logits 1e-4), 26 paged_attention launches
+     each, accepted tokens per verify step printed; (h) one 10240-token
+     prompt through ``LMService``: its prefill takes ``_chunked_attention``
+     (26 calls), first-token logits within 1e-4 of the same forward on full
+     attention, then 8 decode tokens.  (3) the config's own bf16, workload
+     (1), timed: tok/s, TTFT, decode tick and prefill ms, a profiled window
+     of 10 ticks (idle share, largest device items), kernel-vs-plain logit
+     difference (reported, not gated); then one bf16 run each of chunked
+     prefill, the prefix cache (cold and warm TTFT against unshared),
+     speculative decoding and sampling (its logits-to-host ms a tick), for
+     the record, each line with the card's name and power limit.
+     Phase 1 also holds paged_attention at the verify's shape (B = 40, each
+     slot's 5 lanes on one table row).
   6. report — one JSON ``kernels`` line, the card's name and power limit,
      and the last line ``{"ok": true, "device": {...}}``.
 
@@ -144,6 +169,21 @@ LM_PAGE = 16
 LM_PROBE_KERNELS = ("cmatmul", "ctwiddle")
 LONG_PROMPT, LONG_NEW, LONG_MAX_LEN = 4160, 16, 4224
 LM_PROFILE_TICKS = 10
+# (d) chunked serving prefill: prompts of 600-2000 tokens, 512 a tick; the
+# unchunked engine runs at the same max_len (the chunk template's 2048 rows
+# for a 2000-token prompt, plus decode room, a page multiple)
+CHUNK_PREFILL = 512
+CHUNK_MIX = dict(n_requests=8, prompt_lens=(600, 1100, 1500, 2000), new_tokens=(8, 16), seed=SEED + 5)
+CHUNK_MAX_LEN = 2064
+# (e) sampling: the first 8 requests of the reference mix; the sampled runs'
+# temperature and top-k
+SAMPLE_REQUESTS = 8
+SAMPLE_T, SAMPLE_TOP_K = 0.8, 50
+# (g) speculative decoding: tokens drafted a verify (lanes = slots x (k + 1))
+DRAFT_K = 4
+# (h) one prompt past attn_chunk_threshold (8192), a multiple of the 2048-row
+# chunk, through the long-prompt (flash-style) prefill; then decode 8 tokens
+LONG_PREFILL, LONG_PREFILL_NEW = 10240, 8
 
 REPLACES = {
     "cmatmul": "src/repro/kernels/sumvec_fft/kernel.py:54",
@@ -590,8 +630,34 @@ def _paged_cases(cases, dev, gen):
             lib, nbytes, 4 * rows * h * hd,
         ))
 
+    def verify_case(label, lens, dtype, softcap, window, lanes=DRAFT_K + 1):
+        """The speculative verify's shape: each slot's ``lanes`` lanes on
+        one table row at lengths len .. len + lanes - 1 (B = slots x lanes).
+        The bound counts a slot's rows once (its lanes share them)."""
+        h, kv, hd, page, scale = (PAGED_SHAPE[k] for k in ("h", "kv", "hd", "page", "scale"))
+        tops = [n + lanes - 1 for n in lens]
+        q, kp, vp, table, _ = _paged_inputs(dev, gen, tops, dtype)
+        b = len(lens) * lanes
+        q = torch.randn(b, h, hd, generator=gen).to(dev)
+        table = table.repeat_interleave(lanes, dim=0).contiguous()
+        lane_lens = [n + j for n in lens for j in range(lanes)]
+        lens_t = torch.tensor(lane_lens, dtype=torch.int32, device=dev)
+        kw = dict(scale=scale, softcap=softcap, window=window)
+        live = lambda n: min(n, window) if window else n  # noqa: E731
+        elt = torch.empty((), dtype=dtype).element_size()
+        nbytes = sum(live(n) for n in tops) * kv * hd * 2 * elt + 2 * 4 * b * h * hd + 4 * (b * table.shape[1] + b)
+        cases.append((
+            "paged_attention", label,
+            lambda: pk.paged_decode_attention(q, kp, vp, table, lens_t, **kw),
+            lambda: paged_decode_plain(q, kp, vp, table, lens_t, **kw),
+            None, nbytes, 4 * sum(live(n) for n in lane_lens) * h * hd,
+        ))
+
     main_lens = [1, 5, 17, 24, 33, 44, 16, 40]
     long_lens = [8192, 7001, 4097, 4096, 2500, 1000, 17, 1]
+    for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        verify_case(f"verify {tag} softcap=50 window=4096 (B=40: 8 slots x {DRAFT_K + 1} lanes on one row each)",
+                    main_lens, dtype, 50.0, 4096)
     for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
         case(f"main {tag} softcap=50 window=4096 (B=8,H=8,KV=4,hd=256,page=16)", main_lens, dtype, 50.0, 4096)
         case(f"main {tag} softcap=50 window=0", main_lens, dtype, 50.0, 0)
@@ -1317,6 +1383,524 @@ def _lm_timed(ph, cfg, params, dev, stream, max_len, max_prompt):
     return counts
 
 
+# -- phase 5 (d)-(h): chunked prefill, sampling, prefix cache, speculation,
+# the long-prompt prefill ----------------------------------------------------
+
+
+class _LogitLog:
+    """Keeps, on the card, the logits row behind every token a service
+    emits, keyed by (request, token index): the first token's from the
+    prefill (``insert`` / ``advance_prefill``), the others' from each decode
+    tick or verify.  Lane j of a verify predicts token len(emitted) + j; a
+    rejected lane's token is logged again by the tick that emits it.  Runs
+    with ``impl="plain"`` (a checker's re-runs on a cloned pool) are not
+    logged."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.rows = {}
+        self.req_index = {}
+        self.cur = None
+        self._step, self._first = engine.step_logits, engine._first_output
+        self._insert, self._advance = engine.insert, engine.advance_prefill
+        engine.step_logits, engine._first_output = self.step, self.first
+        engine.insert = lambda slot: self._with(slot, self._insert)
+        engine.advance_prefill = lambda slot: self._with(slot, self._advance)
+
+    def _with(self, slot, fn):
+        self.cur = slot
+        try:
+            return fn(slot)
+        finally:
+            self.cur = None
+
+    def first(self, logits, hidden):
+        self.rows[(self.req_index[id(self.cur.future)], 0)] = logits[0].detach().clone()
+        return self._first(logits, hidden)
+
+    def step(self, caches, lens, toks, block_tables, impl=None):
+        out = self._step(caches, lens, toks, block_tables, impl)
+        if impl != "plain":
+            pool = self.engine.pool
+            width = lens.shape[0] // pool.n_slots
+            live = block_tables.any(dim=1).tolist()
+            for i in pool.decoding_indices():
+                slot = pool[i]
+                for j in range(width):
+                    if j and not live[i * width + j]:
+                        break
+                    self.rows[(self.req_index[id(slot.future)], len(slot.emitted) + j)] = out[0][i * width + j].clone()
+        return out
+
+
+def _gap_rule(ph, tag, base_outs, outs, base_log, log):
+    """Hold ``outs`` against ``base_outs`` token by token: a request may
+    first differ only at a token whose ``base`` top-2 logit gap is below
+    twice the measured logit difference (the largest |difference| of the two
+    runs' logits over every token up to each request's first difference).
+    Returns (logit difference, requests that differ)."""
+    import numpy as np
+    import torch
+
+    first = {}
+    for r, (a, b) in enumerate(zip(base_outs, outs)):
+        ph.check(len(a) == len(b), f"{tag}: request {r} emitted {len(b)} tokens, the baseline {len(a)}")
+        n = min(len(a), len(b))
+        d = np.nonzero(a[:n] != b[:n])[0]
+        first[r] = int(d[0]) if d.size else n
+    keys = [k for k in base_log.rows if k in log.rows and k[1] <= first[k[0]]]
+    diff = max(float((base_log.rows[k] - log.rows[k]).abs().max()) for k in keys)
+    differ = 0
+    for r, t in first.items():
+        if t >= len(base_outs[r]):
+            continue
+        differ += 1
+        top2 = torch.topk(base_log.rows[(r, t)].float(), 2).values
+        gap = float(top2[0] - top2[1])
+        ok = gap < 2 * diff
+        print(f"{tag}: request {r} first differs at token {t}: baseline top-2 gap {gap:.4g} vs 2 x logit diff "
+              f"{2 * diff:.4g} -> {'exempt from here on' if ok else 'FAIL'}", flush=True)
+        ph.check(ok, f"{tag}: request {r} differs at token {t} with baseline top-2 gap {gap}")
+    return diff, differ
+
+
+def _drive_logged(svc, stream):
+    """``_lm_drive`` with a ``_LogitLog`` on the service's engine."""
+    log = _LogitLog(svc.engine)
+    outs, wall, futs = _lm_drive(svc, stream, log)
+    return outs, wall, futs, log
+
+
+def _lm_chunked(ph, cfg, params, dev):
+    """(d) chunked serving prefill, 512 tokens a tick, against the
+    unchunked paged engine on the same mix, both on the kernel route."""
+    from repro_torch import kernels
+    from repro_torch.serve.loadgen import LMLoadConfig
+
+    load = LMLoadConfig(**CHUNK_MIX)
+    stream = load.request_stream(cfg.vocab_size)
+    shape = dict(n_slots=LM_SLOTS, max_len=CHUNK_MAX_LEN, max_prompt=max(load.prompt_lens), paged=True,
+                 page_size=LM_PAGE)
+    base, _, _, base_log = _drive_logged(_lm_service(cfg, params, dev, **shape), stream)
+    svc = _lm_service(cfg, params, dev, prefill_chunk=CHUNK_PREFILL, **shape)
+    eng = svc.engine
+    counts = {"chunks": 0, "ticks": 0, "interleaved": 0}
+    advance, decode = eng.advance_prefill, eng.decode_step
+
+    def counted_advance(slot):
+        counts["chunks"] += 1
+        return advance(slot)
+
+    def counted_decode():
+        counts["ticks"] += 1
+        counts["interleaved"] += any(s.prefilling for s in eng.pool.active())
+        return decode()
+
+    eng.advance_prefill, eng.decode_step = counted_advance, counted_decode
+    kernels.reset_launch_counts()
+    outs, wall, _, log = _drive_logged(svc, stream)
+    launches = kernels.launch_counts()
+    diff, differ = _gap_rule(ph, "[lm] (d) chunked", base, outs, base_log, log)
+    ph.check(counts["interleaved"] > 0, "[lm] (d): no decode tick ran while a prompt was chunk-prefilling")
+    ph.check(launches["paged_attention"] == cfg.n_layers * counts["ticks"] > 0,
+             f"[lm] (d): paged_attention launched {launches['paged_attention']} times in {counts['ticks']} ticks")
+    ph.check(svc.metrics()["dispatch_errors"] == 0, "[lm] (d): dispatch errors")
+    print(f"[lm] (d) chunked prefill: {len(stream)} requests, prompts {load.prompt_lens} tokens, "
+          f"{CHUNK_PREFILL} a tick, max_len {CHUNK_MAX_LEN}: {counts['chunks']} chunk steps, {counts['ticks']} "
+          f"decode ticks of which {counts['interleaved']} interleaved with a chunked prefill; logit diff vs "
+          f"unchunked {diff:.4g}; {len(stream) - differ}/{len(stream)} requests' tokens identical to the "
+          f"unchunked engine, {differ} within the gap rule; paged_attention launches "
+          f"{launches['paged_attention']}; wall_s={wall:.3f}", flush=True)
+    return launches
+
+
+def _perturbed(logits, params, rng):
+    """The Gumbel-perturbed scores ``sample_token`` takes the argmax of."""
+    import numpy as np
+
+    z = np.asarray(logits, np.float64) / params.temperature
+    if params.top_k:
+        k = min(int(params.top_k), z.shape[0])
+        keep = np.argpartition(z, -k)[-k:]
+        masked = np.full_like(z, -np.inf)
+        masked[keep] = z[keep]
+        z = masked
+    return z - np.log(-np.log(rng.uniform(low=np.finfo(np.float64).tiny, high=1.0, size=z.shape)))
+
+
+class _SampleCheck:
+    """Re-runs every decode tick of a sampling service on the plain route
+    from a clone of the pool, and for every sampled token also draws the
+    plain route's token with the same Gumbel noise (the request's stream
+    state copied before the draw).  Records the worst logit difference and,
+    where the two tokens differ, the gap between the plain route's top two
+    perturbed scores."""
+
+    def __init__(self, svc):
+        self.engine = svc.engine
+        self.orig, self.orig_pick = svc.engine.step_logits, svc._pick_token
+        svc.engine.step_logits, svc._pick_token = self.step, self.pick
+        self.plain = {}
+        self.max_abs = 0.0
+        self.max_rel = 0.0
+        self.tokens = 0
+        self.gaps = []
+
+    def step(self, caches, lens, toks, block_tables, impl=None):
+        import torch
+
+        clone = {name: {k: v.clone() for k, v in leafs.items()} for name, leafs in caches.items()}
+        p_logits = self.orig(clone, lens, toks, block_tables, "plain")[0]
+        del clone
+        out = self.orig(caches, lens, toks, block_tables, impl)
+        pool = self.engine.pool
+        idx = pool.decoding_indices()
+        sel = torch.tensor(idx, device=p_logits.device)
+        kl, pl = out[0][sel], p_logits[sel]
+        diff = float((kl - pl).abs().max())
+        self.max_abs = max(self.max_abs, diff)
+        self.max_rel = max(self.max_rel, diff / max(1.0, float(pl.abs().max())))
+        rows = pl.float().cpu().numpy()
+        self.plain = {id(pool[i]): rows[j] for j, i in enumerate(idx)}
+        return out
+
+    def pick(self, slot, out):
+        import copy
+
+        import numpy as np
+
+        prow = self.plain.pop(id(slot), None)
+        if prow is None or slot.rng is None:
+            return self.orig_pick(slot, out)
+        state = copy.deepcopy(slot.rng.bit_generator.state)
+        tok = self.orig_pick(slot, out)
+        rng = np.random.Generator(np.random.PCG64())
+        rng.bit_generator.state = state
+        scores = _perturbed(prow, slot.request.sampling, rng)
+        self.tokens += 1
+        if int(np.argmax(scores)) != tok:
+            top2 = np.sort(scores)[-2:]
+            self.gaps.append(float(top2[1] - top2[0]))
+        return tok
+
+
+def _lm_sampling(ph, cfg, params, dev):
+    """(e) sampling: at temperature 0 the sampling engine's tokens equal the
+    greedy engine's bit for bit; at temperature 0.8 / top-k 50 fixed seeds
+    reproduce on a rerun; kernel route vs plain route on a cloned pool."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.serve.loadgen import LMLoadConfig
+
+    load = LMLoadConfig(n_requests=SAMPLE_REQUESTS)
+    stream = load.request_stream(cfg.vocab_size)
+    max_len = -(-max(load.max_request_len + 8, 32) // LM_PAGE) * LM_PAGE
+    shape = dict(n_slots=LM_SLOTS, max_len=max_len, max_prompt=max(load.prompt_lens), paged=True, page_size=LM_PAGE)
+
+    def run(svc, kw):
+        futs = [svc.submit(t, m, **kw(i)) for i, (t, m) in enumerate(stream)]
+        svc.drain()
+        return [f.result(timeout=60) for f in futs]
+
+    greedy = run(_lm_service(cfg, params, dev, **shape), lambda i: {})
+    zero = run(_lm_service(cfg, params, dev, sampling=True, **shape), lambda i: dict(seed=i))
+    bad_zero = [i for i, (a, b) in enumerate(zip(greedy, zero)) if not np.array_equal(a, b)]
+    ph.check(not bad_zero, f"[lm] (e): sampling at temperature 0 differs from the greedy engine in requests {bad_zero}")
+    hot = lambda i: dict(temperature=SAMPLE_T, top_k=SAMPLE_TOP_K, seed=100 + i)  # noqa: E731
+    svc = _lm_service(cfg, params, dev, sampling=True, **shape)
+    check = _SampleCheck(svc)
+    kernels.reset_launch_counts()
+    first = run(svc, hot)
+    launches = kernels.launch_counts()
+    again = run(_lm_service(cfg, params, dev, sampling=True, **shape), hot)
+    bad_rerun = [i for i, (a, b) in enumerate(zip(first, again)) if not np.array_equal(a, b)]
+    ph.check(not bad_rerun, f"[lm] (e): seeded sampled tokens differ on a rerun in requests {bad_rerun}")
+    limit = 2 * check.max_abs / SAMPLE_T
+    ph.check(check.max_rel <= LOGIT_TOL, f"[lm] (e): kernel vs plain logits rel {check.max_rel:.3g} > {LOGIT_TOL}")
+    ph.check(all(g < limit for g in check.gaps),
+             f"[lm] (e): sampled tokens differ between routes at perturbed gaps {check.gaps} >= {limit:.4g}")
+    ph.check(any(not np.array_equal(a, b) for a, b in zip(first, greedy)), "[lm] (e): temperature changed no token")
+    ph.check(launches["paged_attention"] > 0, "[lm] (e): the sampled run launched no paged_attention")
+    print(f"[lm] (e) sampling: temperature 0 == greedy engine, bit for bit, in {len(stream) - len(bad_zero)}/"
+          f"{len(stream)} requests; T={SAMPLE_T} top_k={SAMPLE_TOP_K} seeded tokens reproduce on a rerun in "
+          f"{len(stream) - len(bad_rerun)}/{len(stream)}; kernel vs "
+          f"plain route on a cloned pool: logits max_abs={check.max_abs:.4g} rel={check.max_rel:.4g}, "
+          f"{check.tokens} sampled decode tokens, {len(check.gaps)} differ between routes (allowed where the "
+          f"perturbed top-2 gap < 2 x diff / T = {limit:.4g}: gaps {check.gaps})", flush=True)
+    return launches
+
+
+def _lm_prefix(ph, cfg, params, dev):
+    """(f) the prefix radix cache on ``SharedPrefixLoadConfig()``, kernel
+    route: warm tokens == unshared, fewer peak pages, hits, a copy-on-write,
+    the probe against its oracle."""
+    from repro_torch import kernels
+    from repro_torch.decorr.config import DecorrConfig
+    from repro_torch.serve.loadgen import SharedPrefixLoadConfig, compare_prefix_sharing
+    from repro_torch.serve.probes import DecorrProbe
+
+    load = SharedPrefixLoadConfig()
+    kernels.reset_launch_counts()
+    rep = compare_prefix_sharing(
+        cfg, params, load, n_slots=4, page_size=LM_PAGE, prefill_chunk=8, device=dev, record_probe_rows=True,
+        probe_fn=lambda: DecorrProbe(DecorrConfig(style="vic", reg="sum", q=2), perm_seed=SEED, device=dev),
+    )
+    launches = kernels.launch_counts()
+    g, sh = rep["gate"], rep["shared"]
+    err = g.get("probe_oracle_rel_err")
+    ph.check(g["token_mismatches"] == 0, f"[lm] (f): warm tokens differ from unshared in {g['token_mismatches']} requests")
+    ph.check(g["peak_pages_lt_unshared"], f"[lm] (f): shared peak pages ratio {g['peak_pages_ratio']:.3f} >= 1")
+    ph.check(g["prefix_hit_rate"] > 0 and g["prefix_cow_total"] >= 1,
+             f"[lm] (f): hit rate {g['prefix_hit_rate']} cow {g['prefix_cow_total']}")
+    ph.check(err is not None and err < LM_PROBE_TOL, f"[lm] (f): probe vs oracle {err}")
+    for name in ("paged_attention",) + LM_PROBE_KERNELS:
+        ph.check(launches[name] > 0, f"[lm] (f): {name} never launched")
+    print(f"[lm] (f) prefix cache: {load.n_prefixes} prefixes of {load.prefix_len} tokens, fan-out {load.fan_out}, "
+          f"4 slots, page {LM_PAGE}, chunk 8: warm == unshared in {load.n_prefixes * load.fan_out} requests (mismatches {g['token_mismatches']:.0f}); peak pages {sh['peak_pages']:.0f} vs unshared "
+          f"{rep['unshared']['peak_pages']:.0f}; hit rate {g['prefix_hit_rate']:.3f}, "
+          f"{sh['paged_prefix_hit_tokens_total']:.0f} rows skipped, {g['prefix_cow_total']:.0f} copy-on-write; "
+          f"probe_oracle_rel_err={err}; paged_attention launches {launches['paged_attention']}", flush=True)
+    return launches
+
+
+class _VerifyCheck:
+    """Every call of ``step_logits`` (decode tick or verify) re-run on the
+    plain route from a clone of the pool: the worst logit difference over
+    the live lanes, and the kernel route's paged_attention launches per call
+    by batch size."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.orig = engine.step_logits
+        engine.step_logits = self
+        self.max_abs = 0.0
+        self.max_rel = 0.0
+        self.calls = {}
+
+    def __call__(self, caches, lens, toks, block_tables, impl=None):
+        from repro_torch import kernels
+
+        clone = {name: {k: v.clone() for k, v in leafs.items()} for name, leafs in caches.items()}
+        p_logits = self.orig(clone, lens, toks, block_tables, "plain")[0]
+        del clone
+        before = kernels.launch_counts()["paged_attention"]
+        out = self.orig(caches, lens, toks, block_tables, impl)
+        launched = kernels.launch_counts()["paged_attention"] - before
+        b = int(lens.shape[0])
+        self.calls.setdefault(b, []).append(launched)
+        live = block_tables.any(dim=1)
+        if b == self.engine.pool.n_slots:  # a decode tick: the decoding lanes
+            live[:] = False
+            live[self.engine.pool.decoding_indices()] = True
+        kl, pl = out[0][live], p_logits[live]
+        diff = float((kl - pl).abs().max())
+        self.max_abs = max(self.max_abs, diff)
+        self.max_rel = max(self.max_rel, diff / max(1.0, float(pl.abs().max())))
+        return out
+
+
+def _lm_speculative(ph, cfg, params, dev):
+    """(g) speculative decoding, draft_k 4, kernel route, against the plain
+    (unspeculative) paged greedy engine on the reference mix."""
+    from repro_torch import kernels
+    from repro_torch.serve.loadgen import LMLoadConfig
+
+    load = LMLoadConfig()
+    stream = load.request_stream(cfg.vocab_size)
+    max_len = -(-max(load.max_request_len + 8, 32) // LM_PAGE) * LM_PAGE
+    shape = dict(n_slots=LM_SLOTS, max_len=max_len, max_prompt=max(load.prompt_lens), paged=True, page_size=LM_PAGE)
+    base, _, _, base_log = _drive_logged(_lm_service(cfg, params, dev, **shape), stream)
+    svc = _lm_service(cfg, params, dev, speculative=True, draft_k=DRAFT_K, **shape)
+    log = _LogitLog(svc.engine)
+    check = _VerifyCheck(svc.engine)
+    kernels.reset_launch_counts()
+    outs, wall, _ = _lm_drive(svc, stream, log)
+    launches = kernels.launch_counts()
+    diff, differ = _gap_rule(ph, "[lm] (g) speculative", base, outs, base_log, log)
+    st = svc.spec_stats
+    vb = LM_SLOTS * (DRAFT_K + 1)
+    verify = check.calls.get(vb, [])
+    ph.check(st.verify_steps > 0 and len(verify) == st.verify_steps,
+             f"[lm] (g): {len(verify)} calls at B={vb} for {st.verify_steps} verify steps")
+    ph.check(all(n == cfg.n_layers for calls in check.calls.values() for n in calls),
+             f"[lm] (g): paged_attention launches per call {check.calls}")
+    ph.check(check.max_rel <= LOGIT_TOL, f"[lm] (g): verify logits kernel vs plain rel {check.max_rel:.3g}")
+    ph.check(svc.metrics()["dispatch_errors"] == 0, "[lm] (g): dispatch errors")
+    print(f"[lm] (g) speculative: draft_k={DRAFT_K}, {len(stream)} requests; {st.verify_steps} verify steps at "
+          f"B={vb} ({cfg.n_layers} paged_attention launches each: "
+          f"{sorted(set(verify))}), {st.plain_steps} plain ticks; accepted tokens per verify step "
+          f"{st.accepted_per_step():.3f}, tokens per slot-lane {st.tokens_emitted / max(st.slot_lanes, 1):.3f}, "
+          f"acceptance {st.acceptance_rate():.3f}; kernel vs plain logits on a cloned pool max_abs={check.max_abs:.4g} "
+          f"rel={check.max_rel:.4g}; logit diff vs unspeculative {diff:.4g}; {len(stream) - differ}/{len(stream)} "
+          f"requests identical, {differ} within the gap rule; paged_attention launches "
+          f"{launches['paged_attention']}; wall_s={wall:.3f}", flush=True)
+    return launches
+
+
+def _lm_long_prompt(ph, cfg, params, dev):
+    """(h) one prompt of 10240 tokens through ``LMService``: the prefill
+    takes ``_chunked_attention`` (26 calls), its first-token logits against
+    the same forward with the chunked path bypassed; then 8 decode tokens."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.models import attention
+    from repro_torch.serve.buckets import bucket_for
+    from repro_torch.serve.engine import ContinuousLMEngine
+    from repro_torch.serve.service import LMService
+    from repro_torch.train.serve import make_prefill_at_step
+
+    n = LONG_PREFILL
+    max_len = -(-(n + LONG_PREFILL_NEW) // LM_PAGE) * LM_PAGE
+    eng = ContinuousLMEngine(cfg, params, n_slots=1, max_len=max_len, max_prompt_len=n, paged=True,
+                             page_size=LM_PAGE, device=dev)
+    svc = LMService(eng)
+    bucket = bucket_for(n, eng._prompt_policy)
+    chunked_calls = [0]
+    orig_chunked, orig_first = attention._chunked_attention, eng._first_output
+    firsts = []
+
+    def counted(*a, **k):
+        chunked_calls[0] += 1
+        return orig_chunked(*a, **k)
+
+    def first(logits, hidden):
+        firsts.append(logits[0].detach().clone())
+        return orig_first(logits, hidden)
+
+    attention._chunked_attention, eng._first_output = counted, first
+    prompt = np.random.default_rng(SEED + 9).integers(0, cfg.vocab_size, n).astype(np.int32)
+    try:
+        kernels.reset_launch_counts()
+        fut = svc.submit(prompt, LONG_PREFILL_NEW)
+        t0 = time.perf_counter()
+        svc.drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+    finally:
+        attention._chunked_attention = orig_chunked
+    toks = fut.result(timeout=60)
+    ticks = eng.pool.steps
+    full_cfg = dataclasses.replace(cfg, attn_chunk_threshold=1 << 30)
+    padded = torch.zeros((1, bucket), dtype=torch.int32, device=dev)
+    padded[0, :n] = torch.as_tensor(prompt, device=dev)
+    with torch.no_grad():
+        full = make_prefill_at_step(full_cfg)(params, eng._caches1, padded, n)[0][0]
+    err = float((firsts[0] - full).abs().max())
+    rel = err / max(1.0, float(full.abs().max()))
+    ph.check(bucket > cfg.attn_chunk_threshold and bucket % cfg.attn_chunk_size == 0,
+             f"[lm] (h): bucket {bucket} does not take the chunked prefill")
+    ph.check(chunked_calls[0] == cfg.n_layers, f"[lm] (h): _chunked_attention ran {chunked_calls[0]} times")
+    ph.check(rel <= LOGIT_TOL, f"[lm] (h): chunked vs full-attention first-token logits rel {rel:.3g}")
+    ph.check(toks.shape == (LONG_PREFILL_NEW,) and int(toks[0]) == int(torch.argmax(full)),
+             f"[lm] (h): tokens {toks}")
+    ph.check(launches["paged_attention"] == cfg.n_layers * ticks > 0,
+             f"[lm] (h): paged_attention launched {launches['paged_attention']} times in {ticks} ticks")
+    print(f"[lm] (h) long prompt: {n} tokens f32 in bucket {bucket} (threshold {cfg.attn_chunk_threshold}, chunks "
+          f"of {cfg.attn_chunk_size}): _chunked_attention calls={chunked_calls[0]}; first-token logits vs full "
+          f"attention max_abs={err:.4g} rel={rel:.4g}; then {LONG_PREFILL_NEW} tokens in {ticks} decode ticks "
+          f"(paged_attention launches {launches['paged_attention']}); wall_s={wall:.3f} "
+          f"peak_alloc_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}", flush=True)
+    return launches
+
+
+def _lm_timed_options(ph, cfg, params, dev, smi):
+    """The config's own bf16, kernel route, one run each (for the record,
+    not gated): chunked prefill on (d)'s mix, the prefix cache (warm vs cold
+    TTFT against unshared), speculative decoding and sampling on the
+    reference mix.  Returns the runs' launch counts."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.serve.loadgen import LMLoadConfig, SharedPrefixLoadConfig, compare_prefix_sharing
+
+    total = {}
+
+    def counted(fn):
+        kernels.reset_launch_counts()
+        out = fn()
+        for k, v in kernels.launch_counts().items():
+            total[k] = total.get(k, 0) + v
+        ph.check(kernels.launch_counts()["paged_attention"] > 0, "[lm] bf16 options: a run launched no paged_attention")
+        return out
+
+    def line(tag, outs, wall, futs, extra=""):
+        ttft = np.asarray([f.ttft_s for f in futs]) * 1e3
+        n_tok = sum(len(o) for o in outs)
+        print(f"[lm] bf16 {tag}: {len(futs)} requests {n_tok} tokens wall_s={wall:.4f} tok_per_s={n_tok / wall:.1f} "
+              f"ttft_p50_ms={np.percentile(ttft, 50):.3f} ttft_p99_ms={np.percentile(ttft, 99):.3f}{extra} | {smi}",
+              flush=True)
+
+    chunk = LMLoadConfig(**CHUNK_MIX)
+    shape = dict(n_slots=LM_SLOTS, max_len=CHUNK_MAX_LEN, max_prompt=max(chunk.prompt_lens), paged=True,
+                 page_size=LM_PAGE)
+    for tag, kw in ((f"chunked prefill ({CHUNK_PREFILL} a tick, prompts {chunk.prompt_lens})",
+                     dict(prefill_chunk=CHUNK_PREFILL)), ("unchunked, the same mix", {})):
+        svc = _lm_service(cfg, params, dev, **kw, **shape)
+        outs, wall, futs = counted(lambda: _lm_drive(svc, chunk.request_stream(cfg.vocab_size)))
+        line(tag, outs, wall, futs)
+        del svc
+        torch.cuda.empty_cache()
+
+    rep = counted(lambda: compare_prefix_sharing(cfg, params, SharedPrefixLoadConfig(), n_slots=4,
+                                                 page_size=LM_PAGE, prefill_chunk=8, device=dev))
+    sh, un = rep["shared"], rep["unshared"]
+    print(f"[lm] bf16 prefix cache (SharedPrefixLoadConfig, 4 slots, chunk 8): shared tok_per_s={sh['tok_per_s']:.1f} "
+          f"cold_ttft_p50_ms={sh['cold_ttft_p50_ms']:.3f} warm_ttft_p50_ms={sh['warm_ttft_p50_ms']:.3f} "
+          f"warm_ttft_p99_ms={sh['warm_ttft_p99_ms']:.3f} | unshared tok_per_s={un['tok_per_s']:.1f} "
+          f"cold_ttft_p50_ms={un['cold_ttft_p50_ms']:.3f} warm_ttft_p50_ms={un['warm_ttft_p50_ms']:.3f} "
+          f"warm_ttft_p99_ms={un['warm_ttft_p99_ms']:.3f} | peak pages {sh['peak_pages']:.0f} vs {un['peak_pages']:.0f}, "
+          f"token mismatches {rep['gate']['token_mismatches']:.0f} | {smi}", flush=True)
+
+    load = LMLoadConfig()
+    max_len = -(-max(load.max_request_len + 8, 32) // LM_PAGE) * LM_PAGE
+    shape = dict(n_slots=LM_SLOTS, max_len=max_len, max_prompt=max(load.prompt_lens), paged=True, page_size=LM_PAGE)
+    stream = load.request_stream(cfg.vocab_size)
+    svc = _lm_service(cfg, params, dev, speculative=True, draft_k=DRAFT_K, **shape)
+    outs, wall, futs = counted(lambda: _lm_drive(svc, stream))
+    st = svc.spec_stats
+    line(f"speculative (draft_k={DRAFT_K})", outs, wall, futs,
+         f" verify_steps={st.verify_steps} plain_ticks={st.plain_steps} accepted_tokens_per_step="
+         f"{st.accepted_per_step():.3f} tokens_per_slot_lane={st.tokens_emitted / max(st.slot_lanes, 1):.3f}")
+
+    svc = _lm_service(cfg, params, dev, sampling=True, **shape)
+    host = []
+    outputs = svc.engine._outputs
+
+    def timed_outputs(logits):
+        t0 = time.perf_counter()
+        out = outputs(logits)  # the (N, V) f32 rows to the host (a sync)
+        host.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    picks = []
+    pick = svc._pick_token
+
+    def timed_pick(slot, out):
+        t0 = time.perf_counter()
+        tok = pick(slot, out)  # numpy: top-k mask and Gumbel noise over the vocabulary
+        picks.append((time.perf_counter() - t0) * 1e3)
+        return tok
+
+    svc.engine._outputs, svc._pick_token = timed_outputs, timed_pick
+    futs = [svc.submit(t, m, temperature=SAMPLE_T, top_k=SAMPLE_TOP_K, seed=i) for i, (t, m) in enumerate(stream)]
+    t0 = time.perf_counter()
+    counted(svc.drain)
+    wall = time.perf_counter() - t0
+    outs = [f.result(timeout=60) for f in futs]
+    line(f"sampled (T={SAMPLE_T}, top_k={SAMPLE_TOP_K})", outs, wall, futs,
+         f" logits-to-host ms per tick median={float(np.median(host)):.3f} ({len(host)} ticks, "
+         f"{LM_SLOTS} x {cfg.vocab_size} f32 = {LM_SLOTS * cfg.vocab_size * 4 / 1e6:.1f} MB); host draw ms per "
+         f"token median={float(np.median(picks)):.3f} ({len(picks)} tokens, sum {sum(picks):.1f} ms)")
+    return total
+
+
 def phase_lm(ph: Phase, dev):
     """The LM serving path at full width; returns the bf16 run's launch counts."""
     import gc
@@ -1344,12 +1928,25 @@ def phase_lm(ph: Phase, dev):
           f"{total_pages} pages of {LM_PAGE} (window {cfg.window_size} on the local layers)", flush=True)
     _lm_checked_run(ph, "f32 long context", cfg, params, dev, long_load.request_stream(cfg.vocab_size), 2,
                     LONG_MAX_LEN, LONG_PROMPT, total_pages=total_pages)
+    for sub in (_lm_chunked, _lm_sampling, _lm_prefix, _lm_speculative, _lm_long_prompt):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        sub(ph, cfg, params, dev)
+        print(f"[lm] {sub.__name__}: {time.perf_counter() - t0:.1f}s", flush=True)
     del params
     gc.collect()
     torch.cuda.empty_cache()
 
     cfg, params = _lm_model(dev, torch.bfloat16)
-    return _lm_timed(ph, cfg, params, dev, stream, max_len, max_prompt)
+    counts = _lm_timed(ph, cfg, params, dev, stream, max_len, max_prompt)
+    gc.collect()
+    torch.cuda.empty_cache()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    for k, v in _lm_timed_options(ph, cfg, params, dev, smi).items():
+        counts[k] = counts.get(k, 0) + v
+    return counts
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,17 @@
 """GQA attention with RoPE, local / global windows and logit softcap, over
-a dense KV cache (prefill, scalar and per-slot decode) or a paged one
-(block-table decode).  Port of ``repro/models/attention.py``.
+a dense KV cache (prefill, chunked prefill, scalar and per-slot decode) or a
+paged one (block-table decode).  Port of ``repro/models/attention.py``.
 
 The reference is functional (``.at[].set`` returns a new cache); here the
 cache tensors are updated in place (``index_put_``), so a decode step writes
 the new token's k / v straight into the caller's pool and returns the same
-dict.  The chunked (flash-style) long-prompt prefill, the offset prefill of
-chunked serving and M-RoPE belong to a later slice and raise.
+dict.  Prompts longer than ``cfg.attn_chunk_threshold`` (a multiple of
+``cfg.attn_chunk_size``) take the chunked-causal (flash-style) prefill:
+an online softmax over the static list of causal chunk pairs, so the score
+work is the causal half and no (S, S) score matrix is built.  It is plain
+PyTorch, as the reference's is plain JAX (no Pallas kernel there); SDPA
+cannot stand in, since it cannot apply gemma's logit softcap.  M-RoPE
+belongs to a later slice.
 """
 
 from __future__ import annotations
@@ -14,6 +19,7 @@ from __future__ import annotations
 import math
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch import DeviceLike, resolve_device
@@ -115,6 +121,52 @@ def _full_attention(q, k, v, cfg: ArchConfig, spec: BlockSpec) -> Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Chunked-causal (flash-style) attention — long prefill
+# ---------------------------------------------------------------------------
+
+
+def _chunked_attention(q, k, v, cfg: ArchConfig, spec: BlockSpec, chunk: int) -> Tensor:
+    """Online softmax over the static list of causal chunk pairs (i, j <= i),
+    as the reference scans it: each pair's scores are (B, H, chunk, chunk),
+    and only the causal half of the pairs runs.  A local layer keeps the
+    pairs whose chunk distance is within ``span`` of the window."""
+    b, s, h, hd = q.shape
+    assert s % chunk == 0, (s, chunk)
+    scale = _scale(cfg, hd)
+    k = _repeat_kv(k, h // k.shape[2])
+    v = _repeat_kv(v, h // v.shape[2])
+    nc = s // chunk
+    pairs = np.array([(i, j) for i in range(nc) for j in range(i + 1)], np.int64)
+    if spec.attn_type == "local":
+        span = -(-cfg.window_size // chunk)  # chunks that can be in-window
+        pairs = pairs[pairs[:, 0] - pairs[:, 1] <= span]
+    acc = [torch.zeros((b, chunk, h, hd), dtype=torch.float32, device=q.device) for _ in range(nc)]
+    m = [torch.full((b, chunk, h), NEG_INF, dtype=torch.float32, device=q.device) for _ in range(nc)]
+    l = [torch.zeros((b, chunk, h), dtype=torch.float32, device=q.device) for _ in range(nc)]
+    local = torch.arange(chunk, device=q.device)
+    for i, j in pairs.tolist():
+        qb = q[:, i * chunk:(i + 1) * chunk]
+        kb = k[:, j * chunk:(j + 1) * chunk]
+        vb = v[:, j * chunk:(j + 1) * chunk]
+        sc = torch.einsum("bqhd,bkhd->bhqk", qb, kb).float() * scale
+        sc = softcap(sc, cfg.attn_softcap)
+        gq = (i * chunk + local)[:, None]
+        gk = (j * chunk + local)[None, :]
+        mask = gk <= gq
+        if spec.attn_type == "local":
+            mask &= gk > gq - cfg.window_size
+        sc = torch.where(mask[None, None], sc, NEG_INF)
+        m_new = torch.maximum(m[i], sc.amax(dim=-1).transpose(1, 2))  # (b, q, h)
+        corr = torch.exp(m[i] - m_new)
+        p = torch.exp(sc - m_new.transpose(1, 2)[..., None])  # (b, h, q, k)
+        l[i] = l[i] * corr + p.sum(dim=-1).transpose(1, 2)
+        acc[i] = acc[i] * corr[..., None] + torch.einsum("bhqk,bkhd->bqhd", p.to(qb.dtype), vb).float()
+        m[i] = m_new
+    out = torch.cat([a / torch.clamp(li[..., None], min=1e-30) for a, li in zip(acc, l)], dim=1)
+    return out.to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
 # Decode with KV cache
 # ---------------------------------------------------------------------------
 
@@ -210,6 +262,24 @@ def _paged_decode(q, k, v, cache, cache_len, block_tables, cfg: ArchConfig, spec
     return _decode_attention(q, kd, vd, cl + 1, cfg, spec), cache
 
 
+def _offset_prefill_attention(q, cache_k, cache_v, offset: int, cfg: ArchConfig, spec: BlockSpec) -> Tensor:
+    """Chunked serving prefill: queries at absolute positions
+    [offset, offset + S) attend to cache rows [0, offset + S) — causal
+    across the already-written prefix AND within the chunk.  The caches
+    already hold the chunk's k / v at [offset, offset + S)."""
+    b, s, h, hd = q.shape
+    k = _repeat_kv(cache_k, h // cache_k.shape[2])
+    v = _repeat_kv(cache_v, h // cache_v.shape[2])
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * _scale(cfg, hd)
+    scores = softcap(scores, cfg.attn_softcap)
+    qi = int(offset) + torch.arange(s, device=q.device)[:, None]
+    ki = torch.arange(k.shape[1], device=q.device)[None, :]
+    mask = ki <= qi
+    if spec.attn_type == "local":
+        mask &= ki > qi - cfg.window_size
+    return _softmax_attend(scores, mask[None, None], v, q.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Public entry
 # ---------------------------------------------------------------------------
@@ -225,6 +295,7 @@ def attn_apply(
     cache_len=None,
     block_tables: Optional[Tensor] = None,
     impl: Optional[str] = None,
+    chunked: bool = False,
 ) -> Tuple[Tensor, Optional[Dict[str, Tensor]]]:
     """Returns (output (B, S, d), the cache or None).
 
@@ -232,7 +303,10 @@ def attn_apply(
     * cache given, S == 1: single-token decode (writes position cache_len,
       in place).  A cache with ``k_pages`` routes through the paged
       (block-table) path; otherwise ``cache_len`` is a scalar or (B,).
-    * cache given, S > 1: prefill — writes rows [0, S) and attends causally.
+    * cache given, S > 1: prefill — writes rows [0, S) and attends causally;
+      with ``chunked=True`` the chunk is written at rows
+      [cache_len, cache_len + S) instead and attends across the prefix
+      already written (incremental prefill).
     """
     b, s, _ = x.shape
     h, hd = cfg.n_heads, cfg.hd
@@ -254,14 +328,18 @@ def attn_apply(
                 cv[:, int(cache_len)] = v[:, 0]
             out = _decode_attention(q, ck, cv, cache_len + 1, cfg, spec)
         return out.reshape(b, s, h * hd) @ params["wo"].to(cd), cache
+    if cache is not None and chunked:
+        off = int(cache_len)
+        cache["k"][:, off:off + s] = k
+        cache["v"][:, off:off + s] = v
+        out = _offset_prefill_attention(q, cache["k"], cache["v"], off, cfg, spec)
+        return out.reshape(b, s, h * hd) @ params["wo"].to(cd), cache
     if cache is not None:
         cache["k"][:, :s] = k
         cache["v"][:, :s] = v
 
     if s > cfg.attn_chunk_threshold and s % cfg.attn_chunk_size == 0:
-        raise NotImplementedError(
-            f"a {s}-token prompt takes the reference's chunked (flash-style) prefill, "
-            "which slice 3b of the port brings"
-        )
-    out = _full_attention(q, k, v, cfg, spec)
+        out = _chunked_attention(q, k, v, cfg, spec, cfg.attn_chunk_size)
+    else:
+        out = _full_attention(q, k, v, cfg, spec)
     return out.reshape(b, s, h * hd) @ params["wo"].to(cd), cache

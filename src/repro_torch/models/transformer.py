@@ -12,7 +12,9 @@ contiguous slab the paged-attention kernel reads.
 
 Modes (all through ``forward``):
   * score:    caches=None — full-sequence causal forward
-  * prefill:  caches given, S > 1 — fills rows [0, S) in place
+  * prefill:  caches given, S > 1 — fills rows [0, S) in place; with
+    ``chunked_prefill`` the chunk fills rows [cache_len, cache_len + S) and
+    attends over the prefix already written
   * decode:   caches given, S == 1 — one token at ``cache_len`` (scalar or
     per-slot), through block tables when the caches are page pools
 """
@@ -166,10 +168,12 @@ def init_paged_caches(cfg: ArchConfig, num_pages: int, page: int, device: Device
 # ---------------------------------------------------------------------------
 
 
-def _apply_block(p, x, cfg: ArchConfig, spec: BlockSpec, positions, cache, cache_len, block_tables, impl):
+def _apply_block(p, x, cfg: ArchConfig, spec: BlockSpec, positions, cache, cache_len, block_tables, impl,
+                 chunked_prefill=False):
     h = rms_norm(x, p["norm1"], cfg.rms_eps)
     out, cache = attn_lib.attn_apply(
-        p["attn"], h, cfg, spec, positions, cache, cache_len, block_tables=block_tables, impl=impl
+        p["attn"], h, cfg, spec, positions, cache, cache_len, block_tables=block_tables, impl=impl,
+        chunked=chunked_prefill,
     )
     if cfg.post_block_norm:
         out = rms_norm(out, p["post_norm1"], cfg.rms_eps)
@@ -210,11 +214,14 @@ def forward(
     block_tables: Optional[Tensor] = None,
     impl: Optional[str] = None,
     head: bool = True,
+    chunked_prefill: bool = False,
 ) -> ModelOutput:
     """Run the stack on (B, S) token ids.  Caches are updated in place and
     returned.  ``head=False`` skips the LM head (a prefill that needs one
     row's logits computes them from ``hidden`` itself); ``impl`` picks the
-    paged attention route (see ``attention.use_kernel``)."""
+    paged attention route (see ``attention.use_kernel``);
+    ``chunked_prefill`` writes the S rows at ``cache_len`` (positions start
+    there too) and attends across the prefix already in the cache."""
     check_supported(cfg)
     x = _embed_inputs(params, cfg, tokens)
     b, s, _ = x.shape
@@ -229,7 +236,8 @@ def forward(
             name = f"pos{pos}"
             cache = None if caches is None else {k: v[r] for k, v in caches[name].items()}
             x = _apply_block(
-                layer_params(params, name, r), x, cfg, spec, positions, cache, cache_len, block_tables, impl
+                layer_params(params, name, r), x, cfg, spec, positions, cache, cache_len, block_tables, impl,
+                chunked_prefill,
             )
     h = rms_norm(x, params["final_norm"], cfg.rms_eps)
     logits = logits_from_hidden(params, cfg, h) if head else None

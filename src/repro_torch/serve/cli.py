@@ -13,10 +13,22 @@ the scrape metrics (port of ``repro/serve/cli.py``).
     PYTHONPATH=src python -m repro_torch.serve.cli --smoke --lm-arch gemma2-2b \
         --continuous --paged --block-size 16 --device cpu
 
+    # + chunked prefill (a third, chunked paged run) and a sampled batch
+    PYTHONPATH=src python -m repro_torch.serve.cli --smoke --lm-arch gemma2-2b \
+        --continuous --paged --block-size 16 --prefill-chunk 16 \
+        --temperature 0.8 --top-k 8 --device cpu
+
+    # + the prefix radix cache (identical tokens, fewer peak pages, hits)
+    PYTHONPATH=src python -m repro_torch.serve.cli --smoke --lm-arch gemma2-2b \
+        --continuous --paged --block-size 16 --prefix-cache --device cpu
+
+    # + speculative decoding (identical tokens, > 1 token per verify lane)
+    PYTHONPATH=src python -m repro_torch.serve.cli --smoke --lm-arch gemma2-2b \
+        --continuous --paged --block-size 16 --speculative --draft-k 4 --device cpu
+
 Like the reference, the LM paths serve ``cfg.reduced()``; ``chip_smoke.py``
-runs the full published width on the card.  Sampling, chunked prefill, the
-prefix cache, speculative decoding, the fabric, pre-tuning and telemetry
-belong to later slices of the port.
+runs the full published width on the card.  The fabric, pre-tuning and
+telemetry belong to later slices of the port.
 """
 
 from __future__ import annotations
@@ -167,7 +179,8 @@ def _run_lm_continuous(args, cfg, params, device) -> int:
     paged_ok = True
     if args.paged:
         rep = compare_paged_dense(
-            cfg, params, load, n_slots=args.slots, page_size=args.block_size or 16, device=device
+            cfg, params, load, n_slots=args.slots, page_size=args.block_size or 16,
+            prefill_chunk=args.prefill_chunk, device=device,
         )
         pg = rep["gate"]
         print(
@@ -176,7 +189,15 @@ def _run_lm_continuous(args, cfg, params, device) -> int:
             f"tok/s ratio {pg['tok_per_s_ratio']:.2f})"
         )
         paged_ok = pg["paged_peak_lt_dense"] and pg["token_mismatches"] == 0
+        if "paged_chunked" in rep:
+            ch = rep["paged_chunked"]
+            print(f"[serve] chunked prefill ({args.prefill_chunk} tokens a tick): "
+                  f"token mismatches vs dense: {ch['token_mismatches']:.0f} (argmax-stable, reported) "
+                  f"ttft_p50={ch['ttft_p50_ms']:.2f}ms")
         report["paged_vs_dense"] = rep
+    prefix_ok, prefix_fast = _gate_prefix(args, cfg, params, device) if args.prefix_cache else (True, True)
+    spec_ok = _gate_speculative(args, cfg, params, device) if args.speculative else True
+    sample_ok = _demo_sampling(args, cfg, params, device) if (args.temperature or args.top_k) else True
     if args.json:
         print(json.dumps(report, indent=2, sort_keys=True, default=float))
     # fail-closed: a probe that never fired a full window means the oracle
@@ -187,12 +208,82 @@ def _run_lm_continuous(args, cfg, params, device) -> int:
         and probe_err < 1e-3
         and m["dispatch_errors"] == 0
         and paged_ok
+        and prefix_ok
+        and spec_ok
+        and sample_ok
     )
     print(f"[serve] healthy={healthy} (tokens identical, probe vs oracle < 1e-3, no dispatch error"
-          + (", paged == dense and below its bytes)" if args.paged else ")"))
+          + (", paged == dense and below its bytes" if args.paged else "")
+          + (", warm prefix == unshared with fewer peak pages and hits" if args.prefix_cache else "")
+          + (", speculative == plain with > 1 token a verify lane" if args.speculative else "")
+          + (", sampled tokens reproducible" if args.temperature or args.top_k else "") + ")")
     if not healthy:
         return 1
-    return 0 if g["continuous_beats_whole_request"] or not args.gate else 1
+    fast = g["continuous_beats_whole_request"] and prefix_fast
+    return 0 if fast or not args.gate else 1
+
+
+def _gate_prefix(args, cfg, params, device):
+    """Prefix sharing on vs off over the same paged chunk-all engine on the
+    shared-prefix fan-out workload.  Returns (healthy: identical tokens,
+    peak pool pages below the unshared run, a hit rate above 0; fast: warm
+    TTFT below the unshared run's, a speed claim gated under ``--gate``).  The
+    engine shape is the reference's (4 slots, page 16, chunk 8: the chunk
+    halves the page, so copy-on-write happens)."""
+    from repro_torch.serve.loadgen import SharedPrefixLoadConfig, compare_prefix_sharing
+
+    rep = compare_prefix_sharing(cfg, params, SharedPrefixLoadConfig(seed=args.seed), n_slots=4,
+                                 page_size=16, prefill_chunk=8, device=device)
+    g = rep["gate"]
+    print(
+        f"[serve] prefix cache: hit_rate={g['prefix_hit_rate']:.2f} cow={g['prefix_cow_total']:.0f} "
+        f"warm_ttft_ratio={g['warm_ttft_ratio']:.3f} peak_pages_ratio={g['peak_pages_ratio']:.3f} "
+        f"(token mismatches: {g['token_mismatches']:.0f})"
+    )
+    healthy = g["token_mismatches"] == 0 and g["peak_pages_lt_unshared"] and g["prefix_hit_rate"] > 0
+    return bool(healthy), bool(g["warm_ttft_lt_unshared"])
+
+
+def _gate_speculative(args, cfg, params, device) -> bool:
+    """Plain paged vs speculative decoding on the reference's decode-heavy
+    mix: identical greedy tokens and more than one token emitted per verify
+    slot-lane (the drafter's tokens are being accepted)."""
+    from repro_torch.serve.loadgen import LMLoadConfig, compare_speculative
+
+    load = LMLoadConfig(n_requests=min(args.requests, 16), prompt_lens=(4, 6, 8), new_tokens=(24, 32),
+                        seed=args.seed)
+    rep = compare_speculative(cfg, params, load, n_slots=args.slots, page_size=args.block_size or 16,
+                              draft_k=args.draft_k, device=device)
+    g = rep["gate"]
+    print(
+        f"[serve] speculative: accepted/step={g['accepted_tokens_per_step']:.2f} "
+        f"tokens/lane={g['tokens_per_lane']:.2f} hit_rate={g['draft_hit_rate']:.2f} "
+        f"tok/s ratio {g['tok_per_s_ratio']:.2f} (token mismatches: {g['token_mismatches']:.0f})"
+    )
+    return g["token_mismatches"] == 0 and g["tokens_per_lane"] > 1
+
+
+def _demo_sampling(args, cfg, params, device) -> bool:
+    """A short sampled batch through the pool (per-request temperature /
+    top-k / seed), run twice: the tokens must reproduce."""
+    from repro_torch.serve.engine import ContinuousLMEngine
+    from repro_torch.serve.service import LMService
+
+    def run():
+        eng = ContinuousLMEngine(cfg, params, n_slots=args.slots, max_len=64, max_prompt_len=24,
+                                 paged=args.paged, page_size=args.block_size if args.paged else None,
+                                 sampling=True, device=device)
+        svc = LMService(eng).warmup()
+        rng = np.random.default_rng(args.seed)
+        futs = [svc.submit(rng.integers(0, cfg.vocab_size, 8).astype(np.int32), 8,
+                           temperature=args.temperature or 0.0, top_k=args.top_k, seed=i) for i in range(4)]
+        svc.drain()
+        return [f.result(timeout=60).tolist() for f in futs]
+
+    a, b = run(), run()
+    print(f"[serve] sampled decode (T={args.temperature}, top_k={args.top_k}): "
+          f"sample={a[0][:8]} reproducible={a == b}")
+    return a == b
 
 
 def main(argv=None) -> int:
@@ -233,7 +324,28 @@ def main(argv=None) -> int:
                         "against the dense pool (tokens, peak cache bytes)")
     p.add_argument("--block-size", type=int, default=None,
                    help="KV page size in tokens (default 16)")
+    p.add_argument("--prefill-chunk", type=int, default=None,
+                   help="with --paged: also serve the mix with long prompts prefilled N tokens "
+                        "a tick (tokens reported against the dense pool)")
+    p.add_argument("--prefix-cache", action="store_true",
+                   help="with --paged: also hold the prefix radix cache against unshared paging "
+                        "(identical tokens, fewer peak pages, hits; warm TTFT under --gate)")
+    p.add_argument("--speculative", action="store_true",
+                   help="with --paged: also hold speculative decoding against plain paged "
+                        "decoding (identical tokens, > 1 token a verify lane)")
+    p.add_argument("--draft-k", type=int, default=4,
+                   help="speculative draft tokens proposed per verify tick")
+    p.add_argument("--temperature", type=float, default=0.0,
+                   help="run a sampled batch after the greedy checks (0 = greedy only)")
+    p.add_argument("--top-k", type=int, default=None,
+                   help="restrict sampled decoding to the k highest logits")
     args = p.parse_args(argv)
+    if args.prefix_cache and not args.paged:
+        p.error("--prefix-cache shares KV pages; it requires --paged")
+    if args.speculative and not args.paged:
+        p.error("--speculative verifies through scratch pages; it requires --paged")
+    if args.prefill_chunk and not args.paged:
+        p.error("--prefill-chunk rides the paged machinery; it requires --paged")
 
     if args.smoke:
         args.requests = min(args.requests, 192)

@@ -12,7 +12,8 @@ forwards belong to later slices.
 
 ``LMServeEngine`` (whole-request greedy generation) and
 ``ContinuousLMEngine`` (the continuous-batching slot pool, dense or paged
-KV cache) are the token-model counterparts.
+KV cache, with chunked prefill, sampling, the prefix cache and speculative
+decoding) are the token-model counterparts.
 """
 
 from __future__ import annotations
@@ -27,13 +28,16 @@ from repro_torch.kernels.utils import next_multiple
 from repro_torch.models.common import check_supported
 from repro_torch.models.transformer import init_caches
 from repro_torch.serve.buckets import BucketPolicy, bucket_for, bucket_sizes
-from repro_torch.serve.paging import PagedKVManager
+from repro_torch.serve.paging import PagedKVManager, PrefixPlan
 from repro_torch.serve.slots import SlotPool
+from repro_torch.serve.spec import SlotDraft, SpecConfig
 from repro_torch.train.serve import (
     apply_page_moves,
     greedy_generate,
     insert_slot_state,
     insert_slot_state_paged,
+    load_template_from_pages,
+    make_chunked_prefill_step,
     make_decode_step,
     make_prefill_at_step,
     make_prefill_step,
@@ -143,7 +147,7 @@ DEFAULT_PAGE = 16
 
 class ContinuousLMEngine:
     """Continuous-batching LM engine over a fixed pool of decode slots (port
-    of ``ContinuousLMEngine``: dense and paged modes, greedy).
+    of ``ContinuousLMEngine``).
 
     The pool's N slots all advance one token per ``decode_step`` — with a
     per-slot ``cache_len`` — and a freed slot admits the next queued request
@@ -154,21 +158,47 @@ class ContinuousLMEngine:
     row.  The decode step also returns each slot's final hidden state, which
     the service samples for the decorrelation probe.
 
-    ``paged=True`` replaces the per-slot dense rows with fixed-size token
-    pages addressed through block tables (``repro_torch.serve.paging``):
-    admission reserves pages OOM-safely, decode writes and reads through the
-    tables — on a CUDA pool with the hand-written paged-attention kernel —
-    and retirement zeroes the slot's pages, returns them and compacts the
-    pool.  ``max_len`` is rounded up to a page multiple so NB * page equals
-    the dense extent: the plain (gather) route is then bit-identical to the
-    dense engine.
+    Options (each off by default, leaving the dense greedy path as it is):
+
+      * ``paged=True`` — fixed-size token pages addressed through block
+        tables (``repro_torch.serve.paging``): admission reserves pages
+        OOM-safely, decode writes and reads through the tables — on a CUDA
+        pool with the hand-written paged-attention kernel — and retirement
+        zeroes the slot's pages, returns them and compacts the pool.
+        ``max_len`` is rounded up to a page multiple so NB * page equals the
+        dense extent: the plain (gather) route is then bit-identical to the
+        dense engine.
+      * ``prefill_chunk=N`` (paged) — prompts longer than N prefill N tokens
+        per service tick into a batch-1 template, interleaved with pool
+        decode, so a long prompt no longer stalls the in-flight slots; the
+        finished prompt is scattered into its pages like any other insert.
+        ``chunk_all`` sends every prompt through the chunk step.
+      * ``sampling=True`` — prefill and decode return the f32 LOGITS rows
+        (moved to the host) instead of the device argmax; the service draws
+        tokens per request (``serve.sampling``: temperature / top-k,
+        per-request numpy stream; temperature 0 stays exact greedy).
+      * ``prefix_cache=True`` (paged) — retired prompts donate their full KV
+        pages to a radix tree (``serve.paging.radix``); a warm request binds
+        the matched pages into its block table read-only (refcounted; the
+        reservation charges only the unshared tail), copies the boundary
+        page on write when the hit ends mid-page, and resumes chunked
+        prefill at the hit.  Forces ``chunk_all`` (and ``prefill_chunk =
+        page`` when none is given): warm and cold prompts run the same chunk
+        steps on the same chunk grid, which keeps warm tokens identical to
+        unshared paging.
+      * ``speculative=True`` (paged, greedy) — each tick a per-slot n-gram
+        drafter (``serve.spec``) proposes up to ``draft_k`` tokens and ONE
+        lane-batched verify (the decode step at batch ``n_slots * (draft_k
+        + 1)``) scores every draft position; the longest draft prefix that
+        matches the model's own argmax is accepted.  Speculative writes land
+        on pinned scratch pages (``PagedKVManager.spec_begin``), so a
+        rejected draft leaves no trace; an accepted span commits by swapping
+        scratch pages into the block table.
 
     ``impl`` picks the paged attention route (``None``: the kernel on CUDA,
     the gather route on the CPU; ``"plain"``: the gather route everywhere).
     The engine runs on ``device`` (``cuda`` unless ``"cpu"`` is passed) and
-    raises if ``params`` lie elsewhere.  Chunked prefill, sampling, the
-    prefix cache and speculative decoding are options of the same engine
-    that slice 3b of the port brings; until then they are not parameters.
+    raises if ``params`` lie elsewhere.
     """
 
     def __init__(
@@ -183,6 +213,14 @@ class ContinuousLMEngine:
         paged: bool = False,
         page_size: Optional[int] = None,
         total_pages: Optional[int] = None,
+        prefill_chunk: Optional[int] = None,
+        sampling: bool = False,
+        prefix_cache: bool = False,
+        chunk_all: bool = False,
+        speculative: bool = False,
+        draft_k: int = 4,
+        spec_ngram_max: int = 3,
+        spec_ngram_min: int = 1,
         impl: Optional[str] = None,
         device: DeviceLike = None,
     ):
@@ -192,14 +230,51 @@ class ContinuousLMEngine:
         self.cfg = arch_cfg
         self.params = params
         self.impl = impl
+        self.sampling_enabled = bool(sampling)
         self.paged = bool(paged)
+        self.prefix_cache = bool(prefix_cache)
+        # every prompt runs the chunk step; prefix caching forces it (a warm
+        # resume must land on the grid the cold run used, or tokens drift)
+        self.chunk_all = bool(chunk_all) or self.prefix_cache
+        if self.prefix_cache and not self.paged:
+            raise ValueError("prefix_cache shares KV pages; pass paged=True")
+        self.speculative = bool(speculative)
+        self.spec_cfg = None
+        if self.speculative:
+            if not self.paged:
+                raise ValueError("speculative decoding verifies through scratch pages; pass paged=True")
+            if self.sampling_enabled:
+                raise ValueError(
+                    "speculative decoding is greedy-only: acceptance compares the "
+                    "draft against argmax outputs (sampling would need rejection "
+                    "sampling over the verify logits)"
+                )
+            self.spec_cfg = SpecConfig(draft_k=int(draft_k), ngram_max=int(spec_ngram_max),
+                                       ngram_min=int(spec_ngram_min))
         self.pager = None
         if self.paged:
+            # page 16 when none is named (the reference asks its TPU tuner;
+            # the port keeps the reference CLI's fallback until a Hopper rule)
             page = int(page_size or DEFAULT_PAGE)
             if page < 1:
                 raise ValueError(f"page_size must be >= 1, got {page}")
             max_len = next_multiple(max_len, page)
-            self.pager = PagedKVManager(arch_cfg, n_slots, max_len, page, total_pages=total_pages)
+            if self.prefix_cache and not prefill_chunk:
+                prefill_chunk = page  # hit grid == page grid: COW only on the cap
+            self.pager = PagedKVManager(
+                arch_cfg, n_slots, max_len, page, total_pages=total_pages,
+                prefix_cache=self.prefix_cache,
+                prefix_chunk=int(prefill_chunk) if self.prefix_cache else None,
+                spec_draft_k=self.spec_cfg.draft_k if self.speculative else 0,
+            )
+        self.prefill_chunk = int(prefill_chunk) if prefill_chunk else None
+        if self.chunk_all and self.prefill_chunk is None:
+            raise ValueError("chunk_all rides chunked prefill; pass prefill_chunk (paged)")
+        if self.prefill_chunk is not None:
+            if not self.paged:
+                raise ValueError("prefill_chunk rides the paged machinery; pass paged=True")
+            if self.prefill_chunk < 1:
+                raise ValueError(f"prefill_chunk must be >= 1, got {prefill_chunk}")
         self.pool = SlotPool(n_slots, max_len)
         max_prompt = int(max_prompt_len or max(max_len // 2, prompt_align))
         if max_prompt >= max_len:
@@ -211,6 +286,13 @@ class ContinuousLMEngine:
                 f"(max_prompt_len={max_prompt} rounded up to align={prompt_align}) "
                 f"exceeds max_len={max_len}; lower max_prompt_len or raise max_len"
             )
+        if self.prefill_chunk is not None:
+            tail = next_multiple(max_prompt, self.prefill_chunk)
+            if tail > max_len:
+                raise ValueError(
+                    f"chunked prefill of a max_prompt_len={max_prompt} prompt pads "
+                    f"to {tail} template rows > max_len={max_len}; shrink prefill_chunk"
+                )
         self.caches = (
             self.pager.init_caches(self.device) if self.paged
             else init_caches(arch_cfg, n_slots, max_len, self.device)
@@ -219,8 +301,22 @@ class ContinuousLMEngine:
         # past a prompt keep an earlier prompt's values, which the slot's
         # cache_len masks exactly as the reference masks its padding rows
         self._caches1 = init_caches(arch_cfg, 1, max_len, self.device)
+        # one step for the pool tick (B = n_slots) and the speculative verify
+        # (B = n_slots * (draft_k + 1)): make_verify_step is this decode step
         self._decode = make_decode_step(arch_cfg, return_hidden=True)
         self._prefill = make_prefill_at_step(arch_cfg)
+        # chunked prefill: ONE in-progress (slot index, batch-1 work tree) at
+        # a time — chunks of different prompts serialize, decode interleaves.
+        # The work tree is a template of its own: a whole-prompt insert in a
+        # later tick must not overwrite a prompt still streaming in.
+        self._chunk_live: Optional[int] = None
+        self._chunk_tree = None
+        if self.prefill_chunk is not None:
+            self._chunk_tree = init_caches(arch_cfg, 1, max_len, self.device)
+            self._chunk_step = make_chunked_prefill_step(arch_cfg)
+        # one-deep plan memo from can_admit to admit_slot (same tick, same
+        # head-of-line request — no allocation happens in between)
+        self._plan_stash: Tuple[Optional[int], Optional[PrefixPlan]] = (None, None)
 
     # -- admission-side shape policy ----------------------------------------
 
@@ -259,16 +355,24 @@ class ContinuousLMEngine:
 
     def can_admit(self, request) -> bool:
         """Beyond a free slot, a paged pool needs the request's worst-case
-        page reservation to fit now (deferred, not rejected, otherwise)."""
-        return not self.paged or self.pager.can_admit(request.prompt_len, request.max_new_tokens)
+        (unshared) page reservation to fit now (deferred, not rejected,
+        otherwise)."""
+        if not self.paged:
+            return True
+        if self.prefix_cache:
+            plan = self.pager.plan_prefix(request.tokens, request.prompt_len)
+            self._plan_stash = (id(request), plan)
+            return self.pager.can_admit(request.prompt_len, request.max_new_tokens, plan=plan)
+        return self.pager.can_admit(request.prompt_len, request.max_new_tokens)
 
     # -- warmup --------------------------------------------------------------
 
     @torch.no_grad()
     def warmup(self) -> Tuple[int, ...]:
-        """Run every prompt bucket's prefill and the pool decode step once
-        (this builds the CUDA kernels), so no admitted request pays a first
-        call.  The decode writes row 0 of every slot (dense) or of the
+        """Run every prompt bucket's prefill, the pool decode step and (with
+        the options) the chunk step and the verify step once (this builds
+        the CUDA kernels), so no admitted request pays a first call.  The
+        decode and verify write row 0 of every slot (dense) or of the
         sentinel page (paged): an insert overwrites the former, nothing
         reads the latter unmasked."""
         buckets = self.prompt_bucket_sizes()
@@ -281,22 +385,76 @@ class ContinuousLMEngine:
         if self.paged:
             bt = torch.zeros((n, self.pager.blocks_per_slot), dtype=torch.int32, device=self.device)
         self.step_logits(self.caches, zeros, zeros, bt, self.impl)
+        if self.speculative:
+            vb = n * (self.spec_cfg.draft_k + 1)
+            vzeros = torch.zeros((vb,), dtype=torch.int32, device=self.device)
+            vbt = torch.zeros((vb, self.pager.blocks_per_slot), dtype=torch.int32, device=self.device)
+            self.step_logits(self.caches, vzeros, vzeros, vbt, self.impl)
+        if self.prefill_chunk is not None:
+            toks = torch.zeros((1, self.prefill_chunk), dtype=torch.int32, device=self.device)
+            self._chunk_step(self.params, self._chunk_tree, toks, 0, 0)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return buckets
 
     # -- slot mechanics ------------------------------------------------------
 
-    def admit_slot(self, slot) -> None:
-        """Post-``pool.admit`` hook: charge the paged reservation."""
+    def needs_chunking(self, prompt_len: int) -> bool:
+        """True when this prompt prefills chunk by chunk."""
+        if self.prefill_chunk is None:
+            return False
+        return self.chunk_all or prompt_len > self.prefill_chunk
+
+    def admit_slot(self, slot) -> int:
+        """Post-``pool.admit`` hook: charge the paged reservation (binding
+        and pinning any matched prefix pages) and mark chunked prompts as
+        still prefilling.  Returns the prefix-cache hit in rows — chunked
+        prefill resumes there (0 cold or unshared)."""
+        req = slot.request
+        hit = 0
         if self.paged:
-            self.pager.admit(slot.index, slot.request.prompt_len, slot.request.max_new_tokens)
+            if self.prefix_cache:
+                key, plan = self._plan_stash
+                if key != id(req):
+                    plan = self.pager.plan_prefix(req.tokens, req.prompt_len)
+                self._plan_stash = (None, None)
+                hit = self.pager.admit(slot.index, req.prompt_len, req.max_new_tokens, plan=plan)
+            else:
+                self.pager.admit(slot.index, req.prompt_len, req.max_new_tokens)
+        if self.needs_chunking(req.prompt_len):
+            slot.prefill_pos = hit
+        if self.speculative:
+            slot.draft = SlotDraft(self.spec_cfg, np.asarray(req.tokens).tolist())
+        return hit
+
+    def _scatter_insert(self, slot, one) -> None:
+        if not self.paged:
+            insert_slot_state(self.caches, one, slot.index)
+            return
+        self.pager.ensure_rows(slot.index, slot.request.prompt_len)
+        # shared prefix blocks are masked to the sentinel: the insert never
+        # rewrites a read-only shared page
+        row = self.pager.scatter_row(slot.index) if self.prefix_cache else self.pager.table_row(slot.index)
+        insert_slot_state_paged(self.caches, one, row)
+        if self.prefix_cache:
+            # the pages now hold the final prompt KV: intern the full prompt
+            # pages for later warm requests (first writer wins)
+            self.pager.donate(slot.index, slot.request.tokens)
+
+    def _first_output(self, logits: Tensor, hidden: Tensor):
+        """(first output, hidden row): the token id (a host sync), or under
+        ``sampling`` the (V,) f32 logits row on the host."""
+        if self.sampling_enabled:
+            return logits[0].float().cpu().numpy(), hidden
+        return int(torch.argmax(logits[0])), hidden
 
     @torch.no_grad()
-    def insert(self, slot) -> Tuple[int, Tensor]:
+    def insert(self, slot):
         """Prefill an admitted request and copy its KV rows into the slot.
-        Returns (first token id, its hidden row (1, d_model) on the device):
-        the prefill emits the request's first token (the TTFT point)."""
+        Returns (first output, its hidden row (1, d_model) on the device):
+        the prefill emits the request's first token (the TTFT point); with
+        ``sampling`` the first output is the (V,) logits row the service
+        samples from instead of the token id."""
         req = slot.request
         n = req.prompt_len
         length = bucket_for(n, self._prompt_policy)
@@ -305,57 +463,199 @@ class ContinuousLMEngine:
         logits, hidden, one = self._prefill(
             self.params, self._caches1, torch.as_tensor(padded, device=self.device), n
         )
-        if self.paged:
-            self.pager.ensure_rows(slot.index, n)
-            insert_slot_state_paged(self.caches, one, self.pager.table_row(slot.index))
-        else:
-            insert_slot_state(self.caches, one, slot.index)
-        first = int(torch.argmax(logits[0]))  # a host sync
-        return first, hidden
+        self._scatter_insert(slot, one)
+        return self._first_output(logits, hidden)
+
+    @torch.no_grad()
+    def advance_prefill(self, slot):
+        """Run ONE chunk of the slot's incremental prefill.  Returns None
+        while the prompt is still streaming in; on the final chunk, scatters
+        the finished state into the slot's pages and returns the same
+        (first output, hidden row) as ``insert``.
+
+        Only one chunked prefill is live at a time (the batch-1 work tree);
+        other still-prefilling slots wait their turn while decode proceeds.
+        """
+        req = slot.request
+        n, c = req.prompt_len, self.prefill_chunk
+        if self._chunk_live is None:
+            if self.prefix_cache:
+                moves = self.pager.cow_moves(slot.index)
+                if moves is not None:
+                    # copy-on-write of the boundary page BEFORE the template
+                    # gather reads it: writes never land on shared pages
+                    apply_page_moves(self.caches, *moves)
+                if slot.prefill_pos > 0:
+                    # warm start: seed the work tree with the shared prefix's
+                    # KV rows so the chunks attend over them unrecomputed
+                    load_template_from_pages(self.caches, self._chunk_tree, self.pager.table_row(slot.index))
+            self._chunk_live = slot.index
+        if self._chunk_live != slot.index:
+            return None  # another prompt owns the work tree this tick
+        off = slot.prefill_pos
+        take = min(c, n - off)
+        padded = np.zeros((1, c), np.int32)
+        padded[0, :take] = np.asarray(req.tokens[off:off + take], np.int32)
+        logits, hidden, tree = self._chunk_step(
+            self.params, self._chunk_tree, torch.as_tensor(padded, device=self.device), off, take - 1
+        )
+        slot.prefill_pos = off + take
+        if slot.prefilling:
+            return None
+        self._scatter_insert(slot, tree)
+        self._chunk_live = None
+        return self._first_output(logits, hidden)
+
+    def prefilling_slot(self):
+        """The still-prefilling slot whose chunk advances this tick: the
+        owner of the live work tree, else the oldest waiting one."""
+        waiting = [s for s in self.pool.active() if s.prefilling]
+        if not waiting:
+            return None
+        for s in waiting:
+            if s.index == self._chunk_live:
+                return s
+        return waiting[0]
 
     def step_logits(self, caches, lens: Tensor, tokens: Tensor, block_tables: Optional[Tensor], impl=None):
-        """The model's decode step over the pool: (logits (N, V) f32, hidden
-        (N, d), caches written in place).  ``decode_step`` drives it; a
-        checking harness may run it on a copy of the caches with another
-        ``impl``."""
+        """The model's decode step over a batch of lanes: (logits (B, V)
+        f32, hidden (B, d), caches written in place).  ``decode_step`` runs
+        it over the pool (B = n_slots) and ``spec_verify`` over the lanes of
+        a verify (B = n_slots * (draft_k + 1)); a checking harness may run
+        it on a copy of the caches with another ``impl``."""
         return self._decode(self.params, caches, lens, tokens[:, None], block_tables=block_tables, impl=impl)
+
+    def _outputs(self, logits: Tensor) -> np.ndarray:
+        """Per-lane outputs on the host (a sync): token ids (B,) int32, or
+        under ``sampling`` the (B, V) f32 logits rows."""
+        if self.sampling_enabled:
+            return logits.float().cpu().numpy()
+        return torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
 
     @torch.no_grad()
     def decode_step(self) -> Tuple[np.ndarray, Tensor]:
-        """One batched decode over the whole pool.  Returns (next token per
-        slot (N,) int32 on the host, hidden rows (N, d_model) on the
-        device); free-slot lanes are garbage the caller masks by
-        ``pool.active_indices()``."""
+        """One batched decode over the whole pool.  Returns (next output per
+        slot on the host — (N,) token ids, or (N, V) logits under
+        ``sampling`` — and hidden rows (N, d_model) on the device); free and
+        still-prefilling lanes are garbage the caller masks by
+        ``pool.decoding_indices()``."""
         pool = self.pool
         lens = torch.as_tensor(pool.cache_lens(), device=self.device)
         toks = torch.as_tensor(pool.last_tokens(), device=self.device)
         bt = None
         if self.paged:
-            for i in pool.active_indices():
+            decoding = pool.decoding_indices()
+            for i in decoding:
                 # lazy page growth for the row this step writes (cannot fail:
                 # admission reserved the worst case)
                 self.pager.ensure_rows(i, pool[i].pos + 1)
-            bt = torch.as_tensor(self.pager.block_tables(), device=self.device)
+            tables = self.pager.block_tables()
+            if self.prefix_cache:
+                # still-prefilling lanes decode at position 0 and write their
+                # k / v at block_tables[slot, 0] row 0: with prefix pages
+                # bound at admission that would corrupt a shared page — mask
+                # every non-decoding lane's row to the sentinel
+                tables[np.setdiff1d(np.arange(pool.n_slots), decoding)] = 0
+            bt = torch.as_tensor(tables, device=self.device)
         logits, hidden, self.caches = self.step_logits(self.caches, lens, toks, bt, self.impl)
-        out = torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()  # host sync
-        return out, hidden
+        return self._outputs(logits), hidden
+
+    # -- speculative decoding -------------------------------------------------
+
+    @torch.no_grad()
+    def spec_verify(self, drafts):
+        """One lane-batched speculative verify over the whole pool.
+
+        ``drafts`` lists ``(slot_index, draft_tokens)`` for every decoding
+        slot this tick (``draft_tokens`` may be empty: that slot rides lane
+        0 only, which is exactly its plain decode step).  Lane ``(s, j)`` of
+        the fixed ``n_slots * (draft_k + 1)`` batch decodes slot ``s`` at
+        ``cache_len = pos + j`` with input token ``last_token`` (j = 0) or
+        ``draft[j - 1]``.  Drafted slots read and write through
+        scratch-mapped table rows (``PagedKVManager.spec_begin``), whose
+        boundary-page copies run first; unused lanes are masked like free
+        pool lanes (cache_len 0, sentinel rows).
+
+        Returns ``(out, hidden, tickets)``: ``(n_slots, draft_k + 1)`` token
+        ids on the host, ``(n_slots, draft_k + 1, d_model)`` hidden rows on
+        the device, and the per-slot scratch tickets the caller settles with
+        ``spec_commit`` (always — lane 0's write is real even when the whole
+        draft is rejected) or ``spec_rollback`` (error paths only)."""
+        width = self.spec_cfg.draft_k + 1
+        nb = self.pager.blocks_per_slot
+        n = self.pool.n_slots
+        lens = np.zeros((n * width,), np.int32)
+        toks = np.zeros((n * width,), np.int32)
+        tables = np.zeros((n * width, nb), np.int32)  # sentinel-masked lanes
+        tickets = {}
+        copies = []
+        for slot_index, draft in drafts:
+            s = self.pool[slot_index]
+            k_eff = len(draft)
+            if k_eff:
+                ticket, moves = self.pager.spec_begin(slot_index, s.pos, k_eff)
+                tickets[slot_index] = ticket
+                copies.extend(moves)
+                row = ticket.row
+            else:
+                # undrafted slot: plain decode through its real table row
+                self.pager.ensure_rows(slot_index, s.pos + 1)
+                row = self.pager.table_row(slot_index)
+            base = slot_index * width
+            for j in range(k_eff + 1):
+                lens[base + j] = s.pos + j
+                toks[base + j] = s.last_token if j == 0 else draft[j - 1]
+                tables[base + j] = row
+        try:
+            if copies:
+                src, dst = zip(*copies)
+                apply_page_moves(self.caches, src, dst)
+            dev = self.device
+            logits, hidden, self.caches = self.step_logits(
+                self.caches, torch.as_tensor(lens, device=dev), torch.as_tensor(toks, device=dev),
+                torch.as_tensor(tables, device=dev), self.impl,
+            )
+            out = self._outputs(logits)
+        except Exception:
+            # a failed device step must not leak the scratch inventory
+            for ticket in tickets.values():
+                self.pager.spec_rollback(ticket)
+            raise
+        return out.reshape(n, width), hidden.reshape(n, width, -1), tickets
+
+    def spec_commit(self, ticket, n_written: int):
+        """Promote ``n_written`` verified rows into the slot's block table
+        (a table swap — no device copy on the accept path)."""
+        self.pager.spec_commit(ticket, n_written)
+
+    def spec_rollback(self, ticket):
+        """Discard a speculative window, restoring the table state exactly."""
+        self.pager.spec_rollback(ticket)
 
     def abort_slot(self, index: int):
-        """Host-only cleanup for a slot whose device step failed: hand back
-        its pages and reservation (no device ops — the device may be wedged)."""
+        """Host-only cleanup for a slot whose device step failed: drop any
+        chunked prefill it owns and hand back its pages and reservation (no
+        device ops — the device may be wedged)."""
+        if self._chunk_live == index:
+            self._chunk_live = None
         if self.paged:
             self.pager.release(index)
 
     @torch.no_grad()
     def release(self, index: int):
-        """Retire a slot: zero its cache rows or pages (hygiene; decode masks
-        them), return its pages and reservation, and compact the page pool
-        (copy-on-retire: the highest in-use pages move into the freed low
-        holes)."""
+        """Retire a slot: zero its cache rows or exclusive pages (hygiene;
+        decode masks them), return its pages and reservation, and compact
+        the page pool (copy-on-retire: the highest in-use pages move into
+        the freed low holes; shared and pinned pages stay put)."""
+        if self._chunk_live == index:
+            self._chunk_live = None
         if not self.paged:
             reset_slot_state(self.caches, index)
             return
-        reset_slot_state_paged(self.caches, self.pager.table_row(index))
+        # under prefix caching, pages another owner still maps (shared
+        # prefixes, donated pages) are masked out of the zeroing
+        row = self.pager.reset_row(index) if self.prefix_cache else self.pager.table_row(index)
+        reset_slot_state_paged(self.caches, row)
         self.pager.release(index)
         src, dst = self.pager.plan_compaction()
         if src.size:

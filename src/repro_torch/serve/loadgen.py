@@ -13,7 +13,11 @@ Both report per-request p50/p99 latency and sustained throughput.
 
 The LM path runs a deterministic mixed-length workload (``LMLoadConfig``)
 through whole-request greedy generation and the continuous-batching
-service, dense and paged, and holds their tokens against each other.
+service, dense and paged (with chunked prefill), and holds their tokens
+against each other; ``compare_speculative`` holds speculative decoding
+against plain paged decoding, and ``compare_prefix_sharing`` the prefix
+radix cache against unshared paging on a shared-prefix fan-out workload
+(``SharedPrefixLoadConfig``).
 """
 
 from __future__ import annotations
@@ -279,12 +283,17 @@ def compare_paged_dense(
     n_slots: int = 8,
     max_len: Optional[int] = None,
     page_size: int = 16,
+    prefill_chunk: Optional[int] = None,
     device: DeviceLike = None,
 ) -> Dict[str, Dict[str, float]]:
     """Dense vs paged continuous batching on one workload, on ``device``
     (``cuda`` unless ``"cpu"`` is passed): identical greedy tokens per
     request, tok/s for both, and the paged pool's PEAK allocated cache bytes
-    against the dense pool's permanent ``n_slots * max_len`` rows."""
+    against the dense pool's permanent ``n_slots * max_len`` rows.  With
+    ``prefill_chunk`` a third, chunked paged run reports its own token
+    mismatches against the dense run (chunking changes the prefill's
+    product shapes, so it is argmax-stable rather than bitwise: reported,
+    the hard gate rides the unchunked run)."""
     from repro_torch.serve.engine import ContinuousLMEngine
     from repro_torch.serve.paging import dense_cache_bytes
     from repro_torch.serve.service import LMService
@@ -306,7 +315,7 @@ def compare_paged_dense(
     mismatches = sum(1 for a, b in zip(dense_outs, paged_outs) if not np.array_equal(a, b))
     dense_bytes = dense_cache_bytes(arch_cfg, n_slots, max_len)
     peak_bytes = paged_svc.engine.pager.peak_cache_bytes()
-    return {
+    out = {
         "dense": dict(dense, cache_bytes=float(dense_bytes)),
         "paged": dict(paged, **paged_svc.engine.pager.metrics()),
         "gate": {
@@ -316,6 +325,213 @@ def compare_paged_dense(
             "tok_per_s_ratio": paged["tok_per_s"] / max(dense["tok_per_s"], 1e-9),
         },
     }
+    if prefill_chunk:
+        chunked, chunked_outs, chunked_svc = run(paged=True, page_size=page_size, prefill_chunk=prefill_chunk)
+        out["paged_chunked"] = dict(
+            chunked,
+            token_mismatches=float(sum(1 for a, b in zip(dense_outs, chunked_outs) if not np.array_equal(a, b))),
+            ttft_p50_ms=chunked_svc.metrics()["ttft_p50_ms"],
+        )
+    return out
+
+
+def compare_speculative(
+    arch_cfg,
+    params,
+    load: LMLoadConfig,
+    *,
+    n_slots: int = 8,
+    max_len: Optional[int] = None,
+    page_size: int = 16,
+    draft_k: int = 4,
+    spec_ngram_max: int = 3,
+    spec_ngram_min: int = 1,
+    device: DeviceLike = None,
+) -> Dict[str, Dict[str, float]]:
+    """Plain paged vs self-drafting speculative decoding on one workload, on
+    ``device``.  Both runs use the same paged engine; the speculative run
+    adds the n-gram drafter and the lane-batched verify.  Greedy
+    verification means tokens must be IDENTICAL per request (the hard gate
+    on the CPU); the speed story is tokens per step — ``accepted_tokens``
+    (mean tokens per verify step) above 1, and tok/s against the plain
+    run.  Interleaved best-of-3 passes: wall clock is noisy at this scale."""
+    from repro_torch.serve.engine import ContinuousLMEngine
+    from repro_torch.serve.service import LMService
+
+    max_len = int(max_len or max(load.max_request_len + 8, 32))
+    max_len = -(-max_len // page_size) * page_size  # identical shapes both ways
+
+    def build(**engine_kw):
+        engine = ContinuousLMEngine(
+            arch_cfg, params, n_slots=n_slots, max_len=max_len, max_prompt_len=max(load.prompt_lens),
+            paged=True, page_size=page_size, device=device, **engine_kw,
+        )
+        return LMService(engine)
+
+    plain_svc = build()
+    spec_svc = build(speculative=True, draft_k=draft_k, spec_ngram_max=spec_ngram_max,
+                     spec_ngram_min=spec_ngram_min)
+    plain = spec = plain_outs = spec_outs = None
+    for _ in range(3):
+        p, p_outs = run_continuous(plain_svc, load)
+        if plain is None or p["tok_per_s"] > plain["tok_per_s"]:
+            plain, plain_outs = p, p_outs
+        q, q_outs = run_continuous(spec_svc, load)
+        if spec is None or q["tok_per_s"] > spec["tok_per_s"]:
+            spec, spec_outs = q, q_outs
+    mismatches = sum(1 for a, b in zip(plain_outs, spec_outs) if not np.array_equal(a, b))
+    sm = spec_svc.spec_stats
+    return {
+        "plain": plain,
+        "speculative": dict(spec, **sm.metrics()),
+        "gate": {
+            "token_mismatches": float(mismatches),
+            "spec_beats_plain": bool(spec["tok_per_s"] >= plain["tok_per_s"]),
+            "tok_per_s_ratio": spec["tok_per_s"] / max(plain["tok_per_s"], 1e-9),
+            "accepted_tokens_per_step": sm.accepted_per_step(),
+            # per slot-lane: > 1 means a slot on a verify tick emitted more
+            # than the single token plain decode would have
+            "tokens_per_lane": sm.tokens_emitted / max(sm.slot_lanes, 1),
+            "draft_hit_rate": sm.hit_rate(),
+            "acceptance_rate": sm.acceptance_rate(),
+        },
+    }
+
+
+@dataclasses.dataclass(frozen=True)
+class SharedPrefixLoadConfig:
+    """Shared-prefix LM workload (the RAG / few-shot / system-prompt shape):
+    ``n_prefixes`` distinct long prefixes, each fanned out to ``fan_out``
+    requests appending a short unique tail.  Two phases: one COLD request
+    per prefix first (its retirement donates the prefix pages to the radix
+    cache when sharing is on), then the WARM fan-out whose TTFT the
+    comparison reads.  The same numpy stream as the reference's.
+
+    The defaults stress sharing: decode long enough that slots overlap in
+    both runs, and a prefix long enough that the pages saved by sharing
+    outweigh what the cache retains.  prefix_len=92 with page 16 / chunk 8
+    also takes copy-on-write: a cold tail can extend the donated pages past
+    the common prefix, so a warm hit lands mid-page (88 rows) and copies the
+    boundary page."""
+
+    n_prefixes: int = 2
+    fan_out: int = 7
+    prefix_len: int = 92
+    tail_lens: Tuple[int, ...] = (3, 5, 9)
+    new_tokens: Tuple[int, ...] = (32, 48)
+    seed: int = 0
+
+    def request_stream(self, vocab_size: int) -> Tuple[List[Tuple[np.ndarray, int]], List[Tuple[np.ndarray, int]]]:
+        """Deterministic (cold, warm) request lists of ``(tokens, max_new)``."""
+        rng = np.random.default_rng(self.seed)
+        cold, warm = [], []
+        for p in range(self.n_prefixes):
+            prefix = rng.integers(0, vocab_size, size=self.prefix_len).astype(np.int32)
+            for f in range(self.fan_out):
+                i = p * self.fan_out + f
+                t = int(self.tail_lens[i % len(self.tail_lens)])
+                m = int(self.new_tokens[i % len(self.new_tokens)])
+                tail = rng.integers(0, vocab_size, size=t).astype(np.int32)
+                (cold if f == 0 else warm).append((np.concatenate([prefix, tail]), m))
+        return cold, warm
+
+    @property
+    def prompt_lens(self) -> Tuple[int, ...]:
+        """Distinct total prompt lengths in the two-phase stream."""
+        return tuple(sorted({self.prefix_len + t for t in self.tail_lens}))
+
+    @property
+    def max_request_len(self) -> int:
+        """Worst-case rows one request needs (prefix + tail + new tokens)."""
+        return self.prefix_len + max(self.tail_lens) + max(self.new_tokens)
+
+
+def run_prefix_workload(service, load: SharedPrefixLoadConfig, timeout_s: float = 600.0):
+    """Cold phase, drained (so retiring prompts can donate pages to the
+    radix cache), then the warm fan-out as a closed-loop burst.  Returns
+    ``(summary, outs)`` with ``outs`` cold first, then warm; the summary's
+    ``warm_ttft_*`` percentiles cover the warm phase only — the latency the
+    prefix cache is meant to cut — and ``cold_ttft_*`` the cold phase."""
+    cold, warm = load.request_stream(service.engine.cfg.vocab_size)
+    service.warmup()
+    t_run = time.perf_counter()
+    cold_futs = [service.submit(t, m, block=True, timeout=timeout_s) for t, m in cold]
+    service.drain()
+    warm_futs = [service.submit(t, m, block=True, timeout=timeout_s) for t, m in warm]
+    service.drain()
+    futs = cold_futs + warm_futs
+    outs = [f.result(timeout=timeout_s) for f in futs]
+    wall = time.perf_counter() - t_run
+    summary = _lm_summary([f.latency_s for f in futs], sum(len(o) for o in outs), wall)
+    for phase, group in (("cold", cold_futs), ("warm", warm_futs)):
+        ttfts = [f.ttft_s for f in group]
+        if ttfts:
+            summary[f"{phase}_ttft_p50_ms"] = float(np.percentile(ttfts, 50) * 1e3)
+            summary[f"{phase}_ttft_p99_ms"] = float(np.percentile(ttfts, 99) * 1e3)
+    return summary, outs
+
+
+def compare_prefix_sharing(
+    arch_cfg,
+    params,
+    load: SharedPrefixLoadConfig,
+    *,
+    n_slots: int = 8,
+    max_len: Optional[int] = None,
+    page_size: int = 16,
+    prefill_chunk: int = 8,
+    total_pages: Optional[int] = None,
+    probe_fn=None,
+    record_probe_rows: bool = False,
+    device: DeviceLike = None,
+) -> Dict[str, Dict[str, float]]:
+    """Prefix sharing ON vs OFF over the same paged chunk-all engine on the
+    same two-phase workload, on ``device``.  The OFF run uses
+    ``chunk_all=True`` too, so both runs execute the same chunk and decode
+    steps on the same values — greedy tokens must be IDENTICAL per request
+    (the hard gate, on either route).  The speed story: warm-phase TTFT and
+    the pool's peak allocated pages both below the unshared run's."""
+    from repro_torch.serve.engine import ContinuousLMEngine
+    from repro_torch.serve.service import LMService
+
+    max_len = int(max_len or max(load.max_request_len + 8, 32))
+    max_len = -(-max_len // page_size) * page_size  # identical shapes both ways
+
+    def run(prefix_cache: bool):
+        engine = ContinuousLMEngine(
+            arch_cfg, params, n_slots=n_slots, max_len=max_len, max_prompt_len=max(load.prompt_lens),
+            paged=True, page_size=page_size, prefill_chunk=prefill_chunk, chunk_all=True,
+            prefix_cache=prefix_cache, total_pages=total_pages, device=device,
+        )
+        probe = probe_fn() if (probe_fn is not None and prefix_cache) else None
+        service = LMService(engine, probe=probe, record_probe_rows=record_probe_rows and prefix_cache)
+        summary, outs = run_prefix_workload(service, load)
+        return summary, outs, service
+
+    base, base_outs, base_svc = run(prefix_cache=False)
+    shared, shared_outs, shared_svc = run(prefix_cache=True)
+    mismatches = sum(1 for a, b in zip(base_outs, shared_outs) if not np.array_equal(a, b))
+    base_peak = base_svc.engine.pager.alloc.peak_pages
+    shared_peak = shared_svc.engine.pager.alloc.peak_pages
+    pm = shared_svc.engine.pager.metrics()
+    out = {
+        "unshared": dict(base, peak_pages=float(base_peak)),
+        "shared": dict(shared, peak_pages=float(shared_peak), **pm),
+        "gate": {
+            "token_mismatches": float(mismatches),
+            "warm_ttft_lt_unshared": bool(shared["warm_ttft_p50_ms"] < base["warm_ttft_p50_ms"]),
+            "warm_ttft_ratio": shared["warm_ttft_p50_ms"] / max(base["warm_ttft_p50_ms"], 1e-9),
+            "peak_pages_lt_unshared": bool(shared_peak < base_peak),
+            "peak_pages_ratio": shared_peak / max(base_peak, 1),
+            "prefix_hit_rate": pm["paged_prefix_hit_rate"],
+            "prefix_cow_total": pm["paged_prefix_cow_total"],
+        },
+    }
+    if record_probe_rows:
+        err = lm_probe_oracle_err(shared_svc)
+        if err is not None:
+            out["gate"]["probe_oracle_rel_err"] = err
+    return out
 
 
 def lm_probe_oracle_err(service) -> Optional[float]:

@@ -12,7 +12,8 @@ tracing, registry, alerts) belongs to a later slice, so request latency
 comes from ``ServeFuture.latency_s``.
 
 ``LMService`` ticks a ``ContinuousLMEngine`` at decode-step granularity:
-admit queued prompts into freed slots, one batched decode over the pool,
+admit queued prompts into freed slots, advance at most one chunk of a
+chunked prefill, one batched decode (or speculative verify) over the pool,
 retire finished requests — feeding the in-flight hidden rows to the probe.
 """
 
@@ -33,7 +34,9 @@ from repro_torch.serve.batcher import MicroBatcher, Request, ServeFuture
 from repro_torch.serve.buckets import SUBLANE, BucketPolicy, bucket_sizes
 from repro_torch.serve.engine import ContinuousLMEngine, ServeEngine
 from repro_torch.serve.probes import DecorrProbe
+from repro_torch.serve.sampling import SamplingParams, sample_token
 from repro_torch.serve.slots import LMRequest
+from repro_torch.serve.spec import SpecStats, accept_length, draft_budget
 
 HEARTBEAT_NAME = "serve.dispatch"
 HEARTBEAT_LM = "serve.lm_decode"
@@ -226,10 +229,10 @@ class LMService:
     beat per decode tick, idle included), ``DecorrProbe`` streams the
     in-flight slots' hidden rows, and ``metrics()`` exports the flat gauge
     dict — plus slot occupancy, time-to-first-token percentiles and, paged,
-    the pool's page gauges.  ``step`` / ``drain`` are the synchronous entry
-    points (tests, the closed-loop load); ``start`` / ``stop`` run the same
-    tick on a background thread.  The reference's telemetry bundle and the
-    speculative tick belong to later slices.
+    the pool's page gauges (and the speculation counters).  ``step`` /
+    ``drain`` are the synchronous entry points (tests, the closed-loop
+    load); ``start`` / ``stop`` run the same tick on a background thread.
+    The reference's telemetry bundle belongs to a later slice.
     """
 
     def __init__(
@@ -243,6 +246,8 @@ class LMService:
         record_probe_rows: bool = False,
     ):
         self.engine = engine
+        # speculation counters (zero unless the engine is speculative)
+        self.spec_stats = SpecStats()
         n_slots = engine.pool.n_slots
         self.batcher = MicroBatcher(BucketPolicy(max_batch=n_slots, max_wait_ms=0.0, max_queue=max_queue))
         self.probe = probe
@@ -274,18 +279,32 @@ class LMService:
         max_new_tokens: int,
         *,
         eos_id: Optional[int] = None,
+        temperature: float = 0.0,
+        top_k: Optional[int] = None,
+        seed: Optional[int] = None,
         block: bool = False,
         timeout: Optional[float] = None,
     ) -> ServeFuture:
-        """Queue one greedy generation request.  Raises ``ValueError`` at
-        once for unservable requests (empty prompt, prompt beyond the largest
-        bucket, cache or page-pool overflow) — reject, never hang — and
-        ``Backpressure`` when the queue is at ``max_queue``."""
+        """Queue one generation request.  Raises ``ValueError`` at once for
+        unservable requests (empty prompt, prompt beyond the largest bucket,
+        cache or page-pool overflow, sampling on a greedy-only engine) —
+        reject, never hang — and ``Backpressure`` when the queue is at
+        ``max_queue``.  ``temperature`` / ``top_k`` / ``seed`` select
+        per-request sampled decoding (temperature 0 = greedy, identical to
+        the argmax path)."""
         tokens = np.asarray(tokens, np.int32)
         if tokens.ndim != 1:
             raise ValueError(f"prompt must be a 1-D token id array, got shape {tokens.shape}")
         self.engine.validate_request(int(tokens.shape[0]), int(max_new_tokens))
-        req = LMRequest(tokens=tokens, max_new_tokens=int(max_new_tokens), eos_id=eos_id)
+        sampling = None
+        if temperature or top_k or seed is not None:
+            sampling = SamplingParams(temperature=float(temperature), top_k=top_k, seed=seed).validate()
+            if not sampling.greedy and not self.engine.sampling_enabled:
+                raise ValueError(
+                    "temperature > 0 needs an engine built with sampling=True "
+                    "(the greedy engine keeps its argmax on the device)"
+                )
+        req = LMRequest(tokens=tokens, max_new_tokens=int(max_new_tokens), eos_id=eos_id, sampling=sampling)
         return self.batcher.submit(req, block=block, timeout=timeout)
 
     # -- decode-step tick ---------------------------------------------------
@@ -308,20 +327,86 @@ class LMService:
         self._errors += 1
         future.set_exception(exc)
 
-    def _emit_first(self, slot, token: int, hidden_row):
-        """After a prefill: TTFT, probe feed, first-token emit, possible
-        immediate retirement."""
+    def _pick_token(self, slot, out) -> int:
+        """``out``: a token id (greedy engine) or a (V,) logits row (sampling
+        engine) — drawn with the request's own params and random stream."""
+        if not self.engine.sampling_enabled:
+            return int(out)
+        return sample_token(out, slot.request.sampling, slot.rng)
+
+    def _emit_first(self, slot, out, hidden_row):
+        """Common tail of whole-prompt insert and final-chunk completion:
+        TTFT, probe feed, first-token emit, possible immediate retirement."""
         slot.future.t_first = time.perf_counter()
         self._ttft.append(slot.future.ttft_s)
         self._feed_probe(hidden_row.float())
-        if slot.emit(token):
+        if slot.emit(self._pick_token(slot, out)):
             self._finish(self.engine.pool.retire(slot.index))
+
+    def _spec_tick(self, active: List[int]) -> bool:
+        """One speculative decode tick over the decoding slots.
+
+        Drafts per slot (host-side n-gram lookup), then — when at least one
+        slot drafted — ONE lane-batched verify for the whole pool (undrafted
+        slots ride their plain lane 0), accepts the longest matching prefix
+        per slot and emits the accepted span plus the model's bonus token.
+        Returns False when no slot drafted: the caller runs the plain decode
+        step (batch ``n_slots`` instead of ``n_slots * (k + 1)``)."""
+        pool = self.engine.pool
+        stats = self.spec_stats
+        drafts = []
+        for i in active:
+            s = pool[i]
+            budget = draft_budget(self.engine.spec_cfg.draft_k, s.request.max_new_tokens, len(s.emitted))
+            d = s.draft.propose(budget) if budget > 0 else []
+            stats.drafts += 1
+            stats.draft_hits += bool(d)
+            drafts.append((i, d))
+        if not any(d for _, d in drafts):
+            stats.plain_steps += 1
+            return False
+        out, hidden, tickets = self.engine.spec_verify(drafts)
+        stats.verify_steps += 1
+        stats.slot_lanes += len(active)
+        pool.observe_step()
+        for i, d in drafts:
+            s = pool[i]
+            k_eff = len(d)
+            lane_out = out[i]
+            a = accept_length(d, lane_out[: k_eff + 1]) if k_eff else 0
+            ticket = tickets.get(i)
+            if ticket is not None:
+                # commit ALWAYS: lane 0's write at pos is the one plain
+                # decode would have made, even when the whole draft missed
+                self.engine.spec_commit(ticket, a + 1)
+            if k_eff:
+                s.draft.observe_accept(a)
+                stats.tokens_proposed += k_eff
+                stats.tokens_accepted += a
+                stats.rejects += a < k_eff
+            n_emitted = 0
+            done = False
+            for j in range(a + 1):
+                done = s.emit(self._pick_token(s, lane_out[j]))
+                n_emitted += 1
+                if done:
+                    break
+            stats.tokens_emitted += n_emitted
+            stats.per_slot[i] = stats.per_slot.get(i, 0) + n_emitted
+            # one hidden row per emitted token — the rows, in the per-slot
+            # order, that sequential decode would have fed the probe
+            self._feed_probe(hidden[i, :n_emitted].float())
+            if done:
+                self._finish(pool.retire(i))
+        return True
 
     def step(self, timeout: float = 0.0) -> Optional[int]:
         """One scheduler tick: admit into freed slots (deferring requests
-        whose page reservation does not fit yet), decode the pool once,
-        retire finished requests.  Returns in-flight work after the tick, or
-        None once ``shutdown`` has been signalled and everything drained."""
+        whose page reservation does not fit yet), advance at most one chunk
+        of a chunked prefill, decode the pool once (or run one speculative
+        verify), retire finished requests.  Returns in-flight work after the
+        tick, or None once ``shutdown`` has been signalled and everything
+        drained."""
         pool = self.engine.pool
         want = max(pool.free_slots() - len(self._pending), 0)
         reqs = self.batcher.next_requests(want, timeout=timeout)
@@ -333,16 +418,37 @@ class LMService:
             r = self._pending.pop(0)
             slot = pool.admit(r.x, r.future)
             self.engine.admit_slot(slot)
+            if slot.prefilling:
+                continue  # chunked: the first token comes when the prompt is in
             try:
-                token, hidden_row = self.engine.insert(slot)
+                out, hidden_row = self.engine.insert(slot)
             except Exception as e:  # device failure path
                 self.engine.abort_slot(slot.index)
                 pool.retire(slot.index)
                 self._fail(r.future, e)
                 continue
-            self._emit_first(slot, token, hidden_row)
-        active = pool.active_indices()
-        if active:
+            self._emit_first(slot, out, hidden_row)
+        chunk_slot = self.engine.prefilling_slot() if self.engine.prefill_chunk else None
+        if chunk_slot is not None:
+            try:
+                res = self.engine.advance_prefill(chunk_slot)
+            except Exception as e:  # device failure path
+                self.engine.abort_slot(chunk_slot.index)
+                self._fail(pool.retire(chunk_slot.index).future, e)
+            else:
+                if res is not None:
+                    self._emit_first(chunk_slot, *res)
+        active = pool.decoding_indices()
+        spec_ran = False
+        if active and self.engine.speculative:
+            try:
+                spec_ran = self._spec_tick(active)
+            except Exception as e:  # device failure path
+                for i in pool.active_indices():
+                    self.engine.abort_slot(i)
+                    self._fail(pool.retire(i).future, e)
+                spec_ran = True  # the slots failed; no plain decode this tick
+        if active and not spec_ran:
             try:
                 next_tok, hidden = self.engine.decode_step()
             except Exception as e:  # device failure path
@@ -355,7 +461,7 @@ class LMService:
                 pool.observe_step()
                 self._feed_probe(slot_probe_rows(hidden, active))
                 for i in active:
-                    if pool[i].emit(next_tok[i]):
+                    if pool[i].emit(self._pick_token(pool[i], next_tok[i])):
                         self._finish(pool.retire(i))
         self.heartbeat.beat(HEARTBEAT_LM)
         if shutting_down and not pool.active() and not self._pending:
@@ -420,4 +526,5 @@ class LMService:
         paged = None
         if self.engine.paged:
             paged = dict(self.engine.pager.metrics(), admission_deferred=float(len(self._pending)))
-        return collect_metrics(own, self.engine.pool, paged, self.stats, self.heartbeat, self.probe)
+        spec = self.spec_stats.metrics() if self.engine.speculative else None
+        return collect_metrics(own, self.engine.pool, paged, spec, self.stats, self.heartbeat, self.probe)

@@ -6,8 +6,8 @@ batched, and a slot whose request retired (EOS / token budget) is handed
 back and refilled from the queue on the very next step.  This module holds
 the slot lifecycle (free -> active -> retired -> free), per-slot decode
 positions (``cache_lens``), last-emitted tokens (``last_tokens``) and
-occupancy accounting.  Sampling state and chunked-prefill progress belong to
-a later slice (greedy, whole-prompt prefill here).
+occupancy accounting, plus each slot's sampling stream, chunked-prefill
+progress and speculative drafter.
 """
 
 from __future__ import annotations
@@ -17,14 +17,23 @@ from typing import List, Optional
 
 import numpy as np
 
+from repro_torch.serve.sampling import SamplingParams, make_rng
+
 
 @dataclasses.dataclass
 class LMRequest:
-    """One queued greedy generation request (the batcher payload)."""
+    """One queued generation request (the batcher payload).
+
+    ``tokens``: 1-D int prompt; ``max_new_tokens`` >= 1 caps generation;
+    ``eos_id`` (optional) retires the request early when emitted;
+    ``sampling`` (optional) carries the per-request temperature / top-k /
+    seed — None means greedy through the argmax path.
+    """
 
     tokens: np.ndarray
     max_new_tokens: int
     eos_id: Optional[int] = None
+    sampling: Optional[SamplingParams] = None
 
     @property
     def prompt_len(self) -> int:
@@ -41,9 +50,11 @@ class LMRequest:
 class ActiveSlot:
     """Bookkeeping for one in-flight request bound to a pool slot."""
 
-    __slots__ = ("request", "future", "index", "pos", "last_token", "emitted")
+    __slots__ = (
+        "request", "future", "index", "pos", "last_token", "emitted", "rng", "prefill_pos", "draft",
+    )
 
-    def __init__(self, request: LMRequest, future, index: int):
+    def __init__(self, request: LMRequest, future, index: int, seq: int = 0):
         self.request = request
         self.future = future
         self.index = index
@@ -53,12 +64,28 @@ class ActiveSlot:
         self.pos = request.prompt_len - 1
         self.last_token: int = 0
         self.emitted: List[int] = []
+        # per-request random stream (None for greedy); the pool's admission
+        # counter seeds requests that did not pin their own seed
+        self.rng = make_rng(request.sampling, fallback_seed=seq)
+        # chunked prefill progress: prompt tokens already written to the
+        # cache.  >= prompt_len (or no chunking) means the slot is decoding.
+        self.prefill_pos: int = request.prompt_len
+        # speculative drafter (serve.spec.SlotDraft) when the engine runs
+        # with speculation
+        self.draft = None
+
+    @property
+    def prefilling(self) -> bool:
+        """True while the prompt is still prefilling (chunked path)."""
+        return self.prefill_pos < self.request.prompt_len
 
     def emit(self, token: int) -> bool:
         """Record one generated token; True when the request is finished."""
         self.emitted.append(int(token))
         self.last_token = int(token)
         self.pos += 1
+        if self.draft is not None:
+            self.draft.push(int(token))
         if self.request.eos_id is not None and int(token) == int(self.request.eos_id):
             return True
         return len(self.emitted) >= self.request.max_new_tokens
@@ -92,6 +119,11 @@ class SlotPool:
         """Indices of the active slots, ascending."""
         return [i for i, s in enumerate(self._slots) if s is not None]
 
+    def decoding_indices(self) -> List[int]:
+        """Active slots actually decoding this step (chunked prefill keeps a
+        slot occupied but out of the batched decode until its prompt is in)."""
+        return [i for i, s in enumerate(self._slots) if s is not None and not s.prefilling]
+
     def __getitem__(self, i: int) -> Optional[ActiveSlot]:
         return self._slots[i]
 
@@ -102,7 +134,7 @@ class SlotPool:
         need = request.rows_needed
         if need > self.max_len:
             raise ValueError(f"request needs {need} cache rows > pool max_len={self.max_len}")
-        slot = ActiveSlot(request, future, self._free.pop())
+        slot = ActiveSlot(request, future, self._free.pop(), seq=self.admitted_total)
         self._slots[slot.index] = slot
         self.admitted_total += 1
         return slot
@@ -117,19 +149,22 @@ class SlotPool:
         return slot
 
     def cache_lens(self) -> np.ndarray:
-        """(N,) int32 per-slot decode positions (0 for free slots: their lane
-        still computes, masked to one row; the output is discarded and, in
-        paged mode, the write lands on the sentinel page)."""
-        return np.asarray([0 if s is None else s.pos for s in self._slots], np.int32)
+        """(N,) int32 per-slot decode positions (0 for free AND still
+        prefilling slots: their lane still computes, masked to one row; the
+        output is discarded and, in paged mode, the write lands on the
+        sentinel page)."""
+        return np.asarray([0 if s is None or s.prefilling else s.pos for s in self._slots], np.int32)
 
     def last_tokens(self) -> np.ndarray:
         """(N,) int32 per-slot last emitted token (decode-step input)."""
         return np.asarray([0 if s is None else s.last_token for s in self._slots], np.int32)
 
     def observe_step(self):
-        """Count one decode step (before that step's retirements)."""
+        """Count one decode step (before that step's retirements): the lanes
+        that decoded a live request (slots still chunk-prefilling occupy a
+        lane but do not decode)."""
         self.steps += 1
-        self.active_slot_steps += len(self.active_indices())
+        self.active_slot_steps += len(self.decoding_indices())
 
     def occupancy(self) -> float:
         """Mean fraction of slots doing useful work per decode step."""

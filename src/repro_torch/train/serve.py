@@ -54,6 +54,26 @@ def make_decode_step(cfg: ArchConfig, return_hidden: bool = False):
     return decode
 
 
+def make_verify_step(cfg: ArchConfig, return_hidden: bool = False):
+    """Multi-token speculative verify — the decode step at a lane-batched
+    shape.
+
+    The verify scores a slot's ``k`` drafted tokens (plus the bonus
+    position) by laying the ``k + 1`` positions out on the BATCH axis: lane
+    ``j`` carries ``cache_len = pos + j``, input token ``last_token``
+    (j = 0) or ``draft[j - 1]``, and the slot's (scratch-remapped) table
+    row.  Every lane is then exactly a one-token paged decode, which is what
+    keeps greedy speculative outputs equal to sequential decode.  The
+    write-before-read inside ``_paged_decode`` makes lane ``j`` see the rows
+    lanes ``< j`` just wrote (``pos .. pos + j - 1``, inside its
+    ``cache_len`` window on the shared table row).
+
+    The returned callable IS ``make_decode_step``'s: one contract, two
+    batch shapes (``n_slots`` for the pool tick, ``n_slots * (k + 1)`` for
+    the verify)."""
+    return make_decode_step(cfg, return_hidden=return_hidden)
+
+
 def make_prefill_at_step(cfg: ArchConfig):
     """Prefill a right-padded prompt and read the outputs at the TRUE last
     prompt token (``true_len - 1``), not the padded end.
@@ -70,6 +90,30 @@ def make_prefill_at_step(cfg: ArchConfig):
         return logits_from_hidden(params, cfg, hidden), hidden, out.caches
 
     return prefill_at
+
+
+def make_chunked_prefill_step(cfg: ArchConfig):
+    """One chunk of an incremental prefill at batch 1: write the chunk's KV
+    at rows [offset, offset + C), attend causally across the prefix already
+    written AND within the chunk, and read logits / hidden at the chunk's
+    true last token ``last`` (chunk-local; only meaningful on the final
+    chunk — earlier chunks run for their cache writes).  Only that one row
+    goes through the LM head.
+
+    Chunks are a fixed C wide; only the final chunk may be right-padded
+    (its pad rows write KV beyond the prompt, masked by ``cache_len`` during
+    decode and overwritten as the slot advances).  Chunked prefill is
+    argmax-stable against the whole-prompt prefill, not bitwise: the chunk
+    boundary changes the shapes of the prefill's products.  Returns (logits
+    (1, V), hidden (1, d), caches)."""
+
+    def prefill_chunk(params, caches, tokens, offset: int, last: int, impl=None):
+        out = forward(params, cfg, tokens, caches=caches, cache_len=int(offset), impl=impl, head=False,
+                      chunked_prefill=True)
+        hidden = out.hidden[:, int(last)]
+        return logits_from_hidden(params, cfg, hidden), hidden, out.caches
+
+    return prefill_chunk
 
 
 # ---------------------------------------------------------------------------
@@ -134,6 +178,23 @@ def reset_slot_state_paged(pool, bt_row):
         for key in ("k_pages", "v_pages"):
             leafs[key][:, idx] = 0
     return pool
+
+
+def load_template_from_pages(pool, one, bt_row):
+    """Inverse of ``insert_slot_state_paged`` for one slot: gather physical
+    pages ``bt_row`` of the paged pool into the batch-1 DENSE template
+    ``one`` (template rows [j * page, (j + 1) * page) read page
+    ``bt_row[j]``), in place.  A warm prefix-cache request seeds its
+    chunked-prefill template this way, so the chunks attend over the shared
+    prefix's exact KV rows without recomputing them.  Sentinel entries copy
+    page 0's rows, which ``cache_len`` masks."""
+    for name, leafs in pool.items():
+        idx = _index(bt_row, leafs["k_pages"].device)
+        for key, dense in (("k_pages", "k"), ("v_pages", "v")):
+            rows = leafs[key][:, idx]  # (repeats, NB, page, KV, hd)
+            tpl = one[name][dense]
+            tpl[:, 0] = rows.reshape(rows.shape[0], -1, *rows.shape[3:]).to(tpl.dtype)
+    return one
 
 
 def apply_page_moves(pool, src, dst):

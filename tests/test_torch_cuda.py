@@ -419,3 +419,76 @@ def test_paged_engine_kernel_route_matches_plain_route(dev, page):
         assert launches == (cfg.n_layers * eng.pool.steps if impl is None else 0)
     for a, b in zip(outs[None], outs["plain"]):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_at_the_verify_shape_matches_plain(dev, dtype):
+    """The speculative verify's shape: 8 slots x 5 lanes = 40, the lanes of a
+    slot on one table row at lengths len .. len + 4 (gemma2-2b heads, page
+    16, softcap 50, window 4096)."""
+    from repro_torch.kernels.paged_attention import kernel as K
+    from repro_torch.kernels.paged_attention.ops import paged_decode_plain
+
+    base = [1, 5, 17, 24, 33, 44, 16, 40]
+    q, kp, vp, table, _ = _paged_case(dev, 8, 8, 4, 256, 16, [n + 4 for n in base], dtype, seed=3)
+    q = torch.randn(40, 8, 256, generator=torch.Generator().manual_seed(4)).to(dev)
+    table = table.repeat_interleave(5, dim=0).contiguous()
+    lens = torch.tensor([n + j for n in base for j in range(5)], dtype=torch.int32, device=dev)
+    kw = dict(scale=1.0 / 16.0, softcap=50.0, window=4096)
+    before = K.paged_decode_attention.launches
+    got = K.paged_decode_attention(q, kp, vp, table, lens, **kw)
+    want = paged_decode_plain(q, kp, vp, table, lens, **kw)
+    torch.cuda.synchronize()
+    assert K.paged_decode_attention.launches == before + 1
+    torch.testing.assert_close(got, want, **TOL)
+
+
+def test_warm_prefix_tokens_equal_unshared_on_the_card(dev):
+    """Reduced gemma2 on the kernel route: warm requests resuming over
+    shared pages (one through a copy-on-write page) emit the unshared
+    chunk-all engine's tokens bit for bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.serve.engine import ContinuousLMEngine
+    from repro_torch.serve.service import LMService
+
+    cfg = get_config("gemma2-2b").reduced()
+    params = init_params(cfg, seed=0, device=dev)
+    rng = np.random.default_rng(0)
+    prefix = rng.integers(0, cfg.vocab_size, 21).astype(np.int32)
+    spec = [(np.concatenate([prefix, rng.integers(0, cfg.vocab_size, t).astype(np.int32)]), m)
+            for t, m in [(3, 4), (2, 6), (5, 3), (4, 5)]]
+    outs = {}
+    for shared in (False, True):
+        eng = ContinuousLMEngine(cfg, params, n_slots=4, max_len=48, max_prompt_len=26, paged=True, page_size=8,
+                                 prefill_chunk=4, chunk_all=True, prefix_cache=shared, device=dev)
+        svc = LMService(eng).warmup()
+        futs = [svc.submit(*spec[0])]
+        svc.drain()
+        futs += [svc.submit(t, m) for t, m in spec[1:]]
+        svc.drain()
+        outs[shared] = [f.result(timeout=60) for f in futs]
+        if shared:
+            m = svc.metrics()
+            assert m["paged_prefix_hits_total"] == 3 and m["paged_prefix_cow_total"] >= 1
+    for a, b in zip(outs[False], outs[True]):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_chunked_attention_at_full_width_matches_full_attention(dev):
+    """One gemma2-2b attention layer (8 query / 4 kv heads of 256, softcap
+    50) on a 10240-token prompt: the online softmax over 2048-row chunk
+    pairs against the materialized (S, S) scores, local and global."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention
+
+    cfg = get_config("gemma2-2b")
+    gen = torch.Generator().manual_seed(5)
+    q, k, v = (torch.randn(1, 10240, n, 256, generator=gen).to(dev) * g for n, g in ((8, 3.0), (4, 3.0), (4, 1.0)))
+    for spec in cfg.pattern:
+        got = attention._chunked_attention(q, k, v, cfg, spec, cfg.attn_chunk_size)
+        want = attention._full_attention(q, k, v, cfg, spec)
+        err = float((got - want).abs().max())
+        assert err <= 1e-4 * max(1.0, float(want.abs().max())), (spec.attn_type, err)
+        del got, want
+        torch.cuda.empty_cache()

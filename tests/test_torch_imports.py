@@ -1,5 +1,5 @@
-"""Import hygiene: every ``repro_torch`` module imports neither JAX nor
-anything of the reference package ``repro``."""
+"""Import hygiene: every ``repro_torch`` module, and ``chip_smoke.py``,
+imports neither JAX nor anything of the reference package ``repro``."""
 
 import os
 import subprocess
@@ -18,8 +18,24 @@ names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(repro_torch.__p
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.") or m == "repro" or m.startswith("repro."))
-print(len(names), bad)
+print(len(names), bad, " ".join(names))
 assert not bad, bad
+"""
+
+# the numpy-only serving modules the port keeps its own copies of
+COPIES = ("repro_torch.serve.sampling", "repro_torch.serve.spec", "repro_torch.serve.paging.radix",
+          "repro_torch.serve.paging.allocator", "repro_torch.serve.slots")
+
+SMOKE = r"""
+import importlib.util, sys
+spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1])
+mod = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(mod)
+sys.path.insert(0, sys.argv[2])
+import repro_torch.serve.engine, repro_torch.serve.service, repro_torch.serve.loadgen
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.") or m == "repro" or m.startswith("repro."))
+assert not bad, bad
+print("ok")
 """
 
 
@@ -29,3 +45,17 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     assert out.returncode == 0, out.stderr
     n_modules = int(out.stdout.split()[0])
     assert n_modules >= 30  # the package, its subpackages and modules
+    names = set(out.stdout.split("]", 1)[1].split())
+    missing = [m for m in COPIES if m not in names]
+    assert not missing, missing
+
+
+def test_chip_smoke_imports_no_jax_and_nothing_of_repro():
+    """``chip_smoke.py`` as a module (its imports, no ``main``) plus the
+    serving modules its LM phase drives load no JAX and nothing of repro."""
+    root = os.path.dirname(SRC)
+    env = dict(os.environ, PYTHONPATH="")
+    out = subprocess.run([sys.executable, "-c", SMOKE, os.path.join(root, "chip_smoke.py"), SRC], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

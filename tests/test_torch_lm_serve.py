@@ -120,9 +120,14 @@ def test_requests_are_validated_and_later_options_raise(gemma):
         svc.submit(np.zeros((16,), np.int32), 18)
     with pytest.raises(ValueError, match="pages"):
         svc.submit(np.zeros((16,), np.int32), 10)  # 25 rows = 4 pages > 2 usable
-    # slice 3b's options are not parameters yet
-    for kw in (dict(prefill_chunk=8), dict(sampling=True), dict(prefix_cache=True), dict(speculative=True)):
-        with pytest.raises(TypeError, match="unexpected keyword"):
+    # the reference's gating errors: chunked prefill, the prefix cache and
+    # speculation ride the paged pool, chunk_all the chunk step, and
+    # speculation is greedy-only
+    for kw, match in (
+        (dict(prefill_chunk=8), "paged"), (dict(prefix_cache=True), "paged"), (dict(speculative=True), "paged"),
+        (dict(chunk_all=True), "chunk_all"), (dict(paged=True, speculative=True, sampling=True), "greedy"),
+    ):
+        with pytest.raises(ValueError, match=match):
             ContinuousLMEngine(cfg, params, device="cpu", **kw)
 
 
@@ -181,3 +186,24 @@ def test_threaded_loop_serves_and_beats(gemma):
     m = svc.metrics()
     assert m["heartbeat_stale"] == 0 and m["tokens_total"] == sum(len(o) for o in outs)
     assert all(f.ttft_s is not None and 0 < f.ttft_s <= f.latency_s for f in futs)
+
+
+def test_cli_chunked_prefix_speculative_and_sampling_flags_on_cpu(capsys):
+    """``--prefill-chunk``, ``--prefix-cache``, ``--speculative`` and
+    ``--temperature`` / ``--top-k`` each run their comparison under
+    ``--smoke``; the prefix cache and speculation need ``--paged``."""
+    from repro_torch.serve import cli
+
+    args = ["--smoke", "--lm-arch", "gemma2-2b", "--continuous", "--paged", "--block-size", "16",
+            "--prefill-chunk", "16", "--prefix-cache", "--speculative", "--draft-k", "4",
+            "--temperature", "0.8", "--top-k", "8", "--device", "cpu"]
+    assert cli.main(args) == 0
+    out = capsys.readouterr().out
+    assert "healthy=True" in out
+    for line in ("[serve] chunked prefill (16 tokens a tick)", "[serve] prefix cache:", "[serve] speculative:",
+                 "reproducible=True"):
+        assert line in out, line
+    assert out.count("token mismatches: 0") >= 4
+    for flag in ("--prefix-cache", "--speculative"):
+        with pytest.raises(SystemExit):
+            cli.main(["--smoke", "--lm-arch", "gemma2-2b", "--continuous", flag, "--device", "cpu"])

@@ -107,6 +107,7 @@ def _rows():
     out.append(row("serve/engine encode", "n=21 (two buckets)", port.encode(x), np.asarray(ref.encode(x))))
     out.extend(_training_rows(arr, row))
     out.extend(_lm_rows(row))
+    out.extend(_serving_option_rows(row))
     return out
 
 
@@ -345,6 +346,174 @@ def _lm_rows(row):
         got = np.concatenate([f.result(timeout=30) for f in futs])
         out.append(row("serve/engine ContinuousLMEngine", f"{'paged page ' + str(kw['page_size']) if kw else 'dense'}: "
                        f"{len(got)} greedy tokens vs greedy_generate", got.astype(np.float64), want.astype(np.float64)))
+    return out
+
+
+def _serving_option_rows(row):
+    """Slice 3b on reduced gemma2-2b (the reference's weights): sampling
+    draws, the chunked prefills (long-prompt and serving), the verify step,
+    the warm-template gather, the radix cache, the prefix plan, the drafter,
+    and the engine's tokens with each option against the reference engine's."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from repro.configs import get_config as ref_config
+    from repro.models import attention as rattn
+    from repro.models import init_params as ref_init
+    from repro.models.transformer import forward as ref_forward
+    from repro.models.transformer import init_caches as ref_caches
+    from repro.models.transformer import init_paged_caches as ref_paged
+    from repro.serve import ContinuousLMEngine as RefEngine
+    from repro.serve import LMService as RefService
+    from repro.serve import sampling as rsampling
+    from repro.serve import spec as rspec
+    from repro.serve.paging import PageAllocator as RefAllocator
+    from repro.serve.paging import PagedKVManager as RefManager
+    from repro.serve.paging import RadixCache as RefRadix
+    from repro.train import serve as rserve
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention as tattn
+    from repro_torch.models import forward, init_caches, params_from_jax
+    from repro_torch.serve import sampling, spec
+    from repro_torch.serve.engine import ContinuousLMEngine
+    from repro_torch.serve.paging import PageAllocator, PagedKVManager, RadixCache
+    from repro_torch.serve.service import LMService
+    from repro_torch.train import serve
+
+    rng = np.random.default_rng(7)
+    out = []
+    f64 = lambda xs: np.asarray(xs, np.float64)  # noqa: E731
+    logits = rng.standard_normal((200, 4096)).astype(np.float32) * 3.0
+    for temperature, top_k in ((0.8, 50), (1.3, None)):
+        p, rp = (m.SamplingParams(temperature=temperature, top_k=top_k, seed=3) for m in (sampling, rsampling))
+        g, rg = sampling.make_rng(p, 0), rsampling.make_rng(rp, 0)
+        out.append(row("serve/sampling sample_token", f"200 draws, V=4096, T={temperature} top_k={top_k}",
+                       f64([sampling.sample_token(x, p, g) for x in logits]),
+                       f64([rsampling.sample_token(x, rp, rg) for x in logits])))
+    low = dict(attn_chunk_threshold=16, attn_chunk_size=8)
+    rcfg = dataclasses.replace(ref_config("gemma2-2b").reduced(), **low)
+    cfg = dataclasses.replace(get_config("gemma2-2b").reduced(), **low)
+    rparams = ref_init(jax.random.PRNGKey(0), rcfg)
+    params = params_from_jax(cfg, jax.tree.map(np.asarray, rparams), device="cpu")
+    q, k, v = (rng.standard_normal((1, 32, n, 16)).astype(np.float32) * 3.0 for n in (4, 2, 2))
+    for bs, rbs in zip(cfg.pattern, rcfg.pattern):
+        out.append(row("models/attention _chunked_attention", f"S=32 chunk 8 {bs.attn_type}",
+                       tattn._chunked_attention(*(torch.from_numpy(x) for x in (q, k, v)), cfg, bs, 8),
+                       np.asarray(rattn._chunked_attention(*(jnp.asarray(x) for x in (q, k, v)), rcfg, rbs, 8))))
+        out.append(row("models/attention _offset_prefill_attention", f"8 queries at offset 21 of 32 rows {bs.attn_type}",
+                       tattn._offset_prefill_attention(torch.from_numpy(q[:, :8]), torch.from_numpy(k),
+                                                       torch.from_numpy(v), 21, cfg, bs),
+                       np.asarray(rattn._offset_prefill_attention(jnp.asarray(q[:, :8]), jnp.asarray(k), jnp.asarray(v),
+                                                                  21, rcfg, rbs))))
+    toks = rng.integers(0, cfg.vocab_size, (1, 32)).astype(np.int32)
+    out.append(row("models/transformer forward", "prompt of 32 > threshold 16 (chunked prefill): logits",
+                   forward(params, cfg, torch.from_numpy(toks)).logits,
+                   np.asarray(ref_forward(rparams, rcfg, tokens=jnp.asarray(toks)).logits)))
+    step, rstep = serve.make_chunked_prefill_step(cfg), rserve.make_chunked_prefill_step(rcfg)
+    tc, rc = init_caches(cfg, 1, 48, "cpu"), ref_caches(rcfg, 1, 48)
+    got, want = [], []
+    for off in (0, 8, 16):
+        chunk = toks[:, off:off + 8]
+        g = step(params, tc, torch.from_numpy(chunk), off, 7)
+        w = rstep(rparams, rc, jnp.asarray(chunk), np.int32(off), np.int32(7))
+        rc = w[2]
+        got += [g[0], g[1]]
+        want += [np.asarray(w[0]), np.asarray(w[1])]
+    out.append(row("train/serve make_chunked_prefill_step", "3 chunks of 8: logits + hidden", got, want))
+    page, width = 8, 5
+    vals = jax.tree.map(lambda x: rng.standard_normal(x.shape).astype(np.float32), ref_paged(rcfg, 2, 13, page))
+    tables = np.zeros((2 * width, 6), np.int32)
+    tables[:width, :3] = [4, 9, 2]
+    tables[width, :2] = [7, 5]
+    lens = np.zeros((2 * width,), np.int32)
+    lens[:width], lens[width] = 13 + np.arange(width), 11
+    nxt = rng.integers(0, cfg.vocab_size, (2 * width, 1)).astype(np.int32)
+    pools = {n: {k: torch.from_numpy(x.copy()) for k, x in leafs.items()} for n, leafs in vals.items()}
+    g = serve.make_verify_step(cfg, return_hidden=True)(params, pools, torch.from_numpy(lens), torch.from_numpy(nxt),
+                                                        block_tables=torch.from_numpy(tables))
+    w = rserve.make_verify_step(rcfg, return_hidden=True)(rparams, jax.tree.map(jnp.asarray, vals), jnp.asarray(lens),
+                                                          tokens=jnp.asarray(nxt), block_tables=jnp.asarray(tables))
+    out.append(row("train/serve make_verify_step", "10 lanes, 5 on one table row: logits + hidden",
+                   [g[0], g[1]], [np.asarray(w[0]), np.asarray(w[1])]))
+    row_ = np.asarray([3, 7, 1, 0, 0, 0], np.int32)
+    pools = {n: {k: torch.from_numpy(x.copy()) for k, x in leafs.items()} for n, leafs in vals.items()}
+    g = serve.load_template_from_pages(pools, init_caches(cfg, 1, 48, "cpu"), row_)
+    w = rserve.load_template_from_pages(jax.tree.map(jnp.asarray, vals), ref_caches(rcfg, 1, 48), jnp.asarray(row_))
+    out.append(row("train/serve load_template_from_pages", "6-block row, sentinel tail: k/v",
+                   [x for leafs in g.values() for x in leafs.values()],
+                   [np.asarray(x) for leafs in w.values() for x in leafs.values()]))
+    prompts = [rng.integers(0, 4, int(n)).tolist() for n in rng.integers(4, 30, 30)]
+    got, want = [], []
+    for cls, alloc_cls, acc in ((RadixCache, PageAllocator, got), (RefRadix, RefAllocator, want)):
+        alloc = alloc_cls(200, 4, 1, 50)
+        radix = cls(4, alloc)
+        nxt_page = 1
+        for t in prompts:
+            m = radix.match(t)
+            acc += list(m.pages) + [m.tokens, -1 if m.partial is None else m.partial]
+            full = len(t) // 4
+            pages = list(range(nxt_page, nxt_page + full))
+            nxt_page += full
+            for p_ in pages:
+                alloc._refcount[p_] = 1
+                alloc._free.remove(p_)
+            acc += radix.insert(t[: full * 4], pages)
+        acc += [radix.evict(5), radix.cached_pages, radix.nodes, radix.splits_total]
+    out.append(row("serve/paging radix RadixCache", "30 prompts: matches, inserts, evict(5), counters",
+                   f64(got), f64(want)))
+    got, want = [], []
+    for mgr, acc in ((PagedKVManager(cfg, 4, 48, 8, prefix_cache=True, prefix_chunk=4), got),
+                     (RefManager(rcfg, 4, 48, 8, prefix_cache=True, prefix_chunk=4), want)):
+        base = np.arange(24, dtype=np.int32)
+        mgr.admit(0, 24, 4, plan=mgr.plan_prefix(base, 24))
+        mgr.ensure_rows(0, 24)
+        mgr.donate(0, base)
+        mgr.release(0)
+        for slot, t in enumerate([base, np.concatenate([base[:21], [99, 99, 99]]).astype(np.int32)]):
+            plan = mgr.plan_prefix(t, len(t))
+            acc += [plan.hit, plan.cow_src, plan.matched_tokens] + list(plan.shared)
+            acc += [mgr.admit(slot, len(t), 8, plan=plan)] + list(mgr.table_row(slot)) + list(mgr.scatter_row(slot))
+    out.append(row("serve/paging manager PagedKVManager", "prefix plans, bound and scatter rows", f64(got), f64(want)))
+    got, want = [], []
+    ctx = rng.integers(0, 4, 80).tolist()
+    for mod, acc in ((spec, got), (rspec, want)):
+        d = mod.SlotDraft(mod.SpecConfig(), ctx[:8])
+        for i, t in enumerate(ctx[8:]):
+            acc += d.propose(i % 5) + [-1, mod.draft_budget(4, 20, i % 21)]
+            d.push(t)
+    out.append(row("serve/spec SlotDraft", "72 pushes, propose(0..4), draft_budget", f64(got), f64(want)))
+    mix = [(rng.integers(0, cfg.vocab_size, s).astype(np.int32), m) for s, m in ((4, 12), (9, 8), (13, 8), (24, 6),
+                                                                                  (1, 10), (7, 7))]
+    prefix = rng.integers(0, cfg.vocab_size, 21).astype(np.int32)
+    warm = [(np.concatenate([prefix, rng.integers(0, cfg.vocab_size, t).astype(np.int32)]), m)
+            for t, m in ((3, 4), (2, 6), (5, 3), (4, 5))]
+    sampled = lambda i: dict(temperature=0.8, top_k=8, seed=100 + i)  # noqa: E731
+    options = (
+        ("chunked prefill, chunk 8", dict(paged=True, page_size=8, prefill_chunk=8), mix, None, 0),
+        ("sampled T=0.8 top_k=8, seeded", dict(paged=True, page_size=16, sampling=True), mix, sampled, 0),
+        ("warm prefix cache, chunk 4, COW", dict(paged=True, page_size=8, prefill_chunk=4, prefix_cache=True,
+                                                max_prompt_len=26), warm, None, 1),
+        ("speculative, draft_k 4", dict(paged=True, page_size=8, speculative=True), mix, None, 0),
+    )
+    for what, kw, stream, submit, n_cold in options:
+        toks = []
+        for eng_cls, svc_cls, c, p, extra in ((ContinuousLMEngine, LMService, cfg, params, dict(device="cpu")),
+                                              (RefEngine, RefService, rcfg, rparams, {})):
+            kw2 = dict(dict(n_slots=4, max_len=48, max_prompt_len=24), **kw, **extra)
+            svc = svc_cls(eng_cls(c, p, **kw2))
+            svc.warmup()
+            futs = []
+            for i, (t, m) in enumerate(stream):
+                futs.append(svc.submit(t, m, **(submit(i) if submit else {})))
+                if i < n_cold:
+                    svc.drain()
+            svc.drain()
+            toks.append(np.concatenate([f.result(timeout=60) for f in futs]))
+        out.append(row("serve/engine ContinuousLMEngine", f"{what}: {len(toks[0])} tokens vs the reference engine",
+                       f64(toks[0]), f64(toks[1])))
     return out
 
 
