@@ -101,8 +101,27 @@ Phases (any failed check exits non-zero and prints no result):
      speculative decoding and sampling (its logits-to-host ms a tick), for
      the record, each line with the card's name and power limit.
      Phase 1 also holds paged_attention at the verify's shape (B = 40, each
-     slot's 5 lanes on one table row).
-  6. report — one JSON ``kernels`` line, the card's name and power limit,
+     slot's 5 lanes on one table row), and at the full head geometry of
+     every other attention arch (``arch ...`` labels: 8 slots, page 16,
+     lengths up to 2048, f32 and bf16; n_rep 1 to 12, hd 64 to 192).
+  6. archs — the nine other LM archs of ``repro_torch.configs`` (random
+     weights, seed 0; ``ARCH_RUNS``), every one at full width:
+     codeqwen1.5-7b, qwen2-vl-2b, rwkv6-3b and musicgen-large at full
+     depth; llama4-scout and qwen1.5-110b at 2 layers, nemotron-4-340b and
+     arctic-480b at 1, jamba at one 8-layer period.
+     f32 gates: the attention archs run checks (a)-(c) of phase 5 on 12
+     requests at 8 slots (paged plain route == dense engine bit for bit,
+     unless a decode tick overfilled a MoE expert's seats, see
+     ``_DecodeDrops``; kernel vs plain logits every tick within 1e-4;
+     tokens under the gap rule; ``paged_attention`` launches = the
+     attention layers a tick); rwkv6-3b's continuous dense engine's tokens
+     equal to ``greedy_generate``'s; musicgen's cached generate
+     against the argmax of one uncached forward, per codebook under the gap
+     rule; every run's probe (the LM probe at d = 1536, 2048, 2560, 4096,
+     5120 and 64) against its oracle < 1e-3.  Then one bf16 timed line each
+     (tok/s, TTFT p50 / p99, decode tick and prefill ms, the card's name and
+     power limit).
+  7. report — one JSON ``kernels`` line, the card's name and power limit,
      and the last line ``{"ok": true, "device": {...}}``.
 
 Times are CUDA-event means over repeated launches with inputs resident in
@@ -561,6 +580,8 @@ def _kernel_cases(dev):
 # paged_attention's phase-1 shape: gemma2-2b's heads (8 query / 4 kv of
 # 256) and scale (query_pre_attn_scalar = 256), the LM path's page
 PAGED_SHAPE = dict(h=8, kv=4, hd=256, page=LM_PAGE, scale=1.0 / 16.0)
+# the other archs' phase-1 lengths (8 slots, up to 2048 rows)
+ARCH_LENS = [2048, 1500, 901, 333, 64, 17, 2, 1]
 # q gain that lifts |scale * q.k| to ~30-150, where the softcap 50 * tanh(s/50)
 # moves the output far more than the tolerance (unit q keeps |s| near 3)
 HOT_Q = 40.0
@@ -689,6 +710,25 @@ def _paged_cases(cases, dev, gen):
                  [300, 1, ch + 1, 40, 2 * ch, 999], dtype, 50.0, 300, shape=shape)
         case(f"edge n_rep={h_ // kv_} hd={hd_} page={page_} f32 softcap=0 window=0",
              [300, 1, ch + 1, 40, 2 * ch, 999], torch.float32, 0.0, 0, shape=shape)
+    # every other attention arch at its full head geometry (phase 6 serves
+    # them at these heads, at a cut depth where the model does not fit one
+    # card): 8 slots, page 16, lengths up to 2048, the config's softcap
+    # and windows; n_rep 1 to 12 and hd 64, 128 and 192 (nemotron's, whose
+    # 12 query rows a kv head split into two blocks of 6, and whose rows the
+    # kernel loads element by element: 192 is no 32 * VEC)
+    from repro_torch.configs import get_config, list_archs
+
+    for arch in list_archs():
+        c = get_config(arch)
+        if arch == "gemma2-2b" or c.is_attention_free:
+            continue
+        shape = dict(h=c.n_heads, kv=c.n_kv_heads, hd=c.hd, page=LM_PAGE, scale=c.attn_scale or c.hd ** -0.5)
+        windows = sorted({c.window_size if b.attn_type == "local" else 0 for b in c.pattern if b.mixer == "attn"})
+        for window in windows:
+            for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+                case(f"arch {arch} {tag} softcap={c.attn_softcap or 0:g} window={window} "
+                     f"(H={c.n_heads},KV={c.n_kv_heads},hd={c.hd},n_rep={c.n_heads // c.n_kv_heads})",
+                     ARCH_LENS, dtype, c.attn_softcap or 0.0, window, shape=shape)
 
 
 def _softcap_control(ph: Phase, dev):
@@ -1227,9 +1267,48 @@ def _lm_drive(service, stream, checked=None):
     return [f.result(timeout=60) for f in futs], wall, futs
 
 
+def _attn_layers(cfg) -> int:
+    """The layers of ``cfg`` that attend: paged_attention's launches a tick."""
+    return sum(spec.mixer == "attn" for spec in cfg.pattern) * cfg.repeats
+
+
+class _DecodeDrops:
+    """While active, counts the MoE layer calls of decode ticks (``n_slots``
+    lanes of one token) whose top-k picks overfill an expert's seats.  Such
+    a tick drops picks, and the free lanes take seats too: the dense
+    and the paged pool feed the router different free-lane rows, so the
+    reference's own dense and paged tokens may then differ
+    (``tests/test_torch_archs.py``, jamba at eight slots)."""
+
+    def __init__(self, n_slots):
+        self.n_slots, self.calls = n_slots, 0
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.models import moe
+
+        self.orig = moe.moe_apply
+
+        def counted(params, x, cfg):
+            if x.shape[:2] == (self.n_slots, 1):
+                probs = torch.softmax(x[:, 0].float() @ params["router"].float(), dim=-1)
+                picks = torch.bincount(moe._top_k(probs, cfg.top_k)[1].flatten(), minlength=cfg.n_experts)
+                self.calls += int(picks.max()) > moe._capacity(self.n_slots, cfg)
+            return self.orig(params, x, cfg)
+
+        moe.moe_apply = counted
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+
+        moe.moe_apply = self.orig
+
+
 def _lm_checked_run(ph, tag, cfg, params, dev, stream, n_slots, max_len, max_prompt, **engine_kw):
-    """Checks (a)-(c) of one f32 workload; returns the kernel run's launch
-    counts and its decode ticks."""
+    """Checks (a)-(c) of one f32 workload (``tag`` heads the printed lines);
+    returns the kernel run's launch counts."""
     import numpy as np
 
     from repro_torch import kernels
@@ -1237,13 +1316,19 @@ def _lm_checked_run(ph, tag, cfg, params, dev, stream, n_slots, max_len, max_pro
 
     shape = dict(n_slots=n_slots, max_len=max_len, max_prompt=max_prompt)
     # (a) the dense engine vs the paged engine on the plain route, bit for bit
-    dense, _, _ = _lm_drive(_lm_service(cfg, params, dev, **shape), stream)
-    plain_svc = _lm_service(cfg, params, dev, paged=True, page_size=LM_PAGE, impl="plain", **shape, **engine_kw)
-    plain, _, _ = _lm_drive(plain_svc, stream)
+    # unless a decode tick overfilled a MoE expert's seats (see _DecodeDrops)
+    with _DecodeDrops(n_slots) as drops:
+        dense, _, _ = _lm_drive(_lm_service(cfg, params, dev, **shape), stream)
+        plain_svc = _lm_service(cfg, params, dev, paged=True, page_size=LM_PAGE, impl="plain", **shape, **engine_kw)
+        plain, _, _ = _lm_drive(plain_svc, stream)
     bad = [i for i, (a, b) in enumerate(zip(dense, plain)) if not np.array_equal(a, b)]
-    ph.check(not bad, f"[lm] {tag}: (a) paged plain-route tokens differ from the dense engine's in requests {bad}")
-    print(f"[lm] {tag}: (a) paged plain route == dense engine, bit for bit, in "
-          f"{len(stream) - len(bad)}/{len(stream)} requests ({sum(len(o) for o in plain)} tokens)", flush=True)
+    ph.check(not bad or drops.calls > 0,
+             f"{tag}: (a) paged plain-route tokens differ from the dense engine's in requests {bad}")
+    note = (f"; MoE layer calls of decode ticks that overfilled an expert's seats in the two runs: {drops.calls}"
+           + (" (requests may differ: the reference's own dense and paged pools route different free-lane rows)"
+              if drops.calls else "")) if cfg.n_experts else ""
+    print(f"{tag}: (a) paged plain route == dense engine, bit for bit, in {len(stream) - len(bad)}/{len(stream)} "
+          f"requests ({sum(len(o) for o in plain)} tokens){note}", flush=True)
     del plain_svc
 
     # (b) + (c) the kernel route, each tick checked against the plain route
@@ -1254,38 +1339,58 @@ def _lm_checked_run(ph, tag, cfg, params, dev, stream, n_slots, max_len, max_pro
     counts = kernels.launch_counts()
     ticks = svc.engine.pool.steps
     ph.check(checked.max_rel <= LOGIT_TOL,
-             f"[lm] {tag}: (b) kernel vs plain logits rel {checked.max_rel:.3g} > {LOGIT_TOL}")
-    ph.check(counts["paged_attention"] > 0 and counts["paged_attention"] == cfg.n_layers * ticks,
-             f"[lm] {tag}: paged_attention launched {counts['paged_attention']} times in {ticks} ticks "
-             f"(expected {cfg.n_layers} per tick)")
+             f"{tag}: (b) kernel vs plain logits rel {checked.max_rel:.3g} > {LOGIT_TOL}")
+    n_attn = _attn_layers(cfg)
+    ph.check(counts["paged_attention"] > 0 and counts["paged_attention"] == n_attn * ticks,
+             f"{tag}: paged_attention launched {counts['paged_attention']} times in {ticks} ticks "
+             f"(expected {n_attn} per tick)")
     for name in LM_PROBE_KERNELS:
-        ph.check(counts[name] > 0, f"[lm] {tag}: the probe never launched {name} in the kernel-route run")
-    exempt = 0
+        ph.check(counts[name] > 0, f"{tag}: the probe never launched {name} in the kernel-route run")
+    exempt = differ = 0
     for r, (k, p) in enumerate(zip(kern, plain)):
         if np.array_equal(k, p):
             continue
+        differ += 1
         n = min(len(k), len(p))
         t = int(np.argmax(k[:n] != p[:n])) if np.any(k[:n] != p[:n]) else n
         gap = checked.steps.get((r, t), (None,))[0]
         ok = gap is not None and gap < 2 * checked.max_abs
         exempt += ok
-        print(f"[lm] {tag}: (c) request {r} first differs at token {t}: plain top-2 gap "
+        print(f"{tag}: (c) request {r} first differs at token {t}: plain top-2 gap "
               f"{'n/a' if gap is None else f'{gap:.4g}'} vs 2 x logit diff {2 * checked.max_abs:.4g} "
               f"-> {'exempt from here on' if ok else 'FAIL'}", flush=True)
-        ph.check(ok, f"[lm] {tag}: (c) request {r} differs at token {t} with plain top-2 gap {gap}")
+        ph.check(ok, f"{tag}: (c) request {r} differs at token {t} with plain top-2 gap {gap}")
     m = svc.metrics()
     err = lm_probe_oracle_err(svc)
-    ph.check(err is not None and err < LM_PROBE_TOL, f"[lm] {tag}: probe vs oracle {err} (limit {LM_PROBE_TOL})")
-    ph.check(m["dispatch_errors"] == 0, f"[lm] {tag}: dispatch_errors={m['dispatch_errors']}")
-    ph.check(all(np.isfinite(v) for k, v in m.items() if k.startswith("decorr_")), f"[lm] {tag}: probe not finite")
-    print(f"[lm] {tag}: (b) {checked.ticks} ticks, kernel vs plain logits max_abs={checked.max_abs:.4g} "
-          f"rel={checked.max_rel:.4g}; (c) {len(stream) - exempt}/{len(stream)} requests' tokens identical, "
+    ph.check(err is not None and err < LM_PROBE_TOL, f"{tag}: probe vs oracle {err} (limit {LM_PROBE_TOL})")
+    ph.check(m["dispatch_errors"] == 0, f"{tag}: dispatch_errors={m['dispatch_errors']}")
+    ph.check(all(np.isfinite(v) for k, v in m.items() if k.startswith("decorr_")), f"{tag}: probe not finite")
+    print(f"{tag}: (b) {checked.ticks} ticks, kernel vs plain logits max_abs={checked.max_abs:.4g} "
+          f"rel={checked.max_rel:.4g}; (c) {len(stream) - differ}/{len(stream)} requests' tokens identical, "
           f"{exempt} exempt; paged_attention launches={counts['paged_attention']} over {ticks} ticks "
           f"({counts['paged_attention'] / max(ticks, 1):.1f}/tick); probe launches "
           + ", ".join(f"{k}={counts[k]}" for k in LM_PROBE_KERNELS) + f"; probe_steps={m.get('decorr_probe_steps', 0):.0f} "
           f"probe_oracle_rel_err={err}; dispatch_errors={m['dispatch_errors']:.0f}; "
           f"peak pages={m['paged_pages_peak']:.0f} of {m['paged_pages_total']:.0f}; wall_s={wall:.3f}", flush=True)
     return counts
+
+
+def _timed(times, key, fn, sync=False):
+    """``fn`` that appends its host ms to ``times[key]`` (``sync``: a device
+    sync before and after; without it the caller's step must end in one)."""
+    import torch
+
+    def run(*a, **k):
+        if sync:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        if sync:
+            torch.cuda.synchronize()
+        times[key].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    return run
 
 
 def _lm_timed(ph, cfg, params, dev, stream, max_len, max_prompt):
@@ -1304,16 +1409,8 @@ def _lm_timed(ph, cfg, params, dev, stream, max_len, max_prompt):
                       probe=True, paged=True, page_size=LM_PAGE)
     eng = svc.engine
     times = {"decode": [], "insert": []}
-
-    def timed(name, fn):
-        def run(*a, **k):
-            t0 = time.perf_counter()
-            out = fn(*a, **k)  # both end in a host sync (token ids to the host)
-            times[name].append((time.perf_counter() - t0) * 1e3)
-            return out
-        return run
-
-    eng.decode_step, eng.insert = timed("decode", eng.decode_step), timed("insert", eng.insert)
+    # both end in a host sync (token ids to the host)
+    eng.decode_step, eng.insert = _timed(times, "decode", eng.decode_step), _timed(times, "insert", eng.insert)
     kernels.reset_launch_counts()
     outs, wall, futs = _lm_drive(svc, stream)
     counts = kernels.launch_counts()
@@ -1917,7 +2014,7 @@ def phase_lm(ph: Phase, dev):
           f"hd={cfg.hd} vocab={cfg.vocab_size} params={cfg.param_count() / 1e9:.3f}B; f32 gate: "
           f"{load.n_requests} requests, {LM_SLOTS} slots, page {LM_PAGE}, max_len {max_len}", flush=True)
     stream = load.request_stream(cfg.vocab_size)
-    _lm_checked_run(ph, "f32 24 requests", cfg, params, dev, stream, LM_SLOTS, max_len, max_prompt)
+    _lm_checked_run(ph, "[lm] f32 24 requests", cfg, params, dev, stream, LM_SLOTS, max_len, max_prompt)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1926,7 +2023,7 @@ def phase_lm(ph: Phase, dev):
     total_pages = 2 * (-(-rows // LM_PAGE)) + 1
     print(f"[lm] f32 long context: 2 requests of {LONG_PROMPT} + {LONG_NEW} tokens, max_len {LONG_MAX_LEN}, "
           f"{total_pages} pages of {LM_PAGE} (window {cfg.window_size} on the local layers)", flush=True)
-    _lm_checked_run(ph, "f32 long context", cfg, params, dev, long_load.request_stream(cfg.vocab_size), 2,
+    _lm_checked_run(ph, "[lm] f32 long context", cfg, params, dev, long_load.request_stream(cfg.vocab_size), 2,
                     LONG_MAX_LEN, LONG_PROMPT, total_pages=total_pages)
     for sub in (_lm_chunked, _lm_sampling, _lm_prefix, _lm_speculative, _lm_long_prompt):
         gc.collect()
@@ -1947,6 +2044,280 @@ def phase_lm(ph: Phase, dev):
     for k, v in _lm_timed_options(ph, cfg, params, dev, smi).items():
         counts[k] = counts.get(k, 0) + v
     return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the other nine LM archs
+# ---------------------------------------------------------------------------
+
+# (arch, depth on the card), every arch at full width: None = every layer;
+# an int = that many layers (whole pattern periods), where the f32 model at
+# full depth would not fit one card
+ARCH_RUNS = (
+    ("codeqwen1.5-7b", None),
+    ("qwen2-vl-2b", None),
+    ("llama4-scout-17b-a16e", 2),
+    ("jamba-v0.1-52b", 8),
+    ("rwkv6-3b", None),
+    ("musicgen-large", None),
+    ("qwen1.5-110b", 2),
+    ("nemotron-4-340b", 1),
+    ("arctic-480b", 1),
+)
+# each continuous-engine run: 12 requests of the reference mix's ladders
+ARCH_LOAD = dict(n_requests=12, seed=SEED + 9)
+# musicgen: whole-request generate of (batch, prompt, 4 codebooks)
+MUSIC_BATCH, MUSIC_PROMPT, MUSIC_NEW = 4, 16, 12
+
+
+def _arch_model(name, depth, dtype, dev):
+    """Arch ``name`` at full width, ``depth`` layers (None: all), in
+    ``dtype``, random weights from ``init_params(seed=0)``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    cfg = get_config(name)
+    cfg = dataclasses.replace(cfg, n_layers=depth or cfg.n_layers, param_dtype=dtype, compute_dtype=dtype)
+    return cfg, init_params(cfg, seed=SEED, device=dev)
+
+
+def _logged_steps(cfg, rows):
+    """A greedy ``(prefill, decode)`` pair that keeps every emitted token's
+    logits row (batch row 0) in ``rows``."""
+    from repro_torch.train.serve import make_decode_step, make_prefill_step
+
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+
+    def pre(params, caches, tokens, **kw):
+        logits, caches = prefill(params, caches, tokens, **kw)
+        rows.append(logits[:, 0].detach().clone())
+        return logits, caches
+
+    def dec(params, caches, cache_len, tokens, **kw):
+        logits, caches = decode(params, caches, cache_len, tokens, **kw)
+        rows.append(logits.detach().clone())
+        return logits, caches
+
+    return pre, dec
+
+
+def _probe_err(ph, tag, svc):
+    from repro_torch.serve.loadgen import lm_probe_oracle_err
+
+    err = lm_probe_oracle_err(svc)
+    ph.check(err is not None and err < LM_PROBE_TOL, f"{tag}: probe vs oracle {err} (limit {LM_PROBE_TOL})")
+    return err
+
+
+def _arch_recurrent(ph, name, cfg, params, dev, stream, max_len, max_prompt):
+    """rwkv6-3b (f32): the continuous dense engine's tokens equal to
+    ``greedy_generate``'s, request by request; probe vs its oracle."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.train.serve import greedy_generate
+
+    tag = f"[archs] {name} f32"
+    base = [greedy_generate(params, cfg, torch.as_tensor(t[None], device=dev), m, max_len=max_len)[0].cpu().numpy()
+            for t, m in stream]
+    svc = _lm_service(cfg, params, dev, LM_SLOTS, max_len, max_prompt, probe=True, record=True)
+    kernels.reset_launch_counts()
+    outs, wall, _ = _lm_drive(svc, stream)
+    counts = kernels.launch_counts()
+    bad = [i for i, (a, b) in enumerate(zip(base, outs)) if not np.array_equal(a, b)]
+    ph.check(not bad, f"{tag}: continuous dense engine tokens differ from greedy_generate's in requests {bad}")
+    err = _probe_err(ph, tag, svc)
+    for k in LM_PROBE_KERNELS:
+        ph.check(counts[k] > 0, f"{tag}: the probe never launched {k}")
+    print(f"{tag}: continuous dense engine == greedy_generate in {len(stream) - len(bad)}/{len(stream)} requests; "
+          f"probe_oracle_rel_err={err}; probe launches " + ", ".join(f"{k}={counts[k]}" for k in LM_PROBE_KERNELS)
+          + f"; wall_s={wall:.3f}", flush=True)
+    return counts
+
+
+def _arch_audio(ph, name, cfg, params, dev):
+    """musicgen-large (f32): cached ``LMServeEngine.generate`` against the
+    argmax of one uncached full forward over the prompt and the generated
+    codes, per codebook under the gap rule; the probe on the forward's last
+    hidden rows vs its oracle."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.decorr.config import DecorrConfig
+    from repro_torch.decorr.probe import probe_metrics
+    from repro_torch.models import forward
+    from repro_torch.serve.common import make_prompt
+    from repro_torch.serve.probes import DecorrProbe
+    from repro_torch.train.serve import greedy_generate
+
+    tag = f"[archs] {name} f32"
+    prompt = make_prompt(cfg, SEED + 10, MUSIC_BATCH, MUSIC_PROMPT, device=dev)
+    rows = []
+    out = greedy_generate(params, cfg, prompt, MUSIC_NEW, steps=_logged_steps(cfg, rows))
+    cached = torch.stack(rows, dim=1)  # (B, N, n_q, V)
+    with torch.no_grad():
+        full = forward(params, cfg, torch.cat([prompt, out[:, :-1]], dim=1))
+    ref = full.logits[:, MUSIC_PROMPT - 1:]  # the same positions, uncached
+    ph.check(out.shape == (MUSIC_BATCH, MUSIC_NEW, cfg.n_codebooks), f"{tag}: output shape {tuple(out.shape)}")
+    diff = float((cached - ref).abs().max())
+    want = ref.argmax(-1).to(out.dtype)
+    exempt = 0
+    for b in range(MUSIC_BATCH):
+        for q in range(cfg.n_codebooks):
+            bad = torch.nonzero(out[b, :, q] != want[b, :, q]).flatten().tolist()
+            if not bad:
+                continue
+            t = bad[0]
+            top2 = torch.topk(ref[b, t, q].float(), 2).values
+            gap = float(top2[0] - top2[1])
+            ok = gap < 2 * diff
+            exempt += ok
+            print(f"{tag}: row {b} codebook {q} first differs at token {t}: uncached top-2 gap {gap:.4g} vs "
+                  f"2 x logit diff {2 * diff:.4g} -> {'exempt from here on' if ok else 'FAIL'}", flush=True)
+            ph.check(ok, f"{tag}: row {b} codebook {q} differs at token {t} with top-2 gap {gap}")
+    probe = DecorrProbe(DecorrConfig(style="vic", reg="sum", q=2), perm_seed=SEED, device=dev)
+    window = full.hidden[:, -2:].reshape(-1, cfg.d_model).float().contiguous()
+    kernels.reset_launch_counts()
+    got = probe.update(window)
+    counts = kernels.launch_counts()
+    oracle = probe_metrics(window, None, probe.cfg, probe.permutation(0, cfg.d_model), impl="plain")
+    err = max(abs(got[k] - float(v)) / max(abs(float(v)), 1e-6) for k, v in oracle.items())
+    ph.check(err < LM_PROBE_TOL, f"{tag}: probe vs oracle {err} (limit {LM_PROBE_TOL})")
+    for k in LM_PROBE_KERNELS:
+        ph.check(counts[k] > 0, f"{tag}: the probe never launched {k}")
+    print(f"{tag}: cached generate ({MUSIC_BATCH} x {MUSIC_PROMPT} + {MUSIC_NEW} codes x {cfg.n_codebooks}) vs "
+          f"uncached forward argmax: logit diff {diff:.4g}, {MUSIC_BATCH * cfg.n_codebooks - exempt}/"
+          f"{MUSIC_BATCH * cfg.n_codebooks} code streams identical, {exempt} exempt; probe on {window.shape[0]} "
+          f"hidden rows: oracle rel err {err:.3g}, launches " + ", ".join(f"{k}={counts[k]}" for k in LM_PROBE_KERNELS),
+          flush=True)
+    return counts
+
+
+def _arch_audio_timed(ph, name, cfg, params, dev, smi):
+    """musicgen-large bf16: three timed generate calls (prefill and decode
+    step ms from host clocks around synced steps)."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from repro_torch.serve.common import make_prompt
+    from repro_torch.train.serve import greedy_generate, make_decode_step, make_prefill_step
+
+    prompt = make_prompt(cfg, SEED + 10, MUSIC_BATCH, MUSIC_PROMPT, device=dev)
+    times = {"prefill": [], "decode": []}
+    steps = (_timed(times, "prefill", make_prefill_step(cfg), sync=True),
+             _timed(times, "decode", make_decode_step(cfg), sync=True))
+    greedy_generate(params, cfg, prompt, 2, steps=steps)  # warm-up, not counted
+    times["prefill"].clear()
+    times["decode"].clear()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        out = greedy_generate(params, cfg, prompt, MUSIC_NEW, steps=steps)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    ph.check(bool(torch.isfinite(out.float()).all()), f"[archs] {name} bf16: non-finite output")
+    ttft = np.asarray(times["prefill"])
+    n_tok = MUSIC_BATCH * MUSIC_NEW
+    print(f"[archs] {name} bf16 timed: generate {MUSIC_BATCH} x ({MUSIC_PROMPT} + {MUSIC_NEW}) x "
+          f"{cfg.n_codebooks} codes, 3 runs: tok_per_s={n_tok / statistics.median(walls):.1f} (codes steps per s "
+          f"across the batch) ttft_p50_ms={np.percentile(ttft, 50):.3f} ttft_p99_ms={np.percentile(ttft, 99):.3f} "
+          f"decode_tick_ms median={statistics.median(times['decode']):.3f} prefill_ms "
+          f"median={statistics.median(times['prefill']):.3f} | {smi}", flush=True)
+
+
+def _arch_timed(ph, name, cfg, params, dev, stream, n_slots, max_len, max_prompt, paged, smi):
+    """bf16 on the kernel route: tok/s, TTFT p50 / p99, decode tick and
+    prefill ms of one continuous-engine run (host clocks; both steps end in
+    a host sync)."""
+    import statistics
+
+    import numpy as np
+
+    from repro_torch import kernels
+
+    kw = dict(paged=True, page_size=LM_PAGE) if paged else {}
+    svc = _lm_service(cfg, params, dev, n_slots, max_len, max_prompt, probe=True, **kw)
+    eng = svc.engine
+    times = {"decode": [], "insert": []}
+    eng.decode_step, eng.insert = _timed(times, "decode", eng.decode_step), _timed(times, "insert", eng.insert)
+    kernels.reset_launch_counts()
+    outs, wall, futs = _lm_drive(svc, stream)
+    counts = kernels.launch_counts()
+    ticks = eng.pool.steps
+    m = svc.metrics()
+    tag = f"[archs] {name} bf16"
+    if paged:
+        ph.check(counts["paged_attention"] == _attn_layers(cfg) * ticks > 0,
+                 f"{tag}: paged_attention launched {counts['paged_attention']} times in {ticks} ticks")
+    for k in LM_PROBE_KERNELS:
+        ph.check(counts[k] > 0, f"{tag}: the probe never launched {k}")
+    ph.check(m["dispatch_errors"] == 0, f"{tag}: dispatch_errors={m['dispatch_errors']}")
+    ph.check(all(o.shape == (mn,) for o, (_, mn) in zip(outs, stream)), f"{tag}: wrong output lengths")
+    ttft = np.asarray([f.ttft_s for f in futs]) * 1e3
+    n_tok = sum(len(o) for o in outs)
+    print(f"{tag} timed: {len(stream)} requests {n_tok} tokens {n_slots} slots "
+          f"{'paged' if paged else 'dense'} wall_s={wall:.4f} tok_per_s={n_tok / wall:.1f} "
+          f"ttft_p50_ms={np.percentile(ttft, 50):.3f} ttft_p99_ms={np.percentile(ttft, 99):.3f} "
+          f"decode_tick_ms median={statistics.median(times['decode']):.3f} ({ticks} ticks) "
+          f"prefill_ms median={statistics.median(times['insert']):.3f} max={max(times['insert']):.3f} | launches "
+          f"{dict((k, v) for k, v in counts.items() if v)} | {smi}", flush=True)
+    return counts
+
+
+def phase_archs(ph: Phase, dev):
+    """The nine other LM archs (``ARCH_RUNS``): f32 gates, then one bf16
+    timed line each; returns the launch counts of the runs."""
+    import gc
+
+    import torch
+
+    from repro_torch.kernels.utils import next_multiple
+    from repro_torch.serve.loadgen import LMLoadConfig
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    load = LMLoadConfig(**ARCH_LOAD)
+    max_len = next_multiple(load.max_request_len + 8, LM_PAGE)
+    max_prompt = max(load.prompt_lens)
+    total = {}
+    for name, depth in ARCH_RUNS:
+        t0 = time.perf_counter()
+        for dtype in (torch.float32, torch.bfloat16):
+            gc.collect()
+            torch.cuda.empty_cache()
+            before = torch.cuda.memory_allocated()
+            cfg, params = _arch_model(name, depth, dtype, dev)
+            gib = (torch.cuda.memory_allocated() - before) / 2**30
+            stream = load.request_stream(cfg.vocab_size)
+            print(f"[archs] {name}: {cfg.n_layers} layers d={cfg.d_model} heads {cfg.n_heads}/{cfg.n_kv_heads} "
+                  f"hd={cfg.hd} vocab={cfg.vocab_size} {str(dtype)[6:]} weights {gib:.2f} GiB; {len(stream)} "
+                  f"requests, {LM_SLOTS} slots, max_len {max_len}", flush=True)
+            if dtype == torch.float32:
+                if cfg.frontend == "audio_codes":
+                    counts = _arch_audio(ph, name, cfg, params, dev)
+                elif cfg.is_attention_free:
+                    counts = _arch_recurrent(ph, name, cfg, params, dev, stream, max_len, max_prompt)
+                else:
+                    counts = _lm_checked_run(ph, f"[archs] {name} f32", cfg, params, dev, stream, LM_SLOTS,
+                                             max_len, max_prompt)
+            elif cfg.frontend == "audio_codes":
+                _arch_audio_timed(ph, name, cfg, params, dev, smi)
+                counts = {}
+            else:
+                counts = _arch_timed(ph, name, cfg, params, dev, stream, LM_SLOTS, max_len, max_prompt,
+                                     not cfg.is_attention_free, smi)
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+            del params
+        print(f"[archs] {name}: {time.perf_counter() - t0:.1f}s", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -1978,7 +2349,8 @@ def main() -> int:
     ph.run("profile", phase_profile, ph, dev)
     train_fwd, train_bwd = ph.run("train", phase_train, ph, dev) or ({}, {})
     lm = ph.run("lm", phase_lm, ph, dev) or {}
-    for part in (train_fwd, lm):
+    archs = ph.run("archs", phase_archs, ph, dev) or {}
+    for part in (train_fwd, lm, archs):
         for k, v in part.items():
             launches[k] = launches.get(k, 0) + v
     for name in REPLACES:

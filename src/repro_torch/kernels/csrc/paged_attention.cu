@@ -63,8 +63,15 @@
 // computes, so a block streams well below the card's rate (about a third of
 // the bound); a ring of rows staged in shared memory is the next step.
 // Any page size >= 1 works: rows are addressed one by one through
-// tables[b, t / page] and t % page.  hd <= 256 and n_rep <= 8 (the wrapper
-// checks): the register arrays are sized by the templates below.  No TPU
+// tables[b, t / page] and t % page.  hd <= 256 (the wrapper checks); the
+// register arrays are sized by the templates below for up to 8 query rows.
+// A kv head with n_rep > 8 (nemotron-4-340b: 12) is split into NG groups of
+// n_rep / NG <= 8 rows (NG the smallest divisor that fits), each a block of
+// its own on the grid's x axis: the group reads its kv head's rows once
+// more, and every other ratio of the port's archs (1 to 8) keeps NG = 1.
+// A 16-row template instance, the other way, holds 2 x 16 x VEC registers
+// of query rows and accumulators: 256 at hd = 192 (VEC = 8), past the 255 a
+// thread may have, so it would spill.  No TPU
 // tile padding (the reference's kv / n_rep / hd zero-pads to (8, 128) tiles).
 // Pages must be 16-byte aligned (the wrapper checks).  Plain f32 FMA, no
 // tensor cores.
@@ -120,8 +127,8 @@ template <typename T, int VEC, int NREP, int U, int WARPS, bool FULL>
 __global__ void __launch_bounds__(32 * WARPS) paged_decode_kernel(
     const float* __restrict__ q, const T* __restrict__ k_pages, const T* __restrict__ v_pages,
     const int* __restrict__ tables, const int* __restrict__ lens, float* __restrict__ out,
-    float* __restrict__ part, int kv, int n_rep, int hd, int page, int nb, float scale, float softcap,
-    int window) {
+    float* __restrict__ part, int kv, int ng, int n_rep, int hd, int page, int nb, float scale,
+    float softcap, int window) {
   constexpr int TPB = 32 * WARPS;
   // query rows merged at a time (<= 32 KB of accumulators)
   constexpr int G = NREP < 256 / (WARPS * VEC) ? NREP : 256 / (WARPS * VEC);
@@ -131,14 +138,18 @@ __global__ void __launch_bounds__(32 * WARPS) paged_decode_kernel(
   __shared__ float red_big[G];
   __shared__ float red_acc[G][WARPS][32 * VEC];
 
-  const int g = blockIdx.x;  // kv head
+  // g: a group of n_rep query rows of kv head g / ng; q, out and the
+  // partials index by group (kvg = kv * ng groups of n_rep rows each)
+  const int g = blockIdx.x;
+  const int kvg = gridDim.x;
   const int b = blockIdx.y;  // slot
   const int s = blockIdx.z;  // split
   const int splits = gridDim.z;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int d0 = lane * VEC;
-  const int h_all = kv * n_rep;
+  const int h_all = kvg * n_rep;
+  const int gk = g / ng;  // the kv head the pages hold
   const int* trow = tables + (long long)b * nb;
 
   // issued together: the length and the query rows
@@ -160,7 +171,7 @@ __global__ void __launch_bounds__(32 * WARPS) paged_decode_kernel(
   const int lo = window > 0 ? max(len - window, 0) : 0;
   const int r0 = lo + s * CH;
   const int r1 = min(r0 + CH, len);
-  const long long bgs = ((long long)b * kv + g) * splits + s;
+  const long long bgs = ((long long)b * kvg + g) * splits + s;
   if (r0 >= r1) {  // no live row (block-uniform): the neutral state
     for (int e = threadIdx.x; e < n_rep * hd; e += TPB) {
       if (splits == 1) {
@@ -168,7 +179,7 @@ __global__ void __launch_bounds__(32 * WARPS) paged_decode_kernel(
       } else {
         part[part_acc(bgs, n_rep, hd) + e] = 0.f;
         if (e % hd == 0) {
-          const long long ml = part_ml(bgs, (long long)gridDim.y * kv * splits, n_rep, hd) + 2 * (e / hd);
+          const long long ml = part_ml(bgs, (long long)gridDim.y * kvg * splits, n_rep, hd) + 2 * (e / hd);
           part[ml] = NEG_INF;
           part[ml + 1] = 0.f;
         }
@@ -185,7 +196,7 @@ __global__ void __launch_bounds__(32 * WARPS) paged_decode_kernel(
       const int t = t0 + u;
       if (t < r1) {
         const long long phys = __ldg(trow + t / page);
-        const long long base = ((phys * page + t % page) * kv + g) * (long long)hd;
+        const long long base = ((phys * page + t % page) * kv + gk) * (long long)hd;
         load_row<T, VEC, FULL>(k_pages + base, d0, hd, kx[u]);
         load_row<T, VEC, FULL>(v_pages + base, d0, hd, vx[u]);
       } else {
@@ -245,7 +256,7 @@ __global__ void __launch_bounds__(32 * WARPS) paged_decode_kernel(
 
   // merge the warps' states, G query rows behind one barrier; the block's
   // own result (S = 1) or its partial state (S > 1)
-  const long long ml0 = part_ml(bgs, (long long)gridDim.y * kv * splits, n_rep, hd);
+  const long long ml0 = part_ml(bgs, (long long)gridDim.y * kvg * splits, n_rep, hd);
 #pragma unroll
   for (int rg = 0; rg < NREP; rg += G) {
     if (rg >= n_rep) break;  // block-uniform
@@ -342,34 +353,36 @@ __global__ void __launch_bounds__(CT) paged_combine_kernel(const float* __restri
 
 template <typename T, int VEC, int NREP>
 cudaError_t launch(const float* q, const void* k, const void* v, const int* tables, const int* lens,
-                   float* out, float* part, int b, int kv, int n_rep, int hd, int page, int nb, int splits,
-                   float scale, float softcap, int window, cudaStream_t stream) {
+                   float* out, float* part, int b, int kv, int ng, int n_rep, int hd, int page, int nb,
+                   int splits, float scale, float softcap, int window, cudaStream_t stream) {
   // U rows per warp trip while the row registers stay small; 16 warps a
   // block where a thread's registers fit the 128 that 512 threads allow
   // (gemma2's n_rep = 2 at hd = 256), else 8
   constexpr int U = (NREP * VEC <= 32) ? 4 : (NREP * VEC <= 64 ? 2 : 1);
   constexpr int WARPS = NREP * VEC <= 16 ? 16 : 8;
-  const dim3 grid(kv, b, splits);
+  const dim3 grid(kv * ng, b, splits);
   const T* kp = static_cast<const T*>(k);
   const T* vp = static_cast<const T*>(v);
   if (hd == 32 * VEC)
     paged_decode_kernel<T, VEC, NREP, U, WARPS, true><<<grid, 32 * WARPS, 0, stream>>>(
-        q, kp, vp, tables, lens, out, part, kv, n_rep, hd, page, nb, scale, softcap, window);
+        q, kp, vp, tables, lens, out, part, kv, ng, n_rep, hd, page, nb, scale, softcap, window);
   else
     paged_decode_kernel<T, VEC, NREP, U, WARPS, false><<<grid, 32 * WARPS, 0, stream>>>(
-        q, kp, vp, tables, lens, out, part, kv, n_rep, hd, page, nb, scale, softcap, window);
+        q, kp, vp, tables, lens, out, part, kv, ng, n_rep, hd, page, nb, scale, softcap, window);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
-  paged_combine_kernel<<<dim3(kv, b, (n_rep * hd + CT - 1) / CT), CT, 0, stream>>>(part, out, kv, n_rep, hd, splits);
+  paged_combine_kernel<<<dim3(kv * ng, b, (n_rep * hd + CT - 1) / CT), CT, 0, stream>>>(part, out, kv * ng, n_rep,
+                                                                                        hd, splits);
   return cudaGetLastError();
 }
 
-#define PA_ARGS q, k, v, tables, lens, out, part, b, kv, n_rep, hd, page, nb, splits, scale, softcap, window, stream
+#define PA_ARGS q, k, v, tables, lens, out, part, b, kv, ng, n_rep, hd, page, nb, splits, scale, softcap, window, stream
 
 template <typename T, int VEC>
 cudaError_t by_nrep(const float* q, const void* k, const void* v, const int* tables, const int* lens,
-                    float* out, float* part, int b, int kv, int n_rep, int hd, int page, int nb, int splits,
-                    float scale, float softcap, int window, cudaStream_t stream) {
+                    float* out, float* part, int b, int kv, int ng, int n_rep, int hd, int page, int nb,
+                    int splits, float scale, float softcap, int window, cudaStream_t stream) {
+  // n_rep: the rows of one group (<= 8)
   if (n_rep <= 1) return launch<T, VEC, 1>(PA_ARGS);
   if (n_rep <= 2) return launch<T, VEC, 2>(PA_ARGS);
   if (n_rep <= 4) return launch<T, VEC, 4>(PA_ARGS);
@@ -379,8 +392,8 @@ cudaError_t by_nrep(const float* q, const void* k, const void* v, const int* tab
 
 template <typename T>
 cudaError_t by_vec(const float* q, const void* k, const void* v, const int* tables, const int* lens,
-                   float* out, float* part, int b, int kv, int n_rep, int hd, int page, int nb, int splits,
-                   float scale, float softcap, int window, cudaStream_t stream) {
+                   float* out, float* part, int b, int kv, int ng, int n_rep, int hd, int page, int nb,
+                   int splits, float scale, float softcap, int window, cudaStream_t stream) {
   if (hd <= 32) return by_nrep<T, 1>(PA_ARGS);
   if (hd <= 64) return by_nrep<T, 2>(PA_ARGS);
   if (hd <= 128) return by_nrep<T, 4>(PA_ARGS);
@@ -404,9 +417,16 @@ int paged_attention_decode(const float* q, const void* k, const void* v, const i
     return (int)cudaErrorInvalidValue;
   const long long rows = window > 0 ? std::min((long long)nb * page, (long long)window) : (long long)nb * page;
   if ((long long)splits * CH < rows || (splits > 1 && part == nullptr)) return (int)cudaErrorInvalidValue;
-  cudaError_t err = dtype == 0   ? by_vec<float>(PA_ARGS)
-                    : dtype == 1 ? by_vec<__nv_bfloat16>(PA_ARGS)
+  // the query rows of a kv head in ng groups of at most 8 (any GQA ratio)
+  int ng = 1;
+  while (n_rep % ng || n_rep / ng > 8) ++ng;
+  const int n_grp = n_rep / ng;
+#define PA_GROUP_ARGS q, k, v, tables, lens, out, part, b, kv, ng, n_grp, hd, page, nb, splits, scale, softcap, \
+    window, stream
+  cudaError_t err = dtype == 0   ? by_vec<float>(PA_GROUP_ARGS)
+                    : dtype == 1 ? by_vec<__nv_bfloat16>(PA_GROUP_ARGS)
                                  : cudaErrorInvalidValue;
+#undef PA_GROUP_ARGS
   return (int)err;
 }
 #undef PA_ARGS

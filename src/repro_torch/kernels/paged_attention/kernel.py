@@ -26,10 +26,11 @@ from repro_torch.kernels.utils import route
 
 Tensor = torch.Tensor
 FAMILY = "paged_attention"
-# the kernel keeps a warp's share of each head row and of every query row of
-# a kv head in registers: hd <= 32 * 8 and n_rep <= 8 (gemma2: 256 and 2)
+# the kernel keeps a warp's share of each head row and of up to 8 query rows
+# in registers: hd <= 32 * 8 (gemma2: 256); a kv head with more query rows
+# (nemotron-4-340b: 12) is split into groups of <= 8 rows on the grid, so
+# every GQA ratio is served
 MAX_HEAD_DIM = 256
-MAX_N_REP = 8
 PAGE_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # rows of a slot one block of the kernel takes (``CH`` in paged_attention.cu)
 CHUNK = 256
@@ -84,8 +85,8 @@ def paged_decode_attention(
         )
     n_rep = h // kv
     nb = block_tables.shape[-1]
-    if hd > MAX_HEAD_DIM or n_rep > MAX_N_REP:
-        raise ValueError(f"paged_attention: head_dim {hd} > {MAX_HEAD_DIM} or n_rep {n_rep} > {MAX_N_REP}")
+    if hd > MAX_HEAD_DIM:
+        raise ValueError(f"paged_attention: head_dim {hd} > {MAX_HEAD_DIM}")
     _check("q", q, (b, h, hd), (torch.float32,))
     _check("k_pages", k_pages, (p_total, page, kv, hd), tuple(PAGE_DTYPES))
     _check("v_pages", v_pages, (p_total, page, kv, hd), (k_pages.dtype,))

@@ -1,5 +1,7 @@
-"""repro_torch.models — the decoder LM of the serving path (dense attention
-patterns: GQA, RoPE, local / global windows, logit softcaps)."""
+"""repro_torch.models — the decoder LMs of the serving path: attention (GQA,
+RoPE and M-RoPE, local / global windows, logit softcaps), MoE FFNs, Mamba
+and RWKV6 mixers, and the vision-stub and audio-code frontends — every arch
+of ``repro_torch.configs``."""
 
 from repro_torch.models.common import ArchConfig, BlockSpec
 from repro_torch.models.transformer import (

@@ -10,8 +10,8 @@ dict.  Prompts longer than ``cfg.attn_chunk_threshold`` (a multiple of
 an online softmax over the static list of causal chunk pairs, so the score
 work is the causal half and no (S, S) score matrix is built.  It is plain
 PyTorch, as the reference's is plain JAX (no Pallas kernel there); SDPA
-cannot stand in, since it cannot apply gemma's logit softcap.  M-RoPE
-belongs to a later slice.
+cannot stand in, since it cannot apply gemma's logit softcap.  Qwen2-VL's
+M-RoPE rotates by three position streams ((3, B, S) positions).
 """
 
 from __future__ import annotations
@@ -52,6 +52,23 @@ def apply_rope(x: Tensor, positions: Tensor, theta: float) -> Tensor:
     return out.to(x.dtype)
 
 
+def apply_mrope(x: Tensor, positions: Tensor, theta: float, sections: Tuple[int, ...]) -> Tensor:
+    """Qwen2-VL multimodal RoPE.  positions: (3, B, S) — the temporal, height
+    and width streams; ``sections`` split the hd / 2 frequencies among them
+    (the first ``sections[0]`` rotate by stream 0, and so on)."""
+    hd = x.shape[-1]
+    assert sum(sections) == hd // 2, (sections, hd)
+    freqs = _rope_freqs(hd, theta, x.device)
+    ang_streams = positions[..., None].float() * freqs  # (3, B, S, hd/2)
+    sel = torch.cat([torch.full((n,), i, dtype=torch.long) for i, n in enumerate(sections)]).to(x.device)
+    ang = torch.gather(ang_streams, 0, sel.expand_as(ang_streams)[:1])[0]  # (B, S, hd/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Parameters
 # ---------------------------------------------------------------------------
@@ -77,8 +94,14 @@ def _project_qkv(params, x: Tensor, cfg: ArchConfig, positions: Tensor):
         q = q + params["bq"].to(cd)
         k = k + params["bk"].to(cd)
         v = v + params["bv"].to(cd)
-    q = apply_rope(q.reshape(b, s, h, hd), positions, cfg.rope_theta)
-    k = apply_rope(k.reshape(b, s, kv, hd), positions, cfg.rope_theta)
+    q, k = q.reshape(b, s, h, hd), k.reshape(b, s, kv, hd)
+    if cfg.mrope:
+        q = apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+    else:
+        pos2d = positions if positions.dim() == 2 else positions[0]
+        q = apply_rope(q, pos2d, cfg.rope_theta)
+        k = apply_rope(k, pos2d, cfg.rope_theta)
     return q, k, v.reshape(b, s, kv, hd)
 
 
@@ -244,9 +267,20 @@ def _paged_decode(q, k, v, cache, cache_len, block_tables, cfg: ArchConfig, spec
     )
     cl = cl.long()
     tables = block_tables.long()
-    phys = tables[torch.arange(b, device=q.device), cl // page]
-    kp[phys, cl % page] = k[:, 0].to(kp.dtype)
-    vp[phys, cl % page] = v[:, 0].to(vp.dtype)
+    lanes = torch.arange(b, device=q.device)
+    phys, row = tables[lanes, cl // page], cl % page
+    kw, vw = k[:, 0], v[:, 0]
+    if cfg.n_experts:
+        # every free lane writes row 0 of the sentinel page and reads it back,
+        # and MoE capacity lets a free lane's row take a real token's seat: so
+        # lanes that share a row all write the last such lane's values (the
+        # reference's sequential scatter), not whichever write lands last on
+        # the card
+        tgt = phys * page + row
+        last = torch.where(tgt[:, None] == tgt[None, :], lanes, -1).amax(dim=1)
+        kw, vw = kw[last], vw[last]
+    kp[phys, row] = kw.to(kp.dtype)
+    vp[phys, row] = vw.to(vp.dtype)
     if use_kernel(kp, impl):
         out = paged_decode_attention(
             q[:, 0].float().contiguous(), kp, vp,

@@ -7,9 +7,10 @@ position are stacked across its repetitions (leading ``repeats`` axis), the
 reference's ``lax.scan`` layout, so one layer's weights are a contiguous
 slice ``leaf[r]`` and the reference's parameters carry over leaf for leaf.
 
-Dtypes are torch dtypes.  Only the dense attention families are ported here;
-MoE, Mamba / RWKV and M-RoPE belong to a later slice and raise where the
-model would reach them.
+Dtypes are torch dtypes.  Every family of the reference is ported: dense
+attention (GQA, RoPE and M-RoPE, local / global windows, softcaps), MoE
+FFNs (``models.moe``), Mamba and RWKV6 mixers (``models.ssm``) and the
+vision-stub and audio-code frontends.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ class BlockSpec:
 
     mixer: str = "attn"  # attn | mamba | rwkv
     attn_type: str = "global"  # global | local (sliding window)
-    ffn: str = "dense"  # dense | moe | none
+    ffn: str = "dense"  # dense | moe | rwkv_cmix | none
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,19 +51,37 @@ class ArchConfig:
 
     # attention options
     rope_theta: float = 10000.0
-    mrope: bool = False
+    mrope: bool = False  # qwen2-vl multimodal RoPE (3 position streams)
+    mrope_sections: Tuple[int, ...] = (16, 24, 24)  # halves of head_dim
     qkv_bias: bool = False
     attn_softcap: Optional[float] = None  # gemma2: 50.0
     final_softcap: Optional[float] = None  # gemma2: 30.0
     window_size: int = 4096  # for local layers
     attn_scale: Optional[float] = None
-    # beyond this many prompt tokens the reference switches to its chunked
-    # (flash-style) prefill, which a later slice ports
+    # beyond this many prompt tokens (a multiple of the chunk) the prefill
+    # takes the chunked, flash-style path (``attention._chunked_attention``)
     attn_chunk_threshold: int = 8192
     attn_chunk_size: int = 2048
 
     # mlp
     activation: str = "swiglu"  # swiglu | gelu | squared_relu
+
+    # moe
+    n_experts: int = 0
+    top_k: int = 0
+    moe_d_ff: Optional[int] = None
+    dense_residual: bool = False  # arctic: dense MLP in parallel with the MoE
+    shared_expert: bool = False  # llama4: always-on shared expert
+    capacity_factor: float = 1.25
+    moe_group_size: Optional[int] = None  # dispatch per G-token group
+
+    # ssm (mamba)
+    ssm_d_state: int = 16
+    ssm_d_conv: int = 4
+    ssm_expand: int = 2
+    # rwkv6
+    rwkv_head_dim: int = 64
+    rwkv_chunk: Optional[int] = None  # chunk-parallel prefill recurrence
 
     # norms / embeddings
     rms_eps: float = 1e-6
@@ -70,6 +89,7 @@ class ArchConfig:
     scale_embed: bool = False  # gemma2: * sqrt(d_model)
     tie_embeddings: bool = True
     frontend: str = "none"  # none | vision_stub | audio_codes
+    n_codebooks: int = 4  # musicgen
 
     # dtypes
     param_dtype: torch.dtype = torch.bfloat16
@@ -93,17 +113,51 @@ class ArchConfig:
         """Per-head width."""
         return self.head_dim if self.head_dim is not None else self.d_model // max(self.n_heads, 1)
 
+    @property
+    def is_attention_free(self) -> bool:
+        """True when no pattern position attends (RWKV)."""
+        return all(b.mixer != "attn" for b in self.pattern)
+
     def param_count(self) -> int:
-        """Total parameter count (embedding + blocks; dense attention families)."""
-        d, ff, hd, h, kv = self.d_model, self.d_ff, self.hd, self.n_heads, self.n_kv_heads
-        total = self.vocab_size * d * (1 if self.tie_embeddings else 2) + d  # + final norm
+        """Approximate total parameter count (embeddings + blocks), as the
+        reference computes it — its undercount included: the RWKV mixer is
+        reckoned at 6 d^2 and neither the RWKV channel mix nor the audio
+        embeddings and heads are counted."""
+        d, ff = self.d_model, self.d_ff
+        hd, h, kv = self.hd, self.n_heads, self.n_kv_heads
         mults = 3 if self.activation in ("swiglu", "geglu") else 2
+        total = self.vocab_size * d * (1 if self.tie_embeddings else 2)
         for spec in self.pattern:
-            blk = d * (h * hd) + 2 * d * (kv * hd) + (h * hd) * d if spec.mixer == "attn" else 0
-            blk += mults * d * ff if spec.ffn == "dense" else 0
-            blk += (4 if self.post_block_norm else 2) * d
+            blk = 0
+            if spec.mixer == "attn":
+                blk += d * (h * hd) + 2 * d * (kv * hd) + (h * hd) * d
+            elif spec.mixer == "mamba":
+                di = self.ssm_expand * d
+                blk += d * 2 * di + di * (2 * self.ssm_d_state + di // 8) + di * d
+            elif spec.mixer == "rwkv":
+                blk += 4 * d * d + 2 * d * d
+            if spec.ffn == "dense":
+                blk += mults * d * ff
+            elif spec.ffn == "moe":
+                mdff = self.moe_d_ff or ff
+                blk += self.n_experts * mults * d * mdff + d * self.n_experts
+                if self.dense_residual:
+                    blk += mults * d * ff
+                if self.shared_expert:
+                    blk += mults * d * mdff
+            blk += 2 * d  # norms
             total += blk * self.repeats
         return total
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: top_k of n_experts)."""
+        if self.n_experts == 0:
+            return self.param_count()
+        mdff = self.moe_d_ff or self.d_ff
+        mults = 3 if self.activation in ("swiglu", "geglu") else 2
+        per_expert = mults * self.d_model * mdff
+        n_moe = sum(1 for spec in self.pattern if spec.ffn == "moe")
+        return self.param_count() - n_moe * (self.n_experts - self.top_k) * per_expert * self.repeats
 
     def reduced(self, **overrides) -> "ArchConfig":
         """Small same-family config for CPU tests (the reference's reduction)."""
@@ -116,36 +170,18 @@ class ArchConfig:
             head_dim=16,
             d_ff=128,
             vocab_size=256,
+            n_experts=min(self.n_experts, 4) if self.n_experts else 0,
+            top_k=min(self.top_k, 2) if self.top_k else 0,
+            moe_d_ff=64 if self.n_experts else None,
             window_size=16,
+            ssm_d_state=8,
+            rwkv_head_dim=16,
             param_dtype=torch.float32,
             compute_dtype=torch.float32,
+            mrope_sections=(4, 2, 2),
         )
         small.update(overrides)
         return dataclasses.replace(self, **small)
-
-
-def unsupported(cfg: ArchConfig) -> Optional[str]:
-    """Why this port cannot run ``cfg`` yet (None when it can)."""
-    if cfg.frontend != "none":
-        return f"frontend {cfg.frontend!r}"
-    if cfg.mrope:
-        return "M-RoPE"
-    for spec in cfg.pattern:
-        if spec.mixer != "attn":
-            return f"{spec.mixer} mixers"
-        if spec.ffn != "dense":
-            return f"{spec.ffn} FFNs"
-    return None
-
-
-def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for the families a later slice ports."""
-    why = unsupported(cfg)
-    if why is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: {why} are not ported yet (slice 3b of the port: MoE, "
-            "Mamba / RWKV and M-RoPE model families)"
-        )
 
 
 # ---------------------------------------------------------------------------
@@ -165,7 +201,7 @@ def rms_norm(x: Tensor, weight: Tensor, eps: float = 1e-6) -> Tensor:
 def dense_init(gen: torch.Generator, shape: Tuple[int, ...], dtype, device=None) -> Tensor:
     """normal / sqrt(d_in) weights (``d_in`` = ``shape[-2]``), drawn in f32."""
     w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-    return (w * (1.0 / math.sqrt(shape[-2]))).to(dtype)
+    return w.mul_(1.0 / math.sqrt(shape[-2])).to(dtype)  # in place: no second f32 copy of a large leaf
 
 
 def softcap(x: Tensor, cap: Optional[float]) -> Tensor:

@@ -1,20 +1,29 @@
 """Generic decoder stack over a repeating block pattern (port of
-``repro/models/transformer.py``, dense attention families).
+``repro/models/transformer.py``).
 
 Parameters keep the reference's stacked layout: ``params["blocks"]["pos{i}"]``
 holds pattern position i's leaves with a leading ``repeats`` axis (the
 reference's ``lax.scan`` axis), and layer ``r`` of that position reads the
 contiguous slice ``leaf[r]``.  Where the reference scans, the port loops:
 repetition by repetition, pattern position by position.  Caches are stacked
-the same way — dense ``(repeats, B, L, KV, hd)`` or paged ``(repeats, P,
-page, KV, hd)`` per position — so one layer's page pool ``pool[r]`` is a
-contiguous slab the paged-attention kernel reads.
+the same way per position: an attention position holds dense ``(repeats,
+B, L, KV, hd)`` rows or a paged ``(repeats, P, page, KV, hd)`` pool (one
+layer's pool ``pool[r]`` is a contiguous slab the paged-attention kernel
+reads), a Mamba or RWKV position its per-slot recurrent state
+``(repeats, B, ...)`` in both layouts.
+
+A position's mixer is attention, Mamba or RWKV6 (``models.ssm``), its FFN a
+dense MLP, an MoE (``models.moe``) or RWKV's channel mix.  The frontends:
+``vision_stub`` models take ``embeds`` (precomputed patch embeddings) and
+(3, B, S) M-RoPE positions; ``audio_codes`` models take (B, S, n_codebooks)
+codes, sum one embedding per codebook and predict n_codebooks heads.
 
 Modes (all through ``forward``):
   * score:    caches=None — full-sequence causal forward
-  * prefill:  caches given, S > 1 — fills rows [0, S) in place; with
-    ``chunked_prefill`` the chunk fills rows [cache_len, cache_len + S) and
-    attends over the prefix already written
+  * prefill:  caches given, S > 1 — fills rows [0, S) in place (recurrent
+    positions start from the state they are given and carry it forward);
+    with ``chunked_prefill`` the chunk fills rows [cache_len, cache_len + S)
+    and attends over the prefix already written (attention patterns only)
   * decode:   caches given, S == 1 — one token at ``cache_len`` (scalar or
     per-slot), through block tables when the caches are page pools
 """
@@ -29,26 +38,32 @@ import torch
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.models import attention as attn_lib
-from repro_torch.models.common import (
-    ArchConfig,
-    BlockSpec,
-    check_supported,
-    dense_init,
-    mlp_apply,
-    rms_norm,
-    softcap,
-)
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
+from repro_torch.models.common import ArchConfig, BlockSpec, dense_init, mlp_apply, rms_norm, softcap
 
 Tensor = torch.Tensor
 
+# leaves the reference keeps in f32 whatever the param dtype
+F32_LEAVES = ("router", "a_log", "d_skip", "decay_base", "bonus_u", "ln_x")
+# leaves initialised to a constant (norm weights and biases: zero)
+_CONST_INIT = {"dt_bias": -4.6, "mu_base": 0.5, "mu": 0.5, "decay_base": -5.0, "ln_x": 1.0, "d_skip": 1.0,
+               "cmix_mu_k": 0.5, "cmix_mu_r": 0.5, "conv_b": 0.0, "bq": 0.0, "bk": 0.0, "bv": 0.0}
+# leaves initialised to normal * scale (the rest: normal / sqrt(d_in))
+_NORMAL_INIT = {"embed": 0.02, "conv_w": 0.1, "lora_b": 0.01, "decay_lora_b": 0.01, "bonus_u": 0.1}
+
 
 class ModelOutput(NamedTuple):
-    """``logits`` (f32; None when ``head=False``), final ``hidden`` states
-    (pre-head, the decorrelation probe's target) and the (updated) caches."""
+    """``logits`` (f32; None when ``head=False``; (…, n_codebooks, V) for
+    audio codes), final ``hidden`` states (pre-head, the decorrelation
+    probe's target), the (updated) caches and ``aux`` (``moe_aux``: the
+    MoE load-balance loss averaged over the layers; a host zero without
+    MoE)."""
 
     logits: Optional[Tensor]
     hidden: Tensor
     caches: Optional[Dict[str, Any]]
+    aux: Dict[str, Tensor]
 
 
 # ---------------------------------------------------------------------------
@@ -56,52 +71,78 @@ class ModelOutput(NamedTuple):
 # ---------------------------------------------------------------------------
 
 
+def _block_shapes(cfg: ArchConfig, spec: BlockSpec) -> Dict[str, Any]:
+    d = cfg.d_model
+    p: Dict[str, Any] = {"norm1": (d,), "norm2": (d,)}
+    if cfg.post_block_norm:
+        p["post_norm1"] = (d,)
+        p["post_norm2"] = (d,)
+    if spec.mixer == "attn":
+        p["attn"] = attn_lib.attn_shapes(cfg)
+    elif spec.mixer == "mamba":
+        p["mamba"] = ssm_lib.mamba_shapes(cfg)
+    elif spec.mixer == "rwkv":
+        p["rwkv"] = ssm_lib.rwkv_shapes(cfg)
+    if spec.ffn == "dense":
+        p["mlp"] = moe_lib.mlp_shapes(cfg, cfg.d_ff)
+    elif spec.ffn == "moe":
+        p["moe"] = moe_lib.moe_shapes(cfg)
+    return p
+
+
 def param_shapes(cfg: ArchConfig) -> Dict[str, Any]:
     """Nested dict of every parameter's shape (stacked block leaves lead with
     ``repeats``) — the layout ``init_params`` builds and ``params_from_jax``
     checks the reference's leaves against."""
-    check_supported(cfg)
     d, r = cfg.d_model, cfg.repeats
-    shapes: Dict[str, Any] = {"embed": (cfg.vocab_size, d), "final_norm": (d,)}
-    if not cfg.tie_embeddings:
-        shapes["lm_head"] = (d, cfg.vocab_size)
-    mlp = {"w_in": (d, cfg.d_ff), "w_out": (cfg.d_ff, d)}
-    if cfg.activation in ("swiglu", "geglu"):
-        mlp["w_gate"] = (d, cfg.d_ff)
-    blocks = {}
-    for pos, _spec in enumerate(cfg.pattern):
-        p: Dict[str, Any] = {"norm1": (r, d), "norm2": (r, d)}
-        if cfg.post_block_norm:
-            p["post_norm1"] = (r, d)
-            p["post_norm2"] = (r, d)
-        p["attn"] = {k: (r,) + s for k, s in attn_lib.attn_shapes(cfg).items()}
-        p["mlp"] = {k: (r,) + s for k, s in mlp.items()}
-        blocks[f"pos{pos}"] = p
-    shapes["blocks"] = blocks
+
+    def stack(tree):
+        return {k: stack(v) if isinstance(v, dict) else (r,) + v for k, v in tree.items()}
+
+    if cfg.frontend == "audio_codes":
+        shapes: Dict[str, Any] = {"embed": (cfg.n_codebooks, cfg.vocab_size, d),
+                                  "heads": (d, cfg.n_codebooks * cfg.vocab_size)}
+    else:
+        shapes = {"embed": (cfg.vocab_size, d)}
+        if not cfg.tie_embeddings:
+            shapes["lm_head"] = (d, cfg.vocab_size)
+    shapes["final_norm"] = (d,)
+    shapes["blocks"] = {f"pos{pos}": stack(_block_shapes(cfg, spec)) for pos, spec in enumerate(cfg.pattern)}
     return shapes
+
+
+def _leaf_dtype(cfg: ArchConfig, name: str) -> torch.dtype:
+    return torch.float32 if name in F32_LEAVES else cfg.param_dtype
 
 
 def init_params(cfg: ArchConfig, seed: int = 0, device: DeviceLike = None) -> Dict[str, Any]:
     """Random weights from one seeded ``torch.Generator`` (on ``device``:
     ``cuda`` unless ``"cpu"`` is passed), with the reference's
-    distributions: embedding normal * 0.02, dense weights normal /
-    sqrt(d_in), biases and norm weights (stored as w - 1) zero.  The numbers
-    differ from JAX's threefry stream; parity tests carry the reference's
-    own weights across with ``params_from_jax``."""
+    distributions: embeddings normal * 0.02, dense weights normal /
+    sqrt(d_in), norm weights (stored as w - 1) and biases zero, and the
+    reference's constants and small normals for the MoE router, Mamba and
+    RWKV leaves.  The numbers differ from JAX's threefry stream; parity
+    tests carry the reference's own weights across with ``params_from_jax``."""
     device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
-    pd = cfg.param_dtype
 
     def build(name: str, shape):
         if isinstance(shape, dict):
             return {k: build(k, s) for k, s in shape.items()}
-        if "norm" in name or name in ("bq", "bk", "bv"):
-            return torch.zeros(shape, dtype=pd, device=device)
-        if name == "embed":
+        dt = _leaf_dtype(cfg, name)
+        if "norm" in name:
+            return torch.zeros(shape, dtype=dt, device=device)
+        if name in _CONST_INIT:
+            return torch.full(shape, _CONST_INIT[name], dtype=dt, device=device)
+        if name == "a_log":  # log(1..N) on every channel
+            n = shape[-1]
+            a = torch.arange(1, n + 1, dtype=torch.float32, device=device)
+            return torch.log(a).expand(shape).contiguous()
+        if name in _NORMAL_INIT:
             w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-            return (w * 0.02).to(pd)
-        return dense_init(gen, shape, pd, device)
+            return w.mul_(_NORMAL_INIT[name]).to(dt)
+        return dense_init(gen, shape, dt, device)
 
     return build("", param_shapes(cfg))
 
@@ -110,8 +151,10 @@ def params_from_jax(cfg: ArchConfig, params, device: DeviceLike = None) -> Dict[
     """The reference's parameter tree (``repro.models.init_params``, leaves as
     numpy arrays or anything ``np.asarray`` takes) in the port's layout, on
     ``device`` (``cuda`` unless ``"cpu"`` is passed).  The stacked
-    ``blocks/pos{i}`` leaves carry over as they are; every leaf's shape is
-    checked against ``param_shapes(cfg)``."""
+    ``blocks/pos{i}`` leaves carry over as they are (attention, MLP, MoE
+    router and experts, dense residual / shared expert, Mamba and RWKV
+    leaves, audio embeddings and heads); every leaf's shape is checked
+    against ``param_shapes(cfg)``, and the reference's f32 leaves stay f32."""
     device = resolve_device(device)
 
     def convert(path: str, shape, leaf):
@@ -123,7 +166,8 @@ def params_from_jax(cfg: ArchConfig, params, device: DeviceLike = None) -> Dict[
         arr = np.asarray(leaf)
         if tuple(arr.shape) != tuple(shape):
             raise ValueError(f"{path}: reference shape {arr.shape} != port shape {shape}")
-        return torch.from_numpy(np.array(arr, np.float32)).to(device=device, dtype=cfg.param_dtype)
+        dtype = _leaf_dtype(cfg, path.rsplit("/", 1)[-1])
+        return torch.from_numpy(np.array(arr, np.float32)).to(device=device, dtype=dtype)
 
     return convert("", param_shapes(cfg), params)
 
@@ -142,25 +186,48 @@ def layer_params(params: Dict[str, Any], name: str, r: int) -> Dict[str, Any]:
 # ---------------------------------------------------------------------------
 
 
+def _position_cache(cfg: ArchConfig, spec: BlockSpec, batch: int, device) -> Dict[str, Tensor]:
+    """A recurrent position's per-slot state (None for attention)."""
+    if spec.mixer == "mamba":
+        return ssm_lib.mamba_init_state(cfg, batch, device, cfg.repeats)
+    if spec.mixer == "rwkv":
+        return ssm_lib.rwkv_init_state(cfg, batch, device, cfg.repeats)
+    return None
+
+
 def init_caches(cfg: ArchConfig, batch: int, max_len: int, device: DeviceLike = None) -> Dict[str, Any]:
-    """Per-pattern-position dense KV caches, (repeats, batch, max_len, KV, hd),
-    on ``device`` (``cuda`` unless ``"cpu"`` is passed)."""
+    """Per-pattern-position dense decode state, on ``device`` (``cuda``
+    unless ``"cpu"`` is passed): KV rows (repeats, batch, max_len, KV, hd)
+    for attention, zero recurrent state (repeats, batch, ...) for Mamba /
+    RWKV."""
     device = resolve_device(device)
-    return {
-        f"pos{pos}": attn_lib.init_kv_cache(cfg, batch, max_len, device, cfg.repeats)
-        for pos in range(len(cfg.pattern))
-    }
+    out = {}
+    for pos, spec in enumerate(cfg.pattern):
+        state = _position_cache(cfg, spec, batch, device)
+        out[f"pos{pos}"] = state if state is not None else attn_lib.init_kv_cache(
+            cfg, batch, max_len, device, cfg.repeats)
+    return out
 
 
-def init_paged_caches(cfg: ArchConfig, num_pages: int, page: int, device: DeviceLike = None) -> Dict[str, Any]:
-    """Per-pattern-position page pools, (repeats, num_pages, page, KV, hd),
-    shared by all slots through their block tables, on ``device`` (``cuda``
-    unless ``"cpu"`` is passed)."""
+def init_paged_caches(cfg: ArchConfig, num_pages: int, page: int, device: DeviceLike = None, *,
+                      batch: int = 1) -> Dict[str, Any]:
+    """Paged decode state per pattern position, on ``device`` (``cuda``
+    unless ``"cpu"`` is passed): attention gets a page pool (repeats,
+    num_pages, page, KV, hd) shared by all slots through their block tables;
+    Mamba / RWKV state stays dense per slot (``batch`` slots) — it is O(1)
+    in the context, so paging it buys nothing."""
     device = resolve_device(device)
-    return {
-        f"pos{pos}": attn_lib.init_paged_kv_cache(cfg, num_pages, page, device, cfg.repeats)
-        for pos in range(len(cfg.pattern))
-    }
+    out = {}
+    for pos, spec in enumerate(cfg.pattern):
+        state = _position_cache(cfg, spec, batch, device)
+        out[f"pos{pos}"] = state if state is not None else attn_lib.init_paged_kv_cache(
+            cfg, num_pages, page, device, cfg.repeats)
+    return out
+
+
+def is_paged(leafs) -> bool:
+    """True for an attention position's page pool."""
+    return "k_pages" in leafs
 
 
 # ---------------------------------------------------------------------------
@@ -170,34 +237,62 @@ def init_paged_caches(cfg: ArchConfig, num_pages: int, page: int, device: Device
 
 def _apply_block(p, x, cfg: ArchConfig, spec: BlockSpec, positions, cache, cache_len, block_tables, impl,
                  chunked_prefill=False):
+    """One layer: (x, the cache or state it leaves, its MoE aux loss or
+    None where the layer has no MoE)."""
+    aux = None
     h = rms_norm(x, p["norm1"], cfg.rms_eps)
-    out, cache = attn_lib.attn_apply(
-        p["attn"], h, cfg, spec, positions, cache, cache_len, block_tables=block_tables, impl=impl,
-        chunked=chunked_prefill,
-    )
+    if spec.mixer == "attn":
+        out, cache = attn_lib.attn_apply(
+            p["attn"], h, cfg, spec, positions, cache, cache_len, block_tables=block_tables, impl=impl,
+            chunked=chunked_prefill,
+        )
+    elif spec.mixer == "mamba":
+        out, cache = ssm_lib.mamba_apply(p["mamba"], h, cfg, cache)
+    elif spec.mixer == "rwkv":
+        out, cache = ssm_lib.rwkv_time_mix(p["rwkv"], h, cfg, cache)
+    else:
+        out = torch.zeros_like(h)
     if cfg.post_block_norm:
         out = rms_norm(out, p["post_norm1"], cfg.rms_eps)
     x = x + out
     h = rms_norm(x, p["norm2"], cfg.rms_eps)
-    out = mlp_apply(p["mlp"], h, cfg)
+    if spec.ffn == "dense":
+        out = mlp_apply(p["mlp"], h, cfg)
+    elif spec.ffn == "moe":
+        out, aux = moe_lib.moe_apply(p["moe"], h, cfg)
+    elif spec.ffn == "rwkv_cmix":
+        out, cache = ssm_lib.rwkv_channel_mix(p["rwkv"], h, cfg, cache)
+    else:
+        out = torch.zeros_like(h)
     if cfg.post_block_norm:
         out = rms_norm(out, p["post_norm2"], cfg.rms_eps)
-    return x + out
+    return x + out, cache, aux
 
 
-def _embed_inputs(params, cfg: ArchConfig, tokens: Tensor) -> Tensor:
+def _embed_inputs(params, cfg: ArchConfig, tokens: Optional[Tensor], embeds: Optional[Tensor]) -> Tensor:
     # gather the rows first, then cast: the reference casts the whole table
     # (fused by XLA); the values are the same
-    x = params["embed"][tokens].to(cfg.compute_dtype)
+    cd = cfg.compute_dtype
+    if embeds is not None:  # a modality frontend supplies the embeddings
+        x = embeds.to(cd)
+    elif cfg.frontend == "audio_codes":
+        # tokens: (B, S, n_codebooks) codes; one embedding per codebook, summed
+        x = sum(params["embed"][q][tokens[..., q]].to(cd) for q in range(cfg.n_codebooks))
+    else:
+        x = params["embed"][tokens].to(cd)
     if cfg.scale_embed:
-        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=torch.float32).to(cfg.compute_dtype)
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=torch.float32).to(cd)
     return x
 
 
 def logits_from_hidden(params, cfg: ArchConfig, h: Tensor) -> Tensor:
-    """The LM head: tied embedding (or ``lm_head``), f32, final softcap."""
+    """The LM head: tied embedding (or ``lm_head``; audio: the n_codebooks
+    ``heads``, (…, n_codebooks, V)), f32, final softcap."""
     cd = cfg.compute_dtype
-    if cfg.tie_embeddings:
+    if cfg.frontend == "audio_codes":
+        logits = h @ params["heads"].to(cd)
+        logits = logits.reshape(*h.shape[:-1], cfg.n_codebooks, cfg.vocab_size)
+    elif cfg.tie_embeddings:
         logits = h @ params["embed"].to(cd).T
     else:
         logits = h @ params["lm_head"].to(cd)
@@ -207,7 +302,7 @@ def logits_from_hidden(params, cfg: ArchConfig, h: Tensor) -> Tensor:
 def forward(
     params: Dict[str, Any],
     cfg: ArchConfig,
-    tokens: Tensor,
+    tokens: Optional[Tensor] = None,
     positions: Optional[Tensor] = None,
     caches: Optional[Dict[str, Any]] = None,
     cache_len=None,
@@ -215,15 +310,18 @@ def forward(
     impl: Optional[str] = None,
     head: bool = True,
     chunked_prefill: bool = False,
+    embeds: Optional[Tensor] = None,
 ) -> ModelOutput:
-    """Run the stack on (B, S) token ids.  Caches are updated in place and
+    """Run the stack on (B, S) token ids ((B, S, n_codebooks) codes for
+    audio), or on (B, S, d) ``embeds``.  ``positions``: (B, S), or (3, B, S)
+    M-RoPE streams; by default ``cache_len`` + 0..S-1 (every stream alike
+    under M-RoPE).  Caches and recurrent state are updated in place and
     returned.  ``head=False`` skips the LM head (a prefill that needs one
     row's logits computes them from ``hidden`` itself); ``impl`` picks the
     paged attention route (see ``attention.use_kernel``);
     ``chunked_prefill`` writes the S rows at ``cache_len`` (positions start
     there too) and attends across the prefix already in the cache."""
-    check_supported(cfg)
-    x = _embed_inputs(params, cfg, tokens)
+    x = _embed_inputs(params, cfg, tokens, embeds)
     b, s, _ = x.shape
     if positions is None:
         base = torch.arange(s, dtype=torch.int64, device=x.device)[None, :]
@@ -231,14 +329,25 @@ def forward(
             vec = torch.is_tensor(cache_len) and cache_len.ndim == 1
             base = base + (cache_len.long()[:, None] if vec else cache_len)
         positions = base.expand(b, s)
+        if cfg.mrope:
+            positions = positions[None].expand(3, b, s)
+    aux = None  # a device tensor only once a MoE layer has run
     for r in range(cfg.repeats):
         for pos, spec in enumerate(cfg.pattern):
             name = f"pos{pos}"
             cache = None if caches is None else {k: v[r] for k, v in caches[name].items()}
-            x = _apply_block(
+            x, new, a = _apply_block(
                 layer_params(params, name, r), x, cfg, spec, positions, cache, cache_len, block_tables, impl,
                 chunked_prefill,
             )
+            if a is not None:
+                aux = a if aux is None else aux + a
+            if cache is not None and spec.mixer != "attn":
+                # recurrent state comes back as new tensors: write it in place
+                for k, v in new.items():
+                    caches[name][k][r].copy_(v)
     h = rms_norm(x, params["final_norm"], cfg.rms_eps)
     logits = logits_from_hidden(params, cfg, h) if head else None
-    return ModelOutput(logits=logits, hidden=h, caches=caches)
+    # no MoE layer: a host zero, so attention-only stacks issue no device op for it
+    aux = torch.zeros(()) if aux is None else aux / max(cfg.n_layers, 1)
+    return ModelOutput(logits=logits, hidden=h, caches=caches, aux={"moe_aux": aux})

@@ -8,6 +8,10 @@ the scrape metrics (port of ``repro/serve/cli.py``).
     PYTHONPATH=src python -m repro_torch.serve.cli --d 2048 --max-batch 256 \
         --probe-block 128
 
+    # whole-request greedy generate of any of the ten LM archs (reduced;
+    # musicgen-large generates (batch, tokens, 4) codes)
+    PYTHONPATH=src python -m repro_torch.serve.cli --lm-arch rwkv6-3b --device cpu
+
     # LM serving (reduced gemma2-2b): continuous batching vs whole-request
     # greedy, paged KV cache vs dense, the in-flight probe vs its oracle
     PYTHONPATH=src python -m repro_torch.serve.cli --smoke --lm-arch gemma2-2b \
@@ -312,7 +316,9 @@ def main(argv=None) -> int:
     p.add_argument("--json", action="store_true", help="dump the full report as JSON")
     p.add_argument("--seed", type=int, default=0)
     # token-model path
-    p.add_argument("--lm-arch", default=None, help="serve a token model instead (gemma2-2b)")
+    p.add_argument("--lm-arch", default=None,
+                   help="serve a token model instead: any arch of repro_torch.configs.list_archs(), reduced "
+                        "(--continuous: every arch but musicgen-large; --paged: not rwkv6-3b)")
     p.add_argument("--prompt-len", type=int, default=16)
     p.add_argument("--new-tokens", type=int, default=8)
     p.add_argument("--continuous", action="store_true",

@@ -15,13 +15,14 @@ Tensor = torch.Tensor
 
 
 def make_prompt(cfg, seed: int, batch: int, prompt_len: int, device: DeviceLike = None) -> Tensor:
-    """Random (batch, prompt_len) int32 token prompt from a numpy seed, on
-    ``device`` (``cuda`` unless ``"cpu"`` is passed; the reference draws
-    from a JAX key, so the two streams differ)."""
-    if cfg.frontend != "none":
-        raise NotImplementedError(f"frontend {cfg.frontend!r}: slice 3b of the port")
+    """Random int32 token prompt from a numpy seed with the frontend's shape:
+    (batch, prompt_len) for token models (the vision stub's included),
+    (batch, prompt_len, n_codebooks) for audio-code models; on ``device``
+    (``cuda`` unless ``"cpu"`` is passed; the reference draws from a JAX
+    key, so the two streams differ)."""
+    shape = (batch, prompt_len, cfg.n_codebooks) if cfg.frontend == "audio_codes" else (batch, prompt_len)
     rng = np.random.default_rng(seed)
-    toks = rng.integers(0, cfg.vocab_size, size=(batch, prompt_len)).astype(np.int32)
+    toks = rng.integers(0, cfg.vocab_size, size=shape).astype(np.int32)
     return torch.as_tensor(toks, device=resolve_device(device))
 
 

@@ -25,7 +25,6 @@ import torch
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.kernels.utils import next_multiple
-from repro_torch.models.common import check_supported
 from repro_torch.models.transformer import init_caches
 from repro_torch.serve.buckets import BucketPolicy, bucket_for, bucket_sizes
 from repro_torch.serve.paging import PagedKVManager, PrefixPlan
@@ -141,7 +140,9 @@ class LMServeEngine:
 
 
 # page size of the paged pool when the caller names none: the reference
-# CLI's --block-size fallback (the tuned pick waits for the port's tuner)
+# CLI's --block-size fallback.  The reference's engine asks its TPU tuner
+# (``auto_page_size``), whose pick is tuned for the TPU kernel's tiles; the
+# port keeps 16 until a tuner for the Hopper kernel picks the page
 DEFAULT_PAGE = 16
 
 
@@ -155,8 +156,13 @@ class ContinuousLMEngine:
     a template, then copy its KV rows into the slot's cache rows or pages).
     Prompts are right-padded to a geometric length ladder
     (``prompt_bucket_sizes``); causality keeps the padding out of every real
-    row.  The decode step also returns each slot's final hidden state, which
-    the service samples for the decorrelation probe.
+    row.  A pattern with Mamba or RWKV positions would fold padding into its
+    recurrent state, so it prefills at the exact prompt length
+    (``pad_prompts`` False) and refuses chunked prefill and speculation;
+    audio-code models ((B, S, n_codebooks) tokens) are refused and go
+    through ``LMServeEngine.generate``.  The decode step also returns each
+    slot's final hidden state, which the service samples for the
+    decorrelation probe.
 
     Options (each off by default, leaving the dense greedy path as it is):
 
@@ -224,13 +230,19 @@ class ContinuousLMEngine:
         impl: Optional[str] = None,
         device: DeviceLike = None,
     ):
-        check_supported(arch_cfg)
+        if arch_cfg.frontend == "audio_codes":
+            raise NotImplementedError(
+                "continuous batching serves flat token streams; audio-code "
+                "models ((B, S, n_q) tokens) go through LMServeEngine.generate"
+            )
         self.device = resolve_device(device)
         _check_on(self.device, params=params["embed"])
         self.cfg = arch_cfg
         self.params = params
         self.impl = impl
         self.sampling_enabled = bool(sampling)
+        # right-padded prompt buckets only where causality hides the padding
+        self.pad_prompts = all(spec.mixer == "attn" for spec in arch_cfg.pattern)
         self.paged = bool(paged)
         self.prefix_cache = bool(prefix_cache)
         # every prompt runs the chunk step; prefix caching forces it (a warm
@@ -248,6 +260,12 @@ class ContinuousLMEngine:
                     "speculative decoding is greedy-only: acceptance compares the "
                     "draft against argmax outputs (sampling would need rejection "
                     "sampling over the verify logits)"
+                )
+            if not self.pad_prompts:
+                raise ValueError(
+                    "speculative decoding needs attention-only patterns: SSM/RWKV "
+                    "per-slot state cannot advance k+1 positions independently in "
+                    "one forward"
                 )
             self.spec_cfg = SpecConfig(draft_k=int(draft_k), ngram_max=int(spec_ngram_max),
                                        ngram_min=int(spec_ngram_min))
@@ -273,6 +291,11 @@ class ContinuousLMEngine:
         if self.prefill_chunk is not None:
             if not self.paged:
                 raise ValueError("prefill_chunk rides the paged machinery; pass paged=True")
+            if not self.pad_prompts:
+                raise ValueError(
+                    "chunked prefill needs attention-only patterns (recurrent "
+                    "mixers fold chunk padding into their state)"
+                )
             if self.prefill_chunk < 1:
                 raise ValueError(f"prefill_chunk must be >= 1, got {prefill_chunk}")
         self.pool = SlotPool(n_slots, max_len)
@@ -280,7 +303,7 @@ class ContinuousLMEngine:
         if max_prompt >= max_len:
             raise ValueError(f"max_prompt_len={max_prompt} must leave decode room (< max_len={max_len})")
         self._prompt_policy = BucketPolicy(max_batch=max_prompt, align=prompt_align, max_wait_ms=0.0)
-        if bucket_sizes(self._prompt_policy)[-1] > max_len:
+        if self.pad_prompts and bucket_sizes(self._prompt_policy)[-1] > max_len:
             raise ValueError(
                 f"padded prompt bucket {bucket_sizes(self._prompt_policy)[-1]} "
                 f"(max_prompt_len={max_prompt} rounded up to align={prompt_align}) "
@@ -299,7 +322,9 @@ class ContinuousLMEngine:
         )
         # batch-1 prefill template, written in place by every insert: rows
         # past a prompt keep an earlier prompt's values, which the slot's
-        # cache_len masks exactly as the reference masks its padding rows
+        # cache_len masks exactly as the reference masks its padding rows;
+        # its recurrent state is zeroed before each prefill (the reference's
+        # template is never written)
         self._caches1 = init_caches(arch_cfg, 1, max_len, self.device)
         # one step for the pool tick (B = n_slots) and the speculative verify
         # (B = n_slots * (draft_k + 1)): make_verify_step is this decode step
@@ -328,6 +353,17 @@ class ContinuousLMEngine:
     def max_prompt_len(self) -> int:
         """Largest admissible prompt length (the top bucket)."""
         return self.prompt_bucket_sizes()[-1]
+
+    def _prompt_bucket(self, n: int) -> int:
+        return bucket_for(n, self._prompt_policy) if self.pad_prompts else n
+
+    def _prefill_template(self):
+        """The batch-1 prefill template, its recurrent state zeroed."""
+        for pos, spec in enumerate(self.cfg.pattern):
+            if spec.mixer != "attn":
+                for leaf in self._caches1[f"pos{pos}"].values():
+                    leaf.zero_()
+        return self._caches1
 
     def validate_request(self, prompt_len: int, max_new_tokens: int):
         """Submit-time check: reject (never hang) what cannot be scheduled —
@@ -368,23 +404,34 @@ class ContinuousLMEngine:
     # -- warmup --------------------------------------------------------------
 
     @torch.no_grad()
-    def warmup(self) -> Tuple[int, ...]:
+    def warmup(self, prompt_lens=None) -> Tuple[int, ...]:
         """Run every prompt bucket's prefill, the pool decode step and (with
         the options) the chunk step and the verify step once (this builds
-        the CUDA kernels), so no admitted request pays a first call.  The
-        decode and verify write row 0 of every slot (dense) or of the
-        sentinel page (paged): an insert overwrites the former, nothing
-        reads the latter unmasked."""
-        buckets = self.prompt_bucket_sizes()
+        the CUDA kernels), so no admitted request pays a first call.
+        Attention-only patterns run the whole padded ladder; recurrent ones
+        prefill at exact lengths, so they run ``prompt_lens`` (the distinct
+        lengths a caller expects; length 1 when none is given).  The decode
+        and verify write row 0 of every slot (dense) or of the sentinel page
+        (paged) and advance every slot's recurrent state: an insert
+        overwrites a slot, nothing reads the sentinel unmasked, and slot 0
+        is zeroed afterwards, as the reference leaves it."""
+        if self.pad_prompts:
+            buckets = self.prompt_bucket_sizes()
+        else:
+            buckets = tuple(sorted(set(int(n) for n in prompt_lens or ())) or (1,))
         for length in buckets:
             toks = torch.zeros((1, length), dtype=torch.int32, device=self.device)
-            self._prefill(self.params, self._caches1, toks, 1)
+            self._prefill(self.params, self._prefill_template(), toks, 1)
         n = self.pool.n_slots
         zeros = torch.zeros((n,), dtype=torch.int32, device=self.device)
         bt = None
         if self.paged:
             bt = torch.zeros((n, self.pager.blocks_per_slot), dtype=torch.int32, device=self.device)
         self.step_logits(self.caches, zeros, zeros, bt, self.impl)
+        if self.paged:
+            reset_slot_state_paged(self.caches, 0, np.zeros((self.pager.blocks_per_slot,), np.int32))
+        else:
+            reset_slot_state(self.caches, 0)
         if self.speculative:
             vb = n * (self.spec_cfg.draft_k + 1)
             vzeros = torch.zeros((vb,), dtype=torch.int32, device=self.device)
@@ -435,7 +482,7 @@ class ContinuousLMEngine:
         # shared prefix blocks are masked to the sentinel: the insert never
         # rewrites a read-only shared page
         row = self.pager.scatter_row(slot.index) if self.prefix_cache else self.pager.table_row(slot.index)
-        insert_slot_state_paged(self.caches, one, row)
+        insert_slot_state_paged(self.caches, one, slot.index, row)
         if self.prefix_cache:
             # the pages now hold the final prompt KV: intern the full prompt
             # pages for later warm requests (first writer wins)
@@ -457,11 +504,11 @@ class ContinuousLMEngine:
         samples from instead of the token id."""
         req = slot.request
         n = req.prompt_len
-        length = bucket_for(n, self._prompt_policy)
+        length = self._prompt_bucket(n)
         padded = np.zeros((1, length), np.int32)
         padded[0, :n] = np.asarray(req.tokens, np.int32)
         logits, hidden, one = self._prefill(
-            self.params, self._caches1, torch.as_tensor(padded, device=self.device), n
+            self.params, self._prefill_template(), torch.as_tensor(padded, device=self.device), n
         )
         self._scatter_insert(slot, one)
         return self._first_output(logits, hidden)
@@ -643,10 +690,11 @@ class ContinuousLMEngine:
 
     @torch.no_grad()
     def release(self, index: int):
-        """Retire a slot: zero its cache rows or exclusive pages (hygiene;
-        decode masks them), return its pages and reservation, and compact
-        the page pool (copy-on-retire: the highest in-use pages move into
-        the freed low holes; shared and pinned pages stay put)."""
+        """Retire a slot: zero its cache rows or exclusive pages and its
+        recurrent state (hygiene; decode masks the rows, and a reused slot
+        starts from a fresh insert), return its pages and reservation, and
+        compact the page pool (copy-on-retire: the highest in-use pages
+        move into the freed low holes; shared and pinned pages stay put)."""
         if self._chunk_live == index:
             self._chunk_live = None
         if not self.paged:
@@ -655,7 +703,7 @@ class ContinuousLMEngine:
         # under prefix caching, pages another owner still maps (shared
         # prefixes, donated pages) are masked out of the zeroing
         row = self.pager.reset_row(index) if self.prefix_cache else self.pager.table_row(index)
-        reset_slot_state_paged(self.caches, row)
+        reset_slot_state_paged(self.caches, index, row)
         self.pager.release(index)
         src, dst = self.pager.plan_compaction()
         if src.size:

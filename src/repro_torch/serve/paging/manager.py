@@ -45,7 +45,8 @@ def _dtype_bytes(dtype: torch.dtype) -> int:
 
 
 def attn_kv_bytes_per_row(cfg) -> int:
-    """Bytes of K+V cache per context row across the whole layer stack."""
+    """Bytes of K+V cache per context row across the whole layer stack
+    (attention pattern positions only — recurrent state has no row axis)."""
     n_attn = sum(1 for spec in cfg.pattern if spec.mixer == "attn")
     return 2 * n_attn * cfg.repeats * cfg.n_kv_heads * cfg.hd * _dtype_bytes(cfg.compute_dtype)
 
@@ -110,7 +111,10 @@ class PagedKVManager:
             "(the engine rounds up at construction)"
         )
         if not any(spec.mixer == "attn" for spec in cfg.pattern):
-            raise ValueError("paged KV cache needs at least one attention position in the pattern")
+            raise ValueError(
+                "paged KV cache needs at least one attention position in the "
+                "pattern; SSM/RWKV state is O(1) per slot and is never paged"
+            )
         self.cfg = cfg
         self.n_slots = int(n_slots)
         self.max_len = int(max_len)
@@ -153,8 +157,9 @@ class PagedKVManager:
         self._cow: Dict[int, Optional[Tuple[int, int]]] = {}
 
     def init_caches(self, device=None):
-        """Allocate the pool's page pools (all tables start on the sentinel)."""
-        return init_paged_caches(self.cfg, self.total_pages, self.page, device)
+        """Allocate the pool's page pools (all tables start on the sentinel)
+        beside the per-slot recurrent state of any Mamba / RWKV position."""
+        return init_paged_caches(self.cfg, self.total_pages, self.page, device, batch=self.n_slots)
 
     # -- block tables ---------------------------------------------------------
 

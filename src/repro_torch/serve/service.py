@@ -481,10 +481,12 @@ class LMService:
             if self.step(timeout=0.05) is None:
                 return
 
-    def warmup(self) -> "LMService":
+    def warmup(self, prompt_lens=None) -> "LMService":
         """Run every prompt bucket, the pool decode step and the probe window
-        once (this builds the CUDA kernels), so no request pays a first call."""
-        self.engine.warmup()
+        once (this builds the CUDA kernels), so no request pays a first call
+        (``prompt_lens``: the exact lengths a recurrent arch prefills at; see
+        ``ContinuousLMEngine.warmup``)."""
+        self.engine.warmup(prompt_lens=prompt_lens)
         if self.probe is not None:
             self.probe.warmup(self.engine.cfg.d_model)
         self.stats.reset_clock()

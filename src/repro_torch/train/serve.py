@@ -19,14 +19,15 @@ import numpy as np
 import torch
 
 from repro_torch.models.common import ArchConfig
-from repro_torch.models.transformer import forward, init_caches, logits_from_hidden
+from repro_torch.models.transformer import forward, init_caches, is_paged, logits_from_hidden
 
 Tensor = torch.Tensor
 
 
 def make_prefill_step(cfg: ArchConfig):
-    """Prefill (B, S) prompts from row 0; returns (last-row logits (B, 1, V),
-    caches).  Only the last row goes through the LM head."""
+    """Prefill (B, S) prompts ((B, S, n_codebooks) codes for audio) from
+    row 0; returns (last-row logits (B, 1, V), caches).  Only the last row
+    goes through the LM head."""
 
     def prefill(params, caches, tokens, impl=None):
         out = forward(params, cfg, tokens, caches=caches, cache_len=0, impl=impl, head=False)
@@ -121,8 +122,10 @@ def make_chunked_prefill_step(cfg: ArchConfig):
 # ---------------------------------------------------------------------------
 #
 # Dense leaves are (repeats, batch, ...) — axis 1 is the slot axis; paged
-# leaves are page pools (repeats, P, page, KV, hd) addressed through block
-# tables.  Every helper writes the pool in place and returns it.
+# pools mix two layouts per pattern position: attention holds page pools
+# (repeats, P, page, KV, hd) addressed through block tables, while Mamba /
+# RWKV state stays slot-major (repeats, batch, ...) as in the dense pool.
+# Every helper writes the pool in place and returns it.
 
 
 def _index(idx, device) -> Tensor:
@@ -130,8 +133,8 @@ def _index(idx, device) -> Tensor:
 
 
 def insert_slot_state(pool, one, slot: int):
-    """Copy a batch-1 cache tree ``one`` into slot ``slot`` of the dense pool
-    (leaf shapes (repeats, 1, ...) -> (repeats, B, ...))."""
+    """Copy a batch-1 cache / state tree ``one`` into slot ``slot`` of the
+    dense pool (leaf shapes (repeats, 1, ...) -> (repeats, B, ...))."""
     for name, leafs in pool.items():
         for key, leaf in leafs.items():
             leaf[:, slot] = one[name][key][:, 0].to(leaf.dtype)
@@ -140,26 +143,31 @@ def insert_slot_state(pool, one, slot: int):
 
 def reset_slot_state(pool, slot: int):
     """Zero slot ``slot`` across every leaf (decode masks freed slots by
-    ``cache_len`` anyway; zeroing keeps retired KV out of later reads)."""
+    ``cache_len`` anyway; zeroing keeps retired KV and recurrent state out
+    of later reads and makes slot reuse order-independent)."""
     for leafs in pool.values():
         for leaf in leafs.values():
             leaf[:, slot].zero_()
     return pool
 
 
-def insert_slot_state_paged(pool, one, bt_row):
+def insert_slot_state_paged(pool, one, slot: int, bt_row):
     """Scatter a prefilled batch-1 DENSE cache tree ``one`` into the paged
-    pool: template rows [j * page, (j + 1) * page) land in physical page
-    ``bt_row[j]``.  Only the blocks the slot owns are written (the reference
-    also writes its unassigned, sentinel entries, whose rows page 0 absorbs
-    and no unmasked read ever sees; it also takes the slot for recurrent
-    state, which attention-only patterns lack).  ``bt_row``: (NB,) ints
-    with NB * page == the template's max_len."""
+    pool: attention rows [j * page, (j + 1) * page) land in physical page
+    ``bt_row[j]``, recurrent state is a dense write into slot ``slot``.
+    Only the blocks the slot owns are written (the reference also writes its
+    unassigned, sentinel entries, whose rows page 0 absorbs and no unmasked
+    read ever sees).  ``bt_row``: (NB,) ints with NB * page == the
+    template's max_len."""
     row = np.asarray(bt_row)
     blocks = np.nonzero(row)[0]
-    if not blocks.size:
-        return pool
     for name, leafs in pool.items():
+        if not is_paged(leafs):
+            for key, leaf in leafs.items():
+                leaf[:, slot] = one[name][key][:, 0].to(leaf.dtype)
+            continue
+        if not blocks.size:
+            continue
         page = leafs["k_pages"].shape[2]
         dst = _index(row[blocks], leafs["k_pages"].device)
         src = _index(blocks, leafs["k_pages"].device)
@@ -170,10 +178,15 @@ def insert_slot_state_paged(pool, one, bt_row):
     return pool
 
 
-def reset_slot_state_paged(pool, bt_row):
-    """Zero a retired slot's pages.  Sentinel entries of ``bt_row`` zero
-    page 0 too, which is harmless (it is never read unmasked)."""
+def reset_slot_state_paged(pool, slot: int, bt_row):
+    """Zero a retired slot's pages and its dense recurrent state.  Sentinel
+    entries of ``bt_row`` zero page 0 too, which is harmless (it is never
+    read unmasked)."""
     for leafs in pool.values():
+        if not is_paged(leafs):
+            for leaf in leafs.values():
+                leaf[:, slot].zero_()
+            continue
         idx = _index(bt_row, leafs["k_pages"].device)
         for key in ("k_pages", "v_pages"):
             leafs[key][:, idx] = 0
@@ -187,8 +200,11 @@ def load_template_from_pages(pool, one, bt_row):
     ``bt_row[j]``), in place.  A warm prefix-cache request seeds its
     chunked-prefill template this way, so the chunks attend over the shared
     prefix's exact KV rows without recomputing them.  Sentinel entries copy
-    page 0's rows, which ``cache_len`` masks."""
+    page 0's rows, which ``cache_len`` masks.  Recurrent leaves of ``one``
+    stay as they are (prefix caching is attention-only)."""
     for name, leafs in pool.items():
+        if not is_paged(leafs):
+            continue
         idx = _index(bt_row, leafs["k_pages"].device)
         for key, dense in (("k_pages", "k"), ("v_pages", "v")):
             rows = leafs[key][:, idx]  # (repeats, NB, page, KV, hd)
@@ -199,11 +215,14 @@ def load_template_from_pages(pool, one, bt_row):
 
 def apply_page_moves(pool, src, dst):
     """Copy physical pages ``src[i] -> dst[i]`` across every paged leaf (the
-    device half of allocator compaction).  Every source page is read before
-    any destination is written — as the reference reads the old pool — so a
-    chain of moves (a -> b, b -> c) never sees a page that already moved.
-    Identity moves (src == dst) are no-ops."""
+    device half of allocator compaction); recurrent state never moves.
+    Every source page is read before any destination is written — as the
+    reference reads the old pool — so a chain of moves (a -> b, b -> c)
+    never sees a page that already moved.  Identity moves (src == dst) are
+    no-ops."""
     for leafs in pool.values():
+        if not is_paged(leafs):
+            continue
         s = _index(src, leafs["k_pages"].device)
         d = _index(dst, leafs["k_pages"].device)
         for key in ("k_pages", "v_pages"):
@@ -220,9 +239,11 @@ def greedy_generate(
     max_len: Optional[int] = None,
     steps: Optional[Tuple] = None,
 ) -> Tensor:
-    """Host-loop batched greedy decoding.  ``prompt_tokens``: (B, S) ids on
-    the params' device; returns (B, max_new_tokens) int32 ids.  ``steps``:
-    an optional ``(prefill, decode)`` pair (``LMServeEngine`` passes its own)."""
+    """Host-loop batched greedy decoding.  ``prompt_tokens``: (B, S) ids, or
+    (B, S, n_codebooks) codes for audio-code models, on the params' device;
+    returns (B, max_new_tokens) int32 ids ((B, max_new_tokens, n_codebooks)
+    for audio: each codebook's head argmaxed).  ``steps``: an optional
+    ``(prefill, decode)`` pair (``LMServeEngine`` passes its own)."""
     b, s = prompt_tokens.shape[:2]
     max_len = max_len or (s + max_new_tokens)
     caches = init_caches(cfg, b, max_len, device=prompt_tokens.device)

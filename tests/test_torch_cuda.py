@@ -492,3 +492,100 @@ def test_chunked_attention_at_full_width_matches_full_attention(dev):
         assert err <= 1e-4 * max(1.0, float(want.abs().max())), (spec.attn_type, err)
         del got, want
         torch.cuda.empty_cache()
+
+
+# every GQA ratio of the port's archs at its head dim: n_rep 12 at hd 192
+# (nemotron-4-340b: two groups of 6 query rows a kv head, rows loaded
+# element by element), 7 (arctic), 6 (qwen2-vl), 5 (llama4), 8 and 1 at 128,
+# 1 at 64 (musicgen); page 16, lengths past one 256-row chunk
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize(
+    "h,kv,hd",
+    [(96, 8, 192), (24, 2, 192), (56, 8, 128), (12, 2, 128), (40, 8, 128), (64, 8, 128), (32, 32, 128),
+     (32, 32, 64)],
+    ids=["nemotron-nrep12-hd192", "nrep12-kv2-hd192", "arctic-nrep7", "qwen2vl-nrep6", "llama4-nrep5",
+         "qwen110b-nrep8", "codeqwen-mha", "musicgen-mha-hd64"],
+)
+def test_paged_attention_at_every_arch_geometry_matches_plain(dev, dtype, h, kv, hd):
+    from repro_torch.kernels.paged_attention import kernel as K
+    from repro_torch.kernels.paged_attention.ops import paged_decode_plain
+
+    lens = [600, 1, 257, 40]
+    q, kp, vp, table, lens_t = _paged_case(dev, len(lens), h, kv, hd, 16, lens, dtype, seed=3)
+    for window in (0, 300):
+        kw = dict(scale=hd ** -0.5, window=window)
+        before = K.paged_decode_attention.launches
+        got = K.paged_decode_attention(q, kp, vp, table, lens_t, **kw)
+        want = paged_decode_plain(q, kp, vp, table, lens_t, **kw)
+        torch.cuda.synchronize()
+        assert K.paged_decode_attention.launches == before + 1
+        torch.testing.assert_close(got, want, rtol=0.0, atol=2e-4 * max(1.0, float(want.abs().max())))
+
+
+@pytest.mark.parametrize("arch", ["arctic-480b", "llama4-scout-17b-a16e", "jamba-v0.1-52b", "rwkv6-3b",
+                                  "qwen2-vl-2b", "musicgen-large"])
+def test_reduced_moe_and_ssm_forward_on_the_card_matches_the_cpu(dev, arch):
+    """The MoE dispatch, the Mamba and RWKV recurrences (RWKV's chunked
+    path too), M-RoPE and the audio heads on CUDA tensors against the same
+    weights on the CPU: score forward, then prefill + one decode step."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import forward, init_caches, init_params
+
+    cfg = get_config(arch).reduced()
+    if arch == "rwkv6-3b":
+        cfg = dataclasses.replace(cfg, rwkv_chunk=8)
+    params = init_params(cfg, seed=0, device="cpu")
+
+    def move(tree):
+        return {k: move(v) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}
+
+    on_card = move(params)
+    shape = (2, 24, cfg.n_codebooks) if cfg.frontend == "audio_codes" else (2, 24)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, shape).astype(np.int32))
+    want = forward(params, cfg, toks)
+    got = forward(on_card, cfg, toks.to(dev))
+    tol = 1e-4 * max(1.0, float(want.logits.abs().max()))
+    torch.testing.assert_close(got.logits.cpu(), want.logits, rtol=0.0, atol=tol)
+    torch.testing.assert_close(got.aux["moe_aux"].cpu(), want.aux["moe_aux"], rtol=0.0, atol=1e-5)
+    caches, caches_d = init_caches(cfg, 2, 32, "cpu"), init_caches(cfg, 2, 32, dev)
+    forward(params, cfg, toks[:, :23], caches=caches, cache_len=0)
+    forward(on_card, cfg, toks[:, :23].to(dev), caches=caches_d, cache_len=0)
+    want = forward(params, cfg, toks[:, 23:], caches=caches, cache_len=23)
+    got = forward(on_card, cfg, toks[:, 23:].to(dev), caches=caches_d, cache_len=23)
+    torch.testing.assert_close(got.logits.cpu(), want.logits, rtol=0.0, atol=tol)
+    for name, leafs in caches.items():
+        for key, leaf in leafs.items():
+            torch.testing.assert_close(caches_d[name][key].cpu(), leaf, rtol=0.0,
+                                       atol=1e-5 * max(1.0, float(leaf.abs().max())))
+
+
+@pytest.mark.parametrize("impl", [None, "plain"])
+def test_moe_paged_decode_lanes_sharing_a_row_are_order_free_on_the_card(dev, impl):
+    """The five free lanes of a MoE arch's decode tick write the sentinel
+    page's row 0 together: on the card the row holds the last lane's k / v
+    whatever order the writes land in, and the free lanes read it back
+    (kernel route and plain route alike), over repeated calls."""
+    from repro_torch.models import attention
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config("llama4-scout-17b-a16e").reduced()
+    b, kv, hd, page = 8, cfg.n_kv_heads, cfg.hd, 4
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, 1, h, hd)).astype(np.float32)).to(dev)
+               for h in (cfg.n_heads, kv, kv))
+    tables = torch.zeros((b, 2), dtype=torch.int32, device=dev)
+    tables[5:, 0] = torch.tensor([1, 2, 3], dtype=torch.int32, device=dev)
+    lens = torch.tensor([0] * 5 + [2] * 3, dtype=torch.int32, device=dev)
+    for _ in range(20):
+        cache = {"k_pages": torch.zeros((4, page, kv, hd), device=dev),
+                 "v_pages": torch.zeros((4, page, kv, hd), device=dev)}
+        out, _ = attention._paged_decode(q, k, v, cache, lens, tables, cfg, cfg.pattern[0], impl=impl)
+        torch.cuda.synchronize()
+        assert torch.equal(cache["k_pages"][0, 0], k[4, 0]) and torch.equal(cache["v_pages"][0, 0], v[4, 0])
+        # one row to attend: each free lane's output is that row's v, per query head
+        want = v[4, 0].repeat_interleave(cfg.n_heads // kv, dim=0)
+        for lane in range(5):
+            torch.testing.assert_close(out[lane, 0].float(), want, rtol=0.0, atol=1e-6)

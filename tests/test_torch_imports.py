@@ -22,9 +22,12 @@ print(len(names), bad, " ".join(names))
 assert not bad, bad
 """
 
-# the numpy-only serving modules the port keeps its own copies of
+# the numpy-only serving modules the port keeps its own copies of, and the
+# model families and arch configs of the LM serving path
 COPIES = ("repro_torch.serve.sampling", "repro_torch.serve.spec", "repro_torch.serve.paging.radix",
-          "repro_torch.serve.paging.allocator", "repro_torch.serve.slots")
+          "repro_torch.serve.paging.allocator", "repro_torch.serve.slots",
+          "repro_torch.models.moe", "repro_torch.models.ssm", "repro_torch.configs.jamba_v01_52b",
+          "repro_torch.configs.rwkv6_3b", "repro_torch.configs.musicgen_large", "repro_torch.configs.qwen2_vl_2b")
 
 SMOKE = r"""
 import importlib.util, sys

@@ -178,9 +178,14 @@ def test_byte_accounting_matches_the_reference():
     assert dense_cache_bytes(get_config("gemma2-2b"), 8, 64) == 8 * 64 * 26 * 2 * 4 * 256 * 2
 
 
-def test_not_yet_ported_archs_raise_and_name_their_slice():
-    with pytest.raises(NotImplementedError, match="3b"):
-        get_config("rwkv6-3b")
+def test_every_reference_arch_resolves_and_an_unknown_one_raises():
+    from repro.configs import list_archs as ref_list_archs
+    from repro_torch.configs import list_archs
+
+    assert list_archs() == ref_list_archs()
+    for name in ref_list_archs():
+        assert get_config(name).name == ref_config(name).name
+    assert repr(get_config("ssl-paper")) == repr(ref_config("ssl-paper"))
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 
@@ -224,8 +229,35 @@ def test_insert_and_reset_slot_state_paged_match_the_reference():
               for i in range(2)}
     one_t = {n: {k: torch.from_numpy(v) for k, v in leafs.items()} for n, leafs in one_np.items()}
     row = np.asarray([5, 2, 0], np.int32)  # two owned blocks, one on the sentinel
-    serve.insert_slot_state_paged(port, one_t, row)
+    serve.insert_slot_state_paged(port, one_t, 1, row)
     ref = ref_serve.insert_slot_state_paged(ref, jax.tree.map(jnp.asarray, one_np), 1, jnp.asarray(row))
     _same(port, ref, skip_sentinel=True)  # the reference also writes page 0, which nothing reads
-    serve.reset_slot_state_paged(port, row)
+    serve.reset_slot_state_paged(port, 1, row)
     _same(port, ref_serve.reset_slot_state_paged(ref, 1, jnp.asarray(row)))
+
+
+def test_moe_paged_decode_lanes_sharing_a_row_write_what_the_reference_writes():
+    """Free lanes of a MoE arch all write the sentinel page's row 0 and read
+    it back, and MoE capacity lets their rows take real tokens' seats: the
+    row holds the last such lane's k / v, as the reference's scatter leaves
+    it, and every live lane's row holds its own."""
+    from repro_torch.models import attention
+
+    # lanes 0-4 free (cache_len 0, every entry the sentinel page 0: all five
+    # write row 0 of page 0), 5-7 live on pages 1-3 at cache_len 2
+    cfg = get_config("llama4-scout-17b-a16e").reduced()
+    kv, hd = cfg.n_kv_heads, cfg.hd
+    rng = np.random.default_rng(3)
+    q, k, v = (rng.standard_normal((8, 1, h, hd)).astype(np.float32) for h in (cfg.n_heads, kv, kv))
+    tables = np.zeros((8, 2), np.int32)
+    tables[5:, 0] = [1, 2, 3]
+    lens = np.asarray([0] * 5 + [2] * 3, np.int32)
+    pages = rng.standard_normal((2, 4, 4, kv, hd)).astype(np.float32)
+    cache = {"k_pages": torch.from_numpy(pages[0].copy()), "v_pages": torch.from_numpy(pages[1].copy())}
+    attention._paged_decode(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), cache,
+                            torch.from_numpy(lens), torch.from_numpy(tables), cfg, cfg.pattern[0], impl="plain")
+    phys, row = tables[np.arange(8), lens // 4], lens % 4
+    for key, src, new in (("k_pages", 0, k), ("v_pages", 1, v)):
+        want = jnp.asarray(pages[src]).at[phys, row].set(jnp.asarray(new[:, 0]))
+        np.testing.assert_array_equal(cache[key].numpy(), np.asarray(want))
+        np.testing.assert_array_equal(cache[key][0, 0].numpy(), new[4, 0])

@@ -108,6 +108,8 @@ def _rows():
     out.extend(_training_rows(arr, row))
     out.extend(_lm_rows(row))
     out.extend(_serving_option_rows(row))
+    out.extend(_family_rows(row))
+    out.extend(_arch_rows(row))
     return out
 
 
@@ -514,6 +516,143 @@ def _serving_option_rows(row):
             toks.append(np.concatenate([f.result(timeout=60) for f in futs]))
         out.append(row("serve/engine ContinuousLMEngine", f"{what}: {len(toks[0])} tokens vs the reference engine",
                        f64(toks[0]), f64(toks[1])))
+    return out
+
+
+def _family_rows(row):
+    """The model families of the other archs, module by module, with the
+    reference's weights: M-RoPE, the MoE FFN (one group, grouped, drops),
+    Mamba and RWKV6 (scan, chunked, one-step decode with carried state)."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from repro.configs import get_config as ref_config
+    from repro.models import attention as rattn
+    from repro.models import moe as rmoe
+    from repro.models import ssm as rssm
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention, moe, ssm
+
+    rng = np.random.default_rng(9)
+    out = []
+
+    def tt(tree):
+        return {k: tt(v) if isinstance(v, dict) else torch.from_numpy(np.asarray(v).copy()) for k, v in tree.items()}
+
+    x = rng.standard_normal((2, 10, 4, 16)).astype(np.float32)
+    pos = np.stack([np.broadcast_to(np.arange(10) // d, (2, 10)) for d in (1, 3, 5)]).astype(np.int32)
+    out.append(row("models/attention apply_mrope", "(2,10,4,16), 3 streams, sections (4,2,2)",
+                   attention.apply_mrope(torch.from_numpy(x), torch.from_numpy(pos), 1e6, (4, 2, 2)),
+                   np.asarray(rattn.apply_mrope(jnp.asarray(x), jnp.asarray(pos), 1e6, (4, 2, 2)))))
+    for arch in ("arctic-480b", "llama4-scout-17b-a16e", "jamba-v0.1-52b"):
+        for what, kw in (("one group", {}), ("grouped G=8", dict(moe_group_size=8)),
+                         ("capacity 0.5 (drops)", dict(capacity_factor=0.5))):
+            rcfg, cfg = ref_config(arch).reduced(**kw), get_config(arch).reduced(**kw)
+            rp = rmoe.moe_init(jax.random.PRNGKey(3), rcfg)
+            xm = rng.standard_normal((2, 16, 64)).astype(np.float32)
+            w, wa = rmoe.moe_apply(rp, jnp.asarray(xm), rcfg)
+            g, ga = moe.moe_apply(tt(rp), torch.from_numpy(xm), cfg)
+            out.append(row("models/moe moe_apply", f"{arch} (2,16,64) {what}: out + aux",
+                           [g, ga[None]], [np.asarray(w), np.asarray(wa)[None]]))
+    rcfg, cfg = ref_config("jamba-v0.1-52b").reduced(), get_config("jamba-v0.1-52b").reduced()
+    rp = rssm.mamba_init(jax.random.PRNGKey(1), rcfg)
+    for what, s, state in (("full scan", 12, False), ("prefill from a state", 12, True), ("decode step", 1, True)):
+        xm = rng.standard_normal((2, s, 64)).astype(np.float32)
+        st = {k: rng.standard_normal((2,) + v.shape[1:]).astype(np.float32) * 0.5
+              for k, v in rssm.mamba_init_state(rcfg, 1).items()} if state else None
+        w, ws = rssm.mamba_apply(rp, jnp.asarray(xm), rcfg, None if st is None else jax.tree.map(jnp.asarray, st))
+        g, gs = ssm.mamba_apply(tt(rp), torch.from_numpy(xm), cfg, None if st is None else tt(st))
+        got, want = [g], [np.asarray(w)]
+        if state:
+            got += [gs[k] for k in sorted(gs)]
+            want += [np.asarray(ws[k]) for k in sorted(ws)]
+        out.append(row("models/ssm mamba_apply", f"jamba (2,{s},64) {what}: out" + (" + state" if state else ""),
+                       got, want))
+    rcfg, cfg = ref_config("rwkv6-3b").reduced(rwkv_chunk=8), get_config("rwkv6-3b").reduced(rwkv_chunk=8)
+    rp = rssm.rwkv_init(jax.random.PRNGKey(2), rcfg)
+    for what, s in (("scan", 20), ("chunked (chunk 8)", 24), ("decode step", 1)):
+        xm = rng.standard_normal((2, s, 64)).astype(np.float32)
+        st = {k: rng.standard_normal((2,) + v.shape[1:]).astype(np.float32) * 0.5
+              for k, v in rssm.rwkv_init_state(rcfg, 1).items()}
+        w, ws = rssm.rwkv_time_mix(rp, jnp.asarray(xm), rcfg, jax.tree.map(jnp.asarray, st))
+        wc, ws = rssm.rwkv_channel_mix(rp, jnp.asarray(xm), rcfg, ws)
+        g, gs = ssm.rwkv_time_mix(tt(rp), torch.from_numpy(xm), cfg, tt(st))
+        gc, gs = ssm.rwkv_channel_mix(tt(rp), torch.from_numpy(xm), cfg, gs)
+        out.append(row("models/ssm rwkv_time_mix + rwkv_channel_mix", f"rwkv6 (2,{s},64) {what}: outs + state",
+                       [g, gc] + [gs[k] for k in sorted(gs)],
+                       [np.asarray(w), np.asarray(wc)] + [np.asarray(ws[k]) for k in sorted(ws)]))
+    return out
+
+
+def _arch_rows(row):
+    """The nine other archs at ``reduced()`` widths with the reference's
+    weights: the score forward's logits, prefill + one decode step (logits,
+    caches and state), and the continuous engine's tokens on the ``SPEC``
+    mix against the reference engine's, dense and (where the reference
+    pages) paged; musicgen's ``generate`` codes against the reference's."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from repro.configs import get_config as ref_config
+    from repro.models import init_params as ref_init
+    from repro.models.transformer import forward as ref_forward
+    from repro.models.transformer import init_caches as ref_caches
+    from repro.serve.engine import ContinuousLMEngine as RefEngine
+    from repro.serve.engine import LMServeEngine as RefLM
+    from repro.serve.service import LMService as RefService
+    from repro_torch.configs import get_config, list_archs
+    from repro_torch.models import forward, init_caches, params_from_jax
+    from repro_torch.serve.engine import ContinuousLMEngine, LMServeEngine
+    from repro_torch.serve.service import LMService
+
+    f64 = lambda x: np.asarray(x, np.float64)  # noqa: E731
+    out = []
+    for arch in list_archs():
+        if arch == "gemma2-2b":
+            continue
+        rng = np.random.default_rng(11)
+        rcfg, cfg = ref_config(arch).reduced(), get_config(arch).reduced()
+        rparams = ref_init(jax.random.PRNGKey(0), rcfg)
+        params = params_from_jax(cfg, jax.tree.map(np.asarray, rparams), device="cpu")
+        shape = (2, 12, cfg.n_codebooks) if cfg.frontend == "audio_codes" else (2, 12)
+        toks = rng.integers(0, cfg.vocab_size, shape).astype(np.int32)
+        want, got = ref_forward(rparams, rcfg, tokens=jnp.asarray(toks)), forward(params, cfg, torch.from_numpy(toks))
+        out.append(row("models/transformer forward", f"{arch} score (2,12): logits", got.logits, np.asarray(want.logits)))
+        rc, gc = ref_caches(rcfg, 2, 16), init_caches(cfg, 2, 16, "cpu")
+        w = ref_forward(rparams, rcfg, tokens=jnp.asarray(toks[:, :11]), caches=rc, cache_len=jnp.asarray(0, jnp.int32))
+        forward(params, cfg, torch.from_numpy(toks[:, :11]), caches=gc, cache_len=0)
+        w = ref_forward(rparams, rcfg, tokens=jnp.asarray(toks[:, 11:]), caches=w.caches,
+                        cache_len=jnp.asarray(11, jnp.int32))
+        g = forward(params, cfg, torch.from_numpy(toks[:, 11:]), caches=gc, cache_len=11)
+        names = [(n, k) for n in sorted(g.caches) for k in sorted(g.caches[n])]
+        out.append(row("models/transformer forward", f"{arch} prefill 11 + decode 1: logits + caches / state",
+                       [g.logits] + [g.caches[n][k] for n, k in names],
+                       [np.asarray(w.logits)] + [np.asarray(w.caches[n][k]) for n, k in names]))
+        spec = [(rng.integers(0, cfg.vocab_size, s).astype(np.int32), m)
+                for s, m in ((4, 5), (9, 3), (13, 8), (24, 2), (1, 4), (7, 7))]
+        if cfg.frontend == "audio_codes":
+            prompt = rng.integers(0, cfg.vocab_size, (2, 9, cfg.n_codebooks)).astype(np.int32)
+            want = RefLM(rcfg).generate(rparams, jnp.asarray(prompt), 6)
+            got = LMServeEngine(cfg, "cpu").generate(params, torch.from_numpy(prompt), 6)
+            out.append(row("serve/engine LMServeEngine", f"{arch} generate (2,9,4) -> 6: codes vs the reference's",
+                           f64(got), f64(want)))
+            continue
+        lens = [len(t) for t, _ in spec]
+        svc = RefService(RefEngine(rcfg, rparams, n_slots=4, max_len=48, max_prompt_len=24))
+        svc.warmup(prompt_lens=lens)
+        futs = [svc.submit(t, m) for t, m in spec]
+        svc.drain()
+        want = np.concatenate([f.result(timeout=60) for f in futs])
+        for kw in ({},) if cfg.is_attention_free else ({}, dict(paged=True, page_size=8)):
+            svc = LMService(ContinuousLMEngine(cfg, params, n_slots=4, max_len=48, max_prompt_len=24, device="cpu",
+                                               **kw)).warmup(prompt_lens=lens)
+            futs = [svc.submit(t, m) for t, m in spec]
+            svc.drain()
+            got = np.concatenate([f.result(timeout=60) for f in futs])
+            out.append(row("serve/engine ContinuousLMEngine", f"{arch} {'paged page 8' if kw else 'dense'}: "
+                           f"{len(got)} tokens vs the reference engine", f64(got), f64(want)))
     return out
 
 
