@@ -12,7 +12,10 @@ Phases (any failed check exits non-zero and prints no result):
      the shapes the
      serving and training paths give it (d = 2048 and 8192, b = 128,
      n = 256; the prime d = 2039 for the padded plan's q = 1 inverse path
-     and the ragged R_off tiles; the LM probe's d = 2304), forward and,
+     and the ragged R_off tiles; the LM probe's d = 2304; the LM train
+     step's aux loss, ``lmtrain`` labels: n = 64 rows of d = 2304 through
+     every aux arm's kernels, n = 32 of d = 5120 through the ungrouped
+     arm's), forward and,
      labelled ``bwd``, as the vjps call it, and at edge shapes that take the
      kernels' other paths (freq_outer: N of 1, 9 and 130, N != NB, K of 1,
      500, 1000 and 4096, an operand 4 bytes off, on both of its kernels;
@@ -58,6 +61,9 @@ Phases (any failed check exits non-zero and prints no result):
      products) the backward pass.  Prints median step ms per arm and route,
      then a profiler pass over 10 warmed steps of each arm (its kernels'
      device ms must be > 0; torch.cat's device copies are read out too).
+     Arm (a)'s trained state is saved through ``checkpoint/`` and served by
+     ``ServeEngine.from_checkpoint``: its embeddings of a 256-row batch must
+     equal the trained model's forward bit for bit.
   5. lm — paged continuous-batching LM serving of ``gemma2-2b`` at its full
      published width and depth (26 layers, d = 2304, 8 query / 4 kv heads of
      256, vocab 256000; random weights from ``init_params(seed=0)``) through
@@ -121,7 +127,26 @@ Phases (any failed check exits non-zero and prints no result):
      5120 and 64) against its oracle < 1e-3.  Then one bf16 timed line each
      (tok/s, TTFT p50 / p99, decode tick and prefill ms, the card's name and
      power limit).
-  7. report — one JSON ``kernels`` line, the card's name and power limit,
+  7. lmtrain — LM training with the paper's decorrelation aux loss
+     (``make_train_step``, the launcher's defaults: AdamW, warmup-cosine
+     peak 1e-3, clip 1.0, ``lm_batch`` data) at f32: ``gemma2-2b`` at full
+     width and depth (26 layers, d = 2304, 2.06 B parameters, seed 0),
+     batch 8 x seq 128, in four arms — aux off; R_off through the fused
+     kernel (xcorr_offdiag); R_sum q = 2 ungrouped (cmatmul, ctwiddle);
+     R_sum q = 2, b = 128 (pmatmul, freq_outer, freq_mat) — then
+     ``llama4-scout`` at full width, one layer (16 experts, 4.27 B
+     parameters), batch 4 x seq 64, R_sum q = 2.  Each aux arm runs 5 steps
+     on the kernel route and on the ``impl="plain"`` route from the same
+     weights and batches: every step's loss and ``decorr_reg`` within 5e-4
+     relative; step 0's aux term alone, its gradient wrt the final hidden
+     states within 5e-4 (its forward and backward launches read apart:
+     each arm's kernels on both passes, freq_outer's backward being
+     freq_mat); finite metrics, a router-balance loss on the MoE arm.  Then
+     (gemma2) 5 profiled kernel-route steps: median step ms (CUDA events),
+     device busy and idle share, each ported kernel's device ms, and the aux
+     loss's share of the step's device time (its forward + backward alone
+     at the step's shapes).  Peak bytes per arm.
+  8. report — one JSON ``kernels`` line, the card's name and power limit,
      and the last line ``{"ok": true, "device": {...}}``.
 
 Times are CUDA-event means over repeated launches with inputs resident in
@@ -203,6 +228,32 @@ DRAFT_K = 4
 # (h) one prompt past attn_chunk_threshold (8192), a multiple of the 2048-row
 # chunk, through the long-prompt (flash-style) prefill; then decode 8 tokens
 LONG_PREFILL, LONG_PREFILL_NEW = 10240, 8
+
+# [lmtrain]: LM training with the paper's aux loss, the reference launcher's
+# defaults (AdamW, warmup_cosine(1e-3, ...), clip 1.0, lm_batch data) at f32.
+# gemma2-2b at full width and depth, batch 8 x seq 128 (the aux statistic:
+# 8 x 8 = 64 subsampled rows of d = 2304), in four arms; then llama4-scout at
+# full width, one layer, batch 4 x seq 64 (32 rows of d = 5120), R_sum.
+# Each arm runs LMTRAIN_STEPS steps on the kernel route and on the plain
+# route from the same parameters and batches, then (gemma2) a profiled
+# window of LMTRAIN_STEPS more on the kernel route.
+LMTRAIN_STEPS = 5
+LMTRAIN_LR = 1e-3
+LMTRAIN_BATCH, LMTRAIN_SEQ = 8, 128
+LMTRAIN_N = LMTRAIN_BATCH * 8
+# arm: (aux DecorrConfig keywords or None, kernels launched on the forward
+# pass, kernels launched on the backward pass: R_off's vjp is torch
+# products, freq_outer's is freq_mat)
+LMTRAIN_ARMS = {
+    "aux off": (None, (), ()),
+    "r_off fused": (dict(style="vic", reg="off", use_kernel=True), ("xcorr_offdiag",), ()),
+    "r_sum q=2": (dict(style="vic", reg="sum", q=2), ("cmatmul", "ctwiddle"), ("cmatmul", "ctwiddle")),
+    "r_sum q=2 b=128": (dict(style="vic", reg="sum", q=2, block_size=128), ("pmatmul", "freq_outer"),
+                        ("pmatmul", "freq_mat")),
+}
+LMTRAIN_MOE, LMTRAIN_MOE_DEPTH = "llama4-scout-17b-a16e", 1
+LMTRAIN_MOE_BATCH, LMTRAIN_MOE_SEQ = 4, 64
+LMTRAIN_MOE_N = LMTRAIN_MOE_BATCH * 8
 
 REPLACES = {
     "cmatmul": "src/repro/kernels/sumvec_fft/kernel.py:54",
@@ -554,6 +605,26 @@ def _kernel_cases(dev):
     p = fft_plan(2304)
     cmm(f"lm d=2304 stage1 ({8 * p.d2},{p.d1})x({p.d1},{p.d1}) real A", 8 * p.d2, p.d1, p.d1, True)
     cmm(f"lm d=2304 stage3 ({8 * p.d1},{p.d2})x({p.d2},{p.d2})", 8 * p.d1, p.d2, p.d2, False)
+    # the LM train step's aux loss ([lmtrain]): n = 64 rows of d = 2304
+    # (gemma2-2b, batch 8 x 8 subsampled tokens) through every aux arm's
+    # kernels, forward and as the vjps call them; n = 32 of d = 5120
+    # (llama4-scout, batch 4) through the ungrouped arm's
+    for d, rows in ((2304, LMTRAIN_N), (5120, LMTRAIN_MOE_N)):
+        p = fft_plan(d)
+        tag = f"lmtrain n={rows} d={d}"
+        cmm(f"{tag} stage1 ({rows * p.d2},{p.d1})x({p.d1},{p.d1}) real A", rows * p.d2, p.d1, p.d1, True)
+        ctw(f"{tag} twiddle ({rows},{d})", rows, d)
+        cmm(f"{tag} stage3 ({rows * p.d1},{p.d2})x({p.d2},{p.d2})", rows * p.d1, p.d2, p.d2, False)
+        cmm_bwd(f"bwd {tag} stage1 dA ({rows * p.d2},{p.d1})x({p.d1},{p.d1}) real out", rows * p.d2, p.d1, p.d1,
+                True)
+        cmm_bwd(f"bwd {tag} stage3 dA ({rows * p.d1},{p.d2})x({p.d2},{p.d2})", rows * p.d1, p.d2, p.d2, False)
+    nb, tag = 2304 // b, f"lmtrain n={LMTRAIN_N} d=2304"
+    pmm(f"{tag} block DFT ({LMTRAIN_N * nb},{b})x({b},{2 * nf})", LMTRAIN_N * nb, b, 2 * nf, block_basis)
+    fo(f"{tag} freq_outer ({nf},{2 * LMTRAIN_N},{nb})", nf, 2 * LMTRAIN_N, nb)
+    fm(f"bwd {tag} freq_mat ({nf},{2 * LMTRAIN_N},{nb})x({nf},{nb},{nb})", nf, 2 * LMTRAIN_N, nb, nb)
+    pmm(f"bwd {tag} block DFT dA ({LMTRAIN_N * nb},{2 * nf})x({2 * nf},{b})", LMTRAIN_N * nb, 2 * nf, b,
+        block_basis_t)
+    xc(f"{tag} xcorr ({LMTRAIN_N},2304)", LMTRAIN_N, 2304)
     p = fft_plan(2039)  # prime: padded plan, q = 1 needs the inverse pipeline
     cmm(f"d=2039 dp={p.dp} stage1 ({n * p.d2},{p.d1})x({p.d1},{p.d1}) real A", n * p.d2, p.d1, p.d1, True)
     ctw(f"d=2039 dp={p.dp} twiddle ({n},{p.dp})", n, p.dp)
@@ -1119,10 +1190,43 @@ def phase_train(ph: Phase, dev):
             flush=True,
         )
         profiled.append((arm, names, k_state, k_step))
+        if loss_kw is ARMS["a bt r_sum b=128 q=2"][0]:
+            _served_from_checkpoint(ph, dev, k_state, batches)
     for prof in profiled:
         _profile_train(ph, dev, batches, *prof)
     _sensitivity(dev, batches)
     return fwd_total, bwd_total
+
+
+def _served_from_checkpoint(ph: Phase, dev, state, batches):
+    """Arm (a)'s trained state saved through ``checkpoint/`` and served by
+    ``ServeEngine.from_checkpoint``: the embeddings of a 256-row batch (a
+    bucket: no padding, the same products) equal the trained model's
+    forward bit for bit."""
+    import shutil
+
+    import torch
+
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.serve.engine import ServeEngine
+
+    model_cfg, policy = _paper()
+    ckpt = os.path.join(ROOT, "build", "smoke_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    try:
+        save_checkpoint(ckpt, state.step, state.state_dict())
+        engine = ServeEngine.from_checkpoint(ckpt, model_cfg, policy=policy, device=dev)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    x = batches[0]["view1"]
+    with torch.no_grad():
+        want = state.model(x)
+    got = engine.encode(x)
+    same = got.shape == want.shape and torch.equal(got, want)
+    ph.check(same, f"[train] from_checkpoint: served embeddings differ from the trained forward "
+                   f"(max abs {float((got - want).abs().max()):.3g})")
+    print(f"[train] from_checkpoint: step {state.step} saved, served {tuple(got.shape)} embeddings "
+          f"== the trained model's forward bit for bit: {same}", flush=True)
 
 
 def _sensitivity(dev, batches):
@@ -2321,6 +2425,250 @@ def phase_archs(ph: Phase, dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 7: LM training with the paper's aux loss, kernel route vs plain route
+# ---------------------------------------------------------------------------
+
+
+def _lmtrain_cfg(name, depth, aux_kw):
+    """Arch ``name`` at full width, ``depth`` layers (None: all), f32, with
+    the aux loss of ``aux_kw`` (None: off) as the launcher's ``--decorr``
+    sets it (mu 1, nu 0.04, 8 tokens a sequence)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import LMDecorrConfig
+    from repro_torch.decorr.config import DecorrConfig
+
+    cfg = get_config(name)
+    decorr = LMDecorrConfig() if aux_kw is None else LMDecorrConfig(enabled=True, decorr=DecorrConfig(**aux_kw),
+                                                                     nu=0.04)
+    return dataclasses.replace(cfg, n_layers=depth or cfg.n_layers, param_dtype=torch.float32,
+                               compute_dtype=torch.float32, decorr=decorr)
+
+
+def _lmtrain_state(cfg, dev, impl):
+    """(state, step): seeded random weights (the same for every call of one
+    config), a fresh AdamW, the launcher's schedule; ``impl`` routes the aux
+    regularizer."""
+    from repro_torch.models import ParamTree, init_params
+    from repro_torch.optim import adamw, warmup_cosine
+    from repro_torch.train import create_train_state, make_train_step
+
+    opt = adamw()
+    state = create_train_state(ParamTree(init_params(cfg, seed=SEED, device=dev)), opt, seed=SEED)
+    sched = warmup_cosine(LMTRAIN_LR, max(LMTRAIN_STEPS // 10, 1), LMTRAIN_STEPS)
+    return state, make_train_step(cfg, opt, sched, impl=impl)
+
+
+def _lmtrain_steps(state, step, batches):
+    """Run one step a batch: (host metrics per step, host ms per step, each
+    ending in a device sync)."""
+    import torch
+
+    metrics, ms = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        metrics.append(m)
+    return [{k: float(v) for k, v in m.items()} for m in metrics], ms
+
+
+def _nonzero(counts):
+    return {k: v for k, v in counts.items() if v}
+
+
+def _free():
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _lmtrain_aux_grad(ph, tag, cfg, state, batch, dev, kernels_fwd, kernels_bwd):
+    """Step 0's aux term alone, kernel route vs plain route, on one set of
+    final hidden states: its gradient wrt them (CE would swamp a wrong vjp
+    in the full gradient).  The kernel route's launches are read after its
+    forward and after its backward.  Returns (relative error, {kernel:
+    forward launches}, {kernel: backward launches})."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.core import lm_decorrelation_loss
+    from repro_torch.core.permutation import permutation_for_step
+    from repro_torch.models import forward
+
+    perm = permutation_for_step(SEED, 0, cfg.d_model).to(dev)
+    with torch.no_grad():
+        hidden = forward(state.model.tree(), cfg, tokens=batch["tokens"], head=False).hidden
+    hidden.requires_grad_()
+    kernels.reset_launch_counts()
+    aux = lm_decorrelation_loss(hidden, cfg.decorr, perm)[0]
+    fwd = kernels.launch_counts()
+    got = torch.autograd.grad(aux, hidden)[0]
+    bwd = {k: v - fwd[k] for k, v in kernels.launch_counts().items()}
+    want = torch.autograd.grad(lm_decorrelation_loss(hidden, cfg.decorr, perm, impl="plain")[0], hidden)[0]
+    rel = _max_err(got, want)[0] / float(want.abs().max())
+    ph.check(rel <= LOSS_TOL, f"[lmtrain] {tag}: step-0 aux grad wrt hidden rel err {rel:.3g} > {LOSS_TOL}")
+    ph.check(bool(torch.isfinite(got).all()), f"[lmtrain] {tag}: non-finite aux grad")
+    for name in kernels_fwd:
+        ph.check(fwd[name] > 0, f"[lmtrain] {tag}: kernel {name} never launched on the aux's forward pass")
+    for name in kernels_bwd:
+        ph.check(bwd[name] > 0, f"[lmtrain] {tag}: kernel {name} never launched on the aux's backward pass")
+    return rel, fwd, bwd
+
+
+def _lmtrain_profile(ph, tag, cfg, names, state, step, batches, dev):
+    """LMTRAIN_STEPS warmed kernel-route steps under the profiler: median
+    step ms (CUDA events), device busy and idle share, each ported kernel's
+    device ms, and the aux loss's share of the step's device time (its
+    forward + backward alone at the step's shapes, device time, over the
+    step's)."""
+    import statistics
+
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.core import lm_decorrelation_loss
+    from repro_torch.core.permutation import permutation_for_step
+
+    wall, step_ms = [0.0], []
+
+    def run():
+        t0 = time.perf_counter()
+        s, ev = state, []
+        for batch in batches:
+            ev.append((torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)))
+            ev[-1][0].record()
+            s, _ = step(s, batch)
+            ev[-1][1].record()
+        torch.cuda.synchronize()
+        wall[0] = time.perf_counter() - t0
+        step_ms.extend(a.elapsed_time(b) for a, b in ev)
+
+    kernels.reset_launch_counts()
+    events = _device_events(run)
+    counts = kernels.launch_counts()
+    busy_ms = sum(us for _, us in events) / 1e3
+    wall_ms = wall[0] * 1e3
+    ours = _ported_ms(ph, events, counts, names, f"lmtrain {tag}")
+    for name in names:
+        ph.check(ours[name][0] > 0, f"[profile] lmtrain {tag}: no device time of {name}")
+    line = (f"[profile] lmtrain {tag}: {len(batches)} steps median_step_ms={statistics.median(step_ms):.3f} "
+            f"wall_ms={wall_ms:.3f} device_busy_ms={busy_ms:.3f} idle_share={1 - busy_ms / wall_ms:.4f} "
+            f"device events={len(events)}")
+    if cfg.decorr.enabled:
+        kern_ms = sum(ms for ms, _ in ours.values())
+        h = torch.randn((*batches[0]["tokens"].shape, cfg.d_model), device=dev, requires_grad=True)
+        perm = permutation_for_step(SEED, 0, cfg.d_model).to(dev)
+        aux_ms = _device_ms(lambda: torch.autograd.grad(lm_decorrelation_loss(h, cfg.decorr, perm)[0], h), iters=5)
+        step_dev = busy_ms / len(batches)
+        line += (" | ported kernels ms: " + " ".join(f"{k}={ms:.4f} ({n} device launches)"
+                                                     for k, (ms, n) in ours.items())
+                 + f" | kernels' share of device time={kern_ms / busy_ms:.3g}"
+                 + f" | aux fwd+bwd alone device_ms={_fmt(aux_ms)} per step; share of the step's device time="
+                 + ("not measured" if aux_ms is None else f"{aux_ms / step_dev:.3g}"))
+    print(line, flush=True)
+
+
+def _lmtrain_arm(ph, tag, cfg, kernels_fwd, kernels_bwd, dev, batches, smi, profile):
+    """One arm: the kernel route's LMTRAIN_STEPS steps (launch counters
+    cleared just before, read just after), then (``profile``) a profiled
+    window, then the plain route's steps from the same weights and batches.
+    Returns ({kernel: launches}, {kernel: backward launches}) of the kernel
+    route's steps."""
+    import statistics
+
+    import torch
+
+    from repro_torch import kernels
+
+    aux = cfg.decorr.enabled
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    state, step = _lmtrain_state(cfg, dev, None)
+    if aux:
+        grad_rel, aux_fwd, aux_bwd = _lmtrain_aux_grad(ph, tag, cfg, state, batches[0], dev, kernels_fwd,
+                                                       kernels_bwd)
+    kernels.reset_launch_counts()
+    k_m, k_ms = _lmtrain_steps(state, step, batches)
+    fwd, bwd = kernels.launch_counts(), kernels.backward_launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    for name in kernels_fwd + kernels_bwd:
+        ph.check(fwd[name] > 0, f"[lmtrain] {tag}: kernel {name} never launched in the steps")
+    for name in kernels_bwd:
+        ph.check(bwd[name] > 0, f"[lmtrain] {tag}: kernel {name} never launched on the steps' backward passes")
+    for i, m in enumerate(k_m):
+        ph.check(all(math.isfinite(v) for v in m.values()), f"[lmtrain] {tag}: non-finite metrics at step {i}: {m}")
+        if cfg.n_experts:
+            ph.check(m["moe_aux"] > 0, f"[lmtrain] {tag}: no router-balance loss at step {i}")
+    names = tuple(dict.fromkeys(kernels_fwd + kernels_bwd))
+    if profile:
+        _lmtrain_profile(ph, tag, cfg, names, state, step, batches, dev)
+    del state, step
+    _free()
+    err, plain = {}, ""
+    if aux:
+        state, step = _lmtrain_state(cfg, dev, "plain")
+        p_m, p_ms = _lmtrain_steps(state, step, batches)
+        del state, step
+        _free()
+        for key in ("loss", "decorr_reg"):
+            err[key] = _max_rel([m[key] for m in k_m], [m[key] for m in p_m])
+            ph.check(err[key] <= LOSS_TOL, f"[lmtrain] {tag}: {key} rel err {err[key]:.3g} > {LOSS_TOL}")
+        plain = (f" | kernel vs plain: max loss_rel_err={err['loss']:.3g} decorr_reg_rel_err={err['decorr_reg']:.3g} "
+                 f"step-0 aux grad_rel_err={grad_rel:.3g} | median step ms plain={statistics.median(p_ms[1:]):.3f}"
+                 f" | a step's aux launches fwd {_nonzero(aux_fwd)} bwd {_nonzero(aux_bwd)}")
+    print(
+        f"[lmtrain] {tag}: {cfg.name} {cfg.n_layers} layers d={cfg.d_model} "
+        f"batch {batches[0]['tokens'].shape[0]} x seq {batches[0]['tokens'].shape[1]} f32, {len(batches)} steps | "
+        f"loss {k_m[0]['loss']:.6g} -> {k_m[-1]['loss']:.6g} ce {k_m[-1]['ce']:.6g} "
+        f"moe_aux {k_m[-1]['moe_aux']:.4g} decorr_aux {k_m[-1]['decorr_aux']:.4g} "
+        f"grad_norm {k_m[-1]['grad_norm']:.4g} | median step ms kernel={statistics.median(k_ms[1:]):.3f}{plain} | "
+        f"launches in {len(batches)} steps {_nonzero(fwd)}, of them on backward passes {_nonzero(bwd)} | "
+        f"peak {peak / 2**30:.2f} GiB | {smi}",
+        flush=True,
+    )
+    return fwd, bwd
+
+
+def phase_lmtrain(ph: Phase, dev):
+    """gemma2-2b at full width and depth in the four arms, then llama4-scout
+    at full width (one layer) with R_sum; returns ({kernel: launches},
+    {kernel: backward launches}) of the kernel routes' steps."""
+    import torch
+
+    from repro_torch.data import LMDataConfig
+    from repro_torch.launch.train import lm_batch_fn
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    fwd_total, bwd_total = {}, {}
+    runs = [(tag, "gemma2-2b", None, arm, LMTRAIN_BATCH, LMTRAIN_SEQ, True) for tag, arm in LMTRAIN_ARMS.items()]
+    runs.append(("moe r_sum q=2", LMTRAIN_MOE, LMTRAIN_MOE_DEPTH, LMTRAIN_ARMS["r_sum q=2"], LMTRAIN_MOE_BATCH,
+                 LMTRAIN_MOE_SEQ, False))
+    for tag, name, depth, (kw, kernels_fwd, kernels_bwd), batch, seq, profile in runs:
+        t0 = time.perf_counter()
+        cfg = _lmtrain_cfg(name, depth, kw)
+        data = LMDataConfig(cfg.vocab_size, batch=batch, seq_len=seq, seed=SEED)
+        batch_fn = lm_batch_fn(cfg, data, dev)
+        batches = [batch_fn(i) for i in range(LMTRAIN_STEPS)]
+        fwd, bwd = _lmtrain_arm(ph, tag, cfg, kernels_fwd, kernels_bwd, dev, batches, smi, profile)
+        for k in fwd:
+            fwd_total[k] = fwd_total.get(k, 0) + fwd[k]
+            bwd_total[k] = bwd_total.get(k, 0) + bwd[k]
+        print(f"[lmtrain] {tag}: {time.perf_counter() - t0:.1f}s", flush=True)
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    return fwd_total, bwd_total
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -2350,9 +2698,12 @@ def main() -> int:
     train_fwd, train_bwd = ph.run("train", phase_train, ph, dev) or ({}, {})
     lm = ph.run("lm", phase_lm, ph, dev) or {}
     archs = ph.run("archs", phase_archs, ph, dev) or {}
-    for part in (train_fwd, lm, archs):
+    lmtrain_fwd, lmtrain_bwd = ph.run("lmtrain", phase_lmtrain, ph, dev) or ({}, {})
+    for part in (train_fwd, lm, archs, lmtrain_fwd):
         for k, v in part.items():
             launches[k] = launches.get(k, 0) + v
+    for k, v in lmtrain_bwd.items():
+        train_bwd[k] = train_bwd.get(k, 0) + v
     for name in REPLACES:
         ph.check(name in rows, f"no timing row for {name}")
         ph.check(launches.get(name, 0) > 0, f"{name} never launched on the main path")

@@ -1,19 +1,70 @@
-"""Deterministic synthetic SSL data, port of the SSL stream of
-``repro/data/synthetic.py`` (numpy only, bit-identical to the reference).
+"""Deterministic synthetic data, port of ``repro/data/synthetic.py`` (numpy
+only, bit-identical to the reference).
 
 Batches are keyed by (seed, step): restart-safe and reproducible — a resumed
-run gets exactly the batches an uninterrupted one would.  Latent-factor
-vectors are rendered to "images"; two views come from the paper's
-augmentation semantics (crop -> coordinate mask, color jitter -> channel
-scale / shift, noise) in vector form.
+run gets exactly the batches an uninterrupted one would.
+
+* LM stream: Markov-ish token ids with a planted multiplicative structure,
+  so the cross-entropy falls during a training run.
+* SSL stream: latent-factor vectors rendered to "images"; two views come
+  from the paper's augmentation semantics (crop -> coordinate mask, color
+  jitter -> channel scale / shift, noise) in vector form.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterator, Tuple
+from typing import Dict, Iterator, Tuple
 
 import numpy as np
+
+
+# ---------------------------------------------------------------------------
+# LM token stream
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class LMDataConfig:
+    """Shape of the LM stream; ``n_codebooks`` > 0 gives audio codes
+    (B, S, n_codebooks)."""
+
+    vocab_size: int
+    batch: int
+    seq_len: int
+    seed: int = 0
+    n_codebooks: int = 0
+
+
+def lm_batch(cfg: LMDataConfig, step: int) -> Dict[str, np.ndarray]:
+    """Markov-ish synthetic tokens: t_{i+1} = (31 t_i + noise) % V; returns
+    int32 ``tokens`` and next-token ``labels``, each (B, S[, n_codebooks])."""
+    rng = np.random.default_rng(np.uint64(cfg.seed * 1_000_003 + step))
+    shape = (cfg.batch, cfg.seq_len + 1)
+    if cfg.n_codebooks:
+        shape = shape + (cfg.n_codebooks,)
+    first = rng.integers(0, cfg.vocab_size, size=(cfg.batch, 1) + shape[2:])
+    noise = rng.integers(0, 17, size=shape)
+    toks = np.empty(shape, np.int64)
+    toks[:, 0] = first[:, 0]
+    mult = 31
+    for i in range(1, shape[1]):
+        toks[:, i] = (toks[:, i - 1] * mult + noise[:, i]) % cfg.vocab_size
+    toks = toks.astype(np.int32)
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def lm_iterator(cfg: LMDataConfig, start_step: int = 0) -> Iterator[Dict[str, np.ndarray]]:
+    """Endless stream of ``lm_batch(cfg, step)`` from ``start_step`` on."""
+    step = start_step
+    while True:
+        yield lm_batch(cfg, step)
+        step += 1
+
+
+# ---------------------------------------------------------------------------
+# SSL two-view stream (the paper's setting)
+# ---------------------------------------------------------------------------
 
 
 @dataclasses.dataclass(frozen=True)

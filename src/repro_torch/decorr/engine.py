@@ -102,13 +102,17 @@ def regularizer(
     scale,
     perm: Optional[Tensor] = None,
     *,
+    ddof: Optional[int] = None,
     impl: Optional[str] = None,
 ) -> Tensor:
     """Impl-routed decorrelating term R(C) in ``local`` mode.
 
-    ``scale`` is the normalizer of C (n or n - 1).  The permutation is
-    applied inside — callers must NOT pre-permute.  ``impl`` overrides the
-    route (see ``core/regularizers.py``).
+    ``scale`` is the normalizer of C (n or n - 1).  ``ddof`` picks the exact
+    effective-batch normalizer of the ``global`` / ``tp`` modes; in
+    ``local`` mode the batch is the local one and ``scale`` already is that
+    normalizer, so ``ddof`` changes nothing, as in the reference.  The
+    permutation is applied inside — callers must NOT pre-permute.  ``impl``
+    overrides the route (see ``core/regularizers.py``).
     """
     effective_mode(cfg)
     return _local_regularizer(z1, z2, cfg, float(scale), perm, impl)

@@ -22,6 +22,8 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.decorrelation import LMDecorrConfig
+
 Tensor = torch.Tensor
 
 
@@ -36,7 +38,8 @@ class BlockSpec:
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
-    """One decoder architecture (the reference's fields the serving path reads)."""
+    """One decoder architecture (the reference's fields the serving and
+    training paths read)."""
 
     name: str
     family: str  # dense | moe | hybrid | ssm | vlm | audio
@@ -73,6 +76,7 @@ class ArchConfig:
     dense_residual: bool = False  # arctic: dense MLP in parallel with the MoE
     shared_expert: bool = False  # llama4: always-on shared expert
     capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01  # weight of the load-balance loss in a train step
     moe_group_size: Optional[int] = None  # dispatch per G-token group
 
     # ssm (mamba)
@@ -94,6 +98,9 @@ class ArchConfig:
     # dtypes
     param_dtype: torch.dtype = torch.bfloat16
     compute_dtype: torch.dtype = torch.bfloat16
+
+    # training features: the paper's aux loss on the final hidden states
+    decorr: LMDecorrConfig = dataclasses.field(default_factory=LMDecorrConfig)
 
     source: str = ""
 

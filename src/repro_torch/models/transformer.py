@@ -35,6 +35,7 @@ from typing import Any, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.models import attention as attn_lib
@@ -170,6 +171,29 @@ def params_from_jax(cfg: ArchConfig, params, device: DeviceLike = None) -> Dict[
         return torch.from_numpy(np.array(arr, np.float32)).to(device=device, dtype=dtype)
 
     return convert("", param_shapes(cfg), params)
+
+
+class ParamTree(nn.Module):
+    """A parameter tree (``init_params`` / ``params_from_jax``) held as an
+    ``nn.Module``: every leaf becomes an ``nn.Parameter`` (sharing the
+    leaf's storage), every sub-dict a child module of the same kind, so the
+    optimizers, ``TrainState`` and ``checkpoint/`` take it as they take any
+    model (``state_dict`` keys are the tree's paths joined by dots).
+    ``tree()`` hands ``forward`` the nested dict of those parameters."""
+
+    def __init__(self, tree: Dict[str, Any]):
+        super().__init__()
+        for key, sub in tree.items():
+            if isinstance(sub, dict):
+                self.add_module(key, ParamTree(sub))
+            else:
+                self.register_parameter(key, nn.Parameter(sub.detach()))
+
+    def tree(self) -> Dict[str, Any]:
+        """The nested dict of parameters, in ``forward``'s layout."""
+        out: Dict[str, Any] = dict(self._parameters)
+        out.update((key, mod.tree()) for key, mod in self._modules.items())
+        return out
 
 
 def layer_params(params: Dict[str, Any], name: str, r: int) -> Dict[str, Any]:

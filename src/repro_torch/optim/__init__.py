@@ -4,6 +4,7 @@ from repro_torch.optim.optimizers import (
     Optimizer,
     adamw,
     clip_by_global_norm,
+    clip_by_global_norm_,
     global_norm,
     lars,
     sgd_momentum,

@@ -100,9 +100,31 @@ class LARS(_Explicit):
             p.sub_((lr * mu).to(p.dtype))
 
 
+# elements of one leaf that an elementwise update pass works on at a time:
+# the update's temporaries are a few copies of what it works on, and a
+# billion-element leaf (a large vocabulary's embedding) would need several
+# GiB of them at once
+_PIECE = 1 << 24
+
+
+def _pieces(*tensors: Tensor):
+    """Matching flat slices of same-shaped contiguous tensors, at most
+    ``_PIECE`` elements each (the tensors whole when they are smaller or
+    one is not contiguous).  Elementwise arithmetic on the slices gives
+    the whole tensors' results bit for bit."""
+    n = tensors[0].numel()
+    if n <= _PIECE or not all(t.is_contiguous() for t in tensors):
+        yield tensors
+        return
+    flat = [t.view(-1) for t in tensors]
+    for i in range(0, n, _PIECE):
+        yield tuple(f[i:i + _PIECE] for f in flat)
+
+
 class AdamW(_Explicit):
     """AdamW with the reference's update: bias-corrected Adam direction plus
-    wd p for matrices, p -= lr upd."""
+    wd p for matrices, p -= lr upd (a large leaf in ``_PIECE``-element
+    slices)."""
 
     BUFFERS = ("m", "v")
 
@@ -119,13 +141,14 @@ class AdamW(_Explicit):
             # bias corrections in f32, as the reference computes them
             c1 = float(np.float32(1.0) - np.float32(b1) ** np.float32(count))
             c2 = float(np.float32(1.0) - np.float32(b2) ** np.float32(count))
-            m, v = self.state[p]["m"], self.state[p]["v"]
-            m.mul_(b1).add_((1 - b1) * g)
-            v.mul_(b2).add_((1 - b2) * g * g)
-            upd = (m / c1) / (torch.sqrt(v / c2) + group["eps"])
-            if _is_adaptive(p):
-                upd = upd + group["weight_decay"] * p.float()
-            p.sub_((lr * upd).to(p.dtype))
+            decay = group["weight_decay"] if _is_adaptive(p) else None
+            for ps, gs, m, v in _pieces(p, g, self.state[p]["m"], self.state[p]["v"]):
+                m.mul_(b1).add_((1 - b1) * gs)
+                v.mul_(b2).add_((1 - b2) * gs * gs)
+                upd = (m / c1) / (torch.sqrt(v / c2) + group["eps"])
+                if decay is not None:
+                    upd = upd + decay * ps.float()
+                ps.sub_((lr * upd).to(ps.dtype))
 
 
 class SGDMomentum(_Explicit):
@@ -178,6 +201,17 @@ def clip_by_global_norm(grads: Sequence[Tensor], max_norm: float) -> Tuple[List[
     norm = global_norm(grads)
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
     return [(g.float() * scale).to(g.dtype) for g in grads], norm
+
+
+def clip_by_global_norm_(grads: Sequence[Tensor], max_norm: float) -> Tensor:
+    """``clip_by_global_norm`` in place: each gradient is scaled where it
+    lies, so a step on a model whose gradients fill much of the card never
+    holds two copies of them.  Returns the pre-clip global norm."""
+    norm = global_norm(grads)
+    scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
+    for g in grads:
+        g.mul_(scale)
+    return norm
 
 
 def warmup_cosine(lr: float, warmup_steps: int, total_steps: int, min_ratio: float = 0.01):

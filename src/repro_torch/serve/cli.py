@@ -30,6 +30,11 @@ the scrape metrics (port of ``repro/serve/cli.py``).
     PYTHONPATH=src python -m repro_torch.serve.cli --smoke --lm-arch gemma2-2b \
         --continuous --paged --block-size 16 --speculative --draft-k 4 --device cpu
 
+    # serve what a training run saved (here the training CLI's --tiny model)
+    PYTHONPATH=src python -m repro_torch.train.cli --tiny --steps 6 --ckpt-dir /tmp/ssl_ckpt --device cpu
+    PYTHONPATH=src python -m repro_torch.serve.cli --ckpt-dir /tmp/ssl_ckpt \
+        --input-dim 256 --backbone 128 --d 256 --requests 64 --device cpu
+
 Like the reference, the LM paths serve ``cfg.reduced()``; ``chip_smoke.py``
 runs the full published width on the card.  The fabric, pre-tuning and
 telemetry belong to later slices of the port.
@@ -63,6 +68,8 @@ def _build(args):
     )
 
     def engine_fn():
+        if args.ckpt_dir:
+            return ServeEngine.from_checkpoint(args.ckpt_dir, model_cfg, policy=policy, device=device)
         model = init_ssl_model(model_cfg, seed=args.seed)
         return ServeEngine(model_cfg, model, policy=policy, device=device)
 
@@ -315,6 +322,8 @@ def main(argv=None) -> int:
                         "non-finite value, or (LM) a token or probe-oracle mismatch")
     p.add_argument("--json", action="store_true", help="dump the full report as JSON")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--ckpt-dir", default=None,
+                   help="serve the embedding model saved there by training (newest committed step)")
     # token-model path
     p.add_argument("--lm-arch", default=None,
                    help="serve a token model instead: any arch of repro_torch.configs.list_archs(), reduced "

@@ -7,8 +7,8 @@ zero-padded to the request's bucket, the model runs eagerly under
 ``torch.no_grad``, and the padding is sliced off.  Rows are
 independent through the MLP, so padding never leaks into real outputs.
 ``warmup`` runs every bucket once so no request pays a first-call cost.
-Checkpoint loading, the mesh (data-parallel) and tp (feature-sharded)
-forwards belong to later slices.
+``from_checkpoint`` serves what the training loop saved.  The mesh
+(data-parallel) and tp (feature-sharded) forwards belong to later slices.
 
 ``LMServeEngine`` (whole-request greedy generation) and
 ``ContinuousLMEngine`` (the continuous-batching slot pool, dense or paged
@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from repro_torch import DeviceLike, resolve_device
+from repro_torch.checkpoint import latest_step, restore_checkpoint
 from repro_torch.kernels.utils import next_multiple
 from repro_torch.models.transformer import init_caches
 from repro_torch.serve.buckets import BucketPolicy, bucket_for, bucket_sizes
@@ -64,6 +65,36 @@ class ServeEngine:
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self._warm: Set[int] = set()
+
+    @classmethod
+    def from_checkpoint(
+        cls,
+        ckpt_dir: str,
+        model_cfg: SSLModelConfig,
+        *,
+        step: Optional[int] = None,
+        **kw,
+    ) -> "ServeEngine":
+        """Load the encoder + projector saved by the training loop.
+
+        Training checkpoints a ``TrainState`` whose parameters lie under the
+        ``params`` key; a bare parameter tree (``SSLModel.state_dict()``) is
+        taken too.  ``step=None`` takes the newest committed step.  ``kw``
+        goes to the constructor (``policy``, ``device``).
+        """
+        if step is None:
+            step = latest_step(ckpt_dir)
+            if step is None:
+                raise FileNotFoundError(f"no committed checkpoint under {ckpt_dir}")
+        model = SSLModel(model_cfg)
+        template = model.state_dict()
+        try:
+            params = restore_checkpoint(ckpt_dir, step, template)
+        except KeyError:
+            # the TrainState layout: restore the params subtree alone
+            params = restore_checkpoint(ckpt_dir, step, {"params": template})["params"]
+        model.load_state_dict(params)
+        return cls(model_cfg, model, **kw)
 
     @property
     def d(self) -> int:

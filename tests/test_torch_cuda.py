@@ -29,7 +29,9 @@ def _rand(dev, *shape):
     return torch.randn(*shape, generator=torch.Generator().manual_seed(sum(shape))).to(dev)
 
 
-# (m, k, n, real A, offset of Ar, Re output only): the plan widths N = 32
+# (m, k, n, real A, offset of Ar, Re output only) — the LM train step's aux
+# loss at n = 64, d = 2304 (stages of 48) and n = 32, d = 5120 (64 and 80)
+# at the end — and: the plan widths N = 32
 # (stage 1, real A), 48 (the LM probe's d = 2304), 64, 128 (d = 8192's
 # stage 3 at a reduced M), 11 (the dp = 121 plan), 60 / 68 (d = 2039's
 # padded plan); M = 1 and M no multiple of a strip's rows; Ar 4 bytes off a
@@ -41,7 +43,9 @@ def _rand(dev, *shape):
      (4100, 32, 32, True, 0, False), (384, 48, 48, False, 0, False), (2000, 128, 128, False, 0, False),
      (300, 11, 11, False, 0, False), (1000, 60, 60, True, 0, False), (1000, 68, 68, False, 0, False),
      (1, 64, 64, False, 0, False), (8191, 64, 64, False, 0, False), (500, 64, 64, False, 1, False),
-     (4100, 32, 32, False, 0, True), (8192, 64, 64, False, 0, True), (64, 600, 40, False, 0, False)],
+     (4100, 32, 32, False, 0, True), (8192, 64, 64, False, 0, True), (64, 600, 40, False, 0, False),
+     (3072, 48, 48, True, 0, False), (3072, 48, 48, False, 0, False), (3072, 48, 48, False, 0, True),
+     (2560, 64, 64, True, 0, False), (2048, 80, 80, False, 0, False)],
 )
 def test_cmatmul_kernel_matches_plain(dev, m, k, n, real_a, offset, real_out):
     from repro_torch.kernels.sumvec_fft import kernel as K
@@ -79,7 +83,7 @@ def _view(dev, offset, *shape):
 @pytest.mark.parametrize(
     "n,d,offset",
     [(5, 37, 0), (256, 2048, 0), (256, 121, 0), (256, 2048, 1), (1, 4080, 0), (7, 2048, 0),
-     (257, 8192, 0), (3, 121, 1)],
+     (257, 8192, 0), (3, 121, 1), (64, 2304, 0), (32, 5120, 0)],
 )
 def test_ctwiddle_kernel_matches_plain(dev, n, d, offset):
     from repro_torch.kernels.sumvec_fft import kernel as K
@@ -103,7 +107,7 @@ def test_ctwiddle_kernel_matches_plain(dev, n, d, offset):
     "m,k,n,offset",
     [(13, 7, 5, 0), (4096, 128, 130, 0), (300, 128, 65, 0), (4096, 130, 128, 0), (256, 65, 128, 0),
      (300, 130, 128, 1), (77, 257, 130, 0), (128, 4096, 130, 0), (1, 128, 130, 0), (16384, 128, 130, 0),
-     (4096, 128, 130, 1), (70, 40, 300, 0)],
+     (4096, 128, 130, 1), (70, 40, 300, 0), (1152, 128, 130, 0), (1152, 130, 128, 0)],
 )
 def test_pmatmul_kernel_matches_plain(dev, m, k, n, offset):
     from repro_torch.kernels.grouped_sumvec import kernel as K
@@ -135,7 +139,7 @@ def test_pmatmul_kernel_matches_plain(dev, m, k, n, offset):
     [(3, 11, 5, 7, 0), (65, 512, 16, 16, 0), (65, 512, 1, 1, 0), (65, 512, 9, 9, 0), (65, 512, 64, 64, 0),
      (2, 70, 130, 9, 0), (65, 512, 16, 64, 0), (65, 1, 16, 16, 0), (65, 500, 16, 16, 0), (65, 4096, 16, 16, 0),
      (65, 512, 16, 16, 1), (65, 1, 64, 64, 0), (65, 1000, 64, 64, 0), (4, 300, 130, 100, 0), (65, 512, 64, 64, 1),
-     (65, 64, 50, 130, 0), (132, 64, 48, 48, 0), (65, 0, 64, 64, 0)],
+     (65, 64, 50, 130, 0), (132, 64, 48, 48, 0), (65, 0, 64, 64, 0), (65, 128, 18, 18, 0)],
 )
 def test_freq_outer_kernel_matches_plain(dev, f, k, n, nb, offset):
     from repro_torch.kernels.grouped_sumvec import kernel as K
@@ -179,7 +183,7 @@ def test_r_sum_kernel_route_matches_plain_route(dev, block, q):
 @pytest.mark.parametrize(
     "f,k,n,n2,offset",
     [(3, 11, 5, 7, 0), (65, 512, 16, 16, 0), (65, 512, 64, 64, 0), (2, 70, 130, 9, 0), (65, 512, 9, 9, 0),
-     (65, 512, 16, 16, 1), (65, 500, 16, 16, 0), (65, 77, 64, 64, 0), (2, 70, 20, 130, 0)],
+     (65, 512, 16, 16, 1), (65, 500, 16, 16, 0), (65, 77, 64, 64, 0), (2, 70, 20, 130, 0), (65, 128, 18, 18, 0)],
 )
 def test_freq_mat_kernel_matches_plain(dev, f, k, n, n2, offset):
     from repro_torch.kernels.grouped_sumvec import kernel as K
@@ -201,7 +205,7 @@ def test_freq_mat_kernel_matches_plain(dev, f, k, n, n2, offset):
 @pytest.mark.parametrize(
     "n,d,offset",
     [(5, 37, 0), (256, 2048, 0), (256, 2039, 0), (300, 130, 0), (256, 128, 0), (17, 129, 0), (1, 2039, 0),
-     (17, 8192, 0), (256, 8192, 0), (300, 2048, 0), (1, 128, 0), (256, 2048, 1), (17, 130, 1)],
+     (17, 8192, 0), (256, 8192, 0), (300, 2048, 0), (1, 128, 0), (256, 2048, 1), (17, 130, 1), (64, 2304, 0)],
 )
 def test_xcorr_offdiag_kernel_matches_plain(dev, n, d, offset):
     from repro_torch.kernels.xcorr_offdiag import kernel as K
@@ -589,3 +593,63 @@ def test_moe_paged_decode_lanes_sharing_a_row_are_order_free_on_the_card(dev, im
         want = v[4, 0].repeat_interleave(cfg.n_heads // kv, dim=0)
         for lane in range(5):
             torch.testing.assert_close(out[lane, 0].float(), want, rtol=0.0, atol=1e-6)
+
+
+# the LM train step's aux arms (``chip_smoke.py``'s [lmtrain]): VICReg-style
+# R_sum ungrouped, R_sum b = 128, the fused R_off
+LM_AUX = {
+    "sum": dict(style="vic", reg="sum", q=2),
+    "sum-b128": dict(style="vic", reg="sum", q=2, block_size=128),
+    "off": dict(style="vic", reg="off", use_kernel=True),
+}
+LM_AUX_KERNELS = {"sum": ("cmatmul", "ctwiddle"), "sum-b128": ("pmatmul", "freq_outer", "freq_mat"),
+                  "off": ("xcorr_offdiag",)}
+
+
+@pytest.mark.parametrize("arm", list(LM_AUX))
+def test_lm_aux_loss_at_the_train_shape_matches_plain_route(dev, arm):
+    """The aux loss of a gemma2-2b train step (hidden (8, 128, 2304): 64
+    subsampled rows) on the kernel route against the plain route: the loss
+    and its gradient wrt the hidden states within 5e-4 relative."""
+    from repro_torch import kernels
+    from repro_torch.core import LMDecorrConfig, lm_decorrelation_loss
+    from repro_torch.decorr import DecorrConfig
+
+    cfg = LMDecorrConfig(enabled=True, decorr=DecorrConfig(**LM_AUX[arm]), nu=0.04)
+    hidden = _rand(dev, 8, 128, 2304).requires_grad_()
+    perm = torch.randperm(2304, generator=torch.Generator().manual_seed(1)).to(dev)
+    kernels.reset_launch_counts()
+    aux, _ = lm_decorrelation_loss(hidden, cfg, perm)
+    (got,) = torch.autograd.grad(aux, hidden)
+    counts = kernels.launch_counts()
+    want_aux, _ = lm_decorrelation_loss(hidden, cfg, perm, impl="plain")
+    (want,) = torch.autograd.grad(want_aux, hidden)
+    torch.cuda.synchronize()
+    assert abs(float(aux.detach()) - float(want_aux.detach())) <= 5e-4 * abs(float(want_aux.detach()))
+    torch.testing.assert_close(got, want, rtol=5e-4, atol=5e-4 * float(want.abs().max()))
+    assert all(counts[name] > 0 for name in LM_AUX_KERNELS[arm]), counts
+
+
+@pytest.mark.parametrize("arm", list(LM_AUX))
+def test_aliased_operands_get_the_sum_of_both_vjps_on_the_card(dev, arm):
+    """``R(z, z)`` (the LM aux passes ``zc, zc``) through each kernel's
+    autograd Function: the gradient equals the sum of both operands' vjps
+    of ``R(z1, z2)`` at z1 = z2 = z, on the kernel route."""
+    from repro_torch.core import regularizers as regs
+    from repro_torch.kernels.xcorr_offdiag import off_diagonal_sq_sum
+
+    kw = LM_AUX[arm]
+
+    def reg(a, b):
+        if kw["reg"] == "off":
+            return off_diagonal_sq_sum(a, b, scale=63.0)
+        return regs.r_sum_auto(a, b, q=2, block_size=kw.get("block_size"), scale=63.0)
+
+    base = _rand(dev, 64, 2304)
+    z = base.clone().requires_grad_()
+    (got,) = torch.autograd.grad(reg(z, z), z)
+    z1, z2 = base.clone().requires_grad_(), base.clone().requires_grad_()
+    g1, g2 = torch.autograd.grad(reg(z1, z2), (z1, z2))
+    torch.cuda.synchronize()
+    want = g1 + g2
+    torch.testing.assert_close(got, want, rtol=5e-4, atol=5e-4 * float(want.abs().max()))

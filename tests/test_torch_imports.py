@@ -22,9 +22,12 @@ print(len(names), bad, " ".join(names))
 assert not bad, bad
 """
 
-# the numpy-only serving modules the port keeps its own copies of, and the
-# model families and arch configs of the LM serving path
-COPIES = ("repro_torch.serve.sampling", "repro_torch.serve.spec", "repro_torch.serve.paging.radix",
+# the numpy-only serving modules the port keeps its own copies of, the
+# model families and arch configs of the LM serving path, and the modules of
+# the LM training path
+COPIES = ("repro_torch.data.synthetic", "repro_torch.core.decorrelation", "repro_torch.core.whitening",
+          "repro_torch.train.step", "repro_torch.launch.train",
+          "repro_torch.serve.sampling", "repro_torch.serve.spec", "repro_torch.serve.paging.radix",
           "repro_torch.serve.paging.allocator", "repro_torch.serve.slots",
           "repro_torch.models.moe", "repro_torch.models.ssm", "repro_torch.configs.jamba_v01_52b",
           "repro_torch.configs.rwkv6_3b", "repro_torch.configs.musicgen_large", "repro_torch.configs.qwen2_vl_2b")

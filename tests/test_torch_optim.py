@@ -73,6 +73,41 @@ def test_global_norm_and_clip_match_reference(max_norm):
         np.testing.assert_allclose(g.numpy(), np.asarray(want[k]), **TOL)
 
 
+@pytest.mark.parametrize("max_norm", [0.5, 100.0], ids=["clips", "passes"])
+def test_in_place_clip_equals_clip(max_norm):
+    grads = [torch.from_numpy(v) for v in _tree(np.random.default_rng(1)).values()]
+    want, want_norm = topt.clip_by_global_norm(grads, max_norm)
+    ptrs = [g.data_ptr() for g in grads]
+    norm = topt.clip_by_global_norm_(grads, max_norm)
+    assert torch.equal(norm, want_norm) and [g.data_ptr() for g in grads] == ptrs
+    assert all(torch.equal(g, w) for g, w in zip(grads, want))
+
+
+def test_adamw_slices_a_large_leaf_bit_for_bit(monkeypatch):
+    """AdamW updates a leaf above ``_PIECE`` elements slice by slice: the
+    parameters and moments equal the whole-leaf update bit for bit (a
+    non-contiguous leaf is updated whole)."""
+    rng = np.random.default_rng(5)
+    leaves = [rng.standard_normal(s).astype(np.float32) for s in ((7, 9), (40,), (3,))]
+    grads = [[rng.standard_normal(x.shape).astype(np.float32) for x in leaves] for _ in range(3)]
+
+    def run():
+        params = [torch.from_numpy(x.copy()) for x in leaves]
+        params[0] = params[0].T.contiguous().T  # non-contiguous
+        opt = topt.adamw().init(params)
+        for g in grads:
+            for p, x in zip(params, g):
+                p.grad = torch.from_numpy(x).reshape(p.shape)
+            opt.step(0.01)
+        return params, [opt.state[p][k] for p in params for k in ("m", "v")]
+
+    whole = run()
+    monkeypatch.setattr(topt, "_PIECE", 4)
+    sliced = run()
+    for a, b in zip(whole[0] + whole[1], sliced[0] + sliced[1]):
+        assert torch.equal(a, b)
+
+
 def test_warmup_cosine_matches_reference():
     ref = ropt.warmup_cosine(0.2, 10, 100)
     port = topt.warmup_cosine(0.2, 10, 100)

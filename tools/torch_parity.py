@@ -110,6 +110,7 @@ def _rows():
     out.extend(_serving_option_rows(row))
     out.extend(_family_rows(row))
     out.extend(_arch_rows(row))
+    out.extend(_lm_train_rows(row))
     return out
 
 
@@ -653,6 +654,151 @@ def _arch_rows(row):
             got = np.concatenate([f.result(timeout=60) for f in futs])
             out.append(row("serve/engine ContinuousLMEngine", f"{arch} {'paged page 8' if kw else 'dense'}: "
                            f"{len(got)} tokens vs the reference engine", f64(got), f64(want)))
+    return out
+
+
+def _lm_train_rows(row):
+    """The LM training slice: ``lm_batch``, the aux loss (terms and its
+    gradient wrt the hidden states) for each aux arm, step 0's loss terms
+    and every parameter gradient of the ten archs (reduced), two
+    ``make_train_step`` steps (1 and 2 microbatches), the whitening
+    baseline and ``ServeEngine.from_checkpoint``."""
+    import dataclasses
+    import functools
+    import tempfile
+
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from repro.checkpoint import save_checkpoint as ref_save
+    from repro.configs import get_config as ref_config
+    from repro.core import whitening as rw
+    from repro.core.decorrelation import LMDecorrConfig as RefLM
+    from repro.core.decorrelation import lm_decorrelation_loss as ref_aux
+    from repro.data import LMDataConfig as RefData
+    from repro.data import lm_batch as ref_lm_batch
+    from repro.decorr import DecorrConfig as RefConfig
+    from repro.models import init_params as ref_init
+    from repro.optim import adamw as ref_adamw
+    from repro.optim import warmup_cosine as ref_wc
+    from repro.serve.engine import ServeEngine as RefEngine
+    from repro.train import create_train_state as ref_state
+    from repro.train import make_train_step as ref_step
+    from repro.train.ssl import SSLModelConfig as RefModelConfig
+    from repro.train.ssl import init_ssl_params
+    from repro.train.step import _lm_loss_fn as ref_loss_fn
+    from repro.train.train_state import TrainState as RefTrainState
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.configs import get_config, list_archs
+    from repro_torch.core import LMDecorrConfig, lm_decorrelation_loss, whitening
+    from repro_torch.data import LMDataConfig, lm_batch
+    from repro_torch.decorr import DecorrConfig
+    from repro_torch.launch.train import lm_batch_fn
+    from repro_torch.models import ParamTree, params_from_jax
+    from repro_torch.optim import adamw, warmup_cosine
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.train import create_train_state, make_train_step
+    from repro_torch.train.ssl import SSLModelConfig
+    from repro_torch.train.ssl import params_from_jax as ssl_params_from_jax
+    from repro_torch.train.step import _lm_loss_fn
+
+    f64 = lambda x: np.asarray(x, np.float64)  # noqa: E731
+    out = []
+    for kw in (dict(vocab_size=256000, batch=8, seq_len=128), dict(vocab_size=2048, batch=2, seq_len=7,
+                                                                     n_codebooks=4)):
+        got, want = lm_batch(LMDataConfig(**kw), 3), ref_lm_batch(RefData(**kw), 3)
+        out.append(row("data/synthetic lm_batch", f"{kw['batch']}x{kw['seq_len']} V={kw['vocab_size']}"
+                       + (" 4 codebooks" if "n_codebooks" in kw else ""),
+                       [f64(got[k]) for k in sorted(got)], [f64(want[k]) for k in sorted(want)]))
+    arms = {"sum": dict(style="vic", reg="sum", q=2), "sum b=128": dict(style="vic", reg="sum", q=2, block_size=128),
+            "off fused": dict(style="vic", reg="off", use_kernel=True)}
+    rng = np.random.default_rng(1)
+    h = rng.standard_normal((2, 16, 256)).astype(np.float32)
+    h[..., :128] += 0.7 * h[..., 128:]
+    key = jax.random.PRNGKey(7)
+    perm = torch.from_numpy(np.array(jax.random.permutation(key, 256)))
+    for name, kw in arms.items():
+        for permute in (True, False):
+            rcfg = RefLM(enabled=True, decorr=RefConfig(**kw, permute=permute), nu=0.5)
+            (_, wm), wg = jax.value_and_grad(lambda x: ref_aux(x, rcfg, perm_key=key), has_aux=True)(jnp.asarray(h))
+            cfg = LMDecorrConfig(enabled=True, decorr=DecorrConfig(**kw, permute=permute), nu=0.5)
+            for impl in (None, "kernel"):
+                x = torch.from_numpy(h).requires_grad_()
+                aux, gm = lm_decorrelation_loss(x, cfg, perm, impl=impl)
+                (g,) = torch.autograd.grad(aux, x)
+                keys = sorted(wm)
+                out.append(row("core/decorrelation lm_decorrelation_loss",
+                               f"(2,16,256) {name} permute={permute} {impl or 'plain'} route: aux, var, reg + grad",
+                               [float(gm[k].detach()) for k in keys] + [g], [float(wm[k]) for k in keys] + [wg]))
+    for arch in list_archs():
+        aux = dict(style="vic", reg="sum", q=2)
+        rcfg = dataclasses.replace(ref_config(arch).reduced(), decorr=RefLM(enabled=True, decorr=RefConfig(**aux),
+                                                                            nu=0.5, tokens_per_seq=4))
+        cfg = dataclasses.replace(get_config(arch).reduced(), decorr=LMDecorrConfig(
+            enabled=True, decorr=DecorrConfig(**aux), nu=0.5, tokens_per_seq=4))
+        data = LMDataConfig(cfg.vocab_size, 2, 8, seed=1, n_codebooks=cfg.n_codebooks if cfg.frontend == "audio_codes"
+                            else 0)
+        batch = lm_batch_fn(cfg, data, "cpu")(0)
+        rparams = ref_init(jax.random.PRNGKey(0), rcfg)
+        grad_fn = jax.jit(jax.value_and_grad(functools.partial(ref_loss_fn, cfg=rcfg), has_aux=True))
+        jbatch = {k: jnp.asarray(v.numpy()) for k, v in batch.items()}
+        (_, wm), wg = grad_fn(rparams, jbatch, rng=jax.random.PRNGKey(3))
+        want = {".".join(str(k.key) for k in p): np.asarray(g) for p, g in jax.tree_util.tree_flatten_with_path(wg)[0]}
+        model = ParamTree(params_from_jax(cfg, jax.tree.map(np.asarray, rparams), device="cpu"))
+        perm = torch.from_numpy(np.array(jax.random.permutation(jax.random.PRNGKey(3), cfg.d_model)))
+        loss, gm = _lm_loss_fn(model.tree(), batch, cfg, perm)
+        names, params = zip(*model.named_parameters())
+        grads = torch.autograd.grad(loss, params)
+        terms = ("loss", "ce", "moe_aux", "decorr_aux")
+        out.append(row("train/step _lm_loss_fn", f"{arch} reduced (2,8): loss terms",
+                       [float(gm[k].detach()) for k in terms], [float(wm[k]) for k in terms]))
+        out.append(row("train/step _lm_loss_fn", f"{arch} reduced: {len(names)} parameter gradients",
+                       list(grads), [want[n] for n in names]))
+    for arch in ("gemma2-2b", "llama4-scout-17b-a16e"):
+        for micro in (1, 2):
+            aux = dict(style="vic", reg="sum", q=2)
+            rcfg = dataclasses.replace(ref_config(arch).reduced(), decorr=RefLM(
+                enabled=True, decorr=RefConfig(**aux), nu=0.5, tokens_per_seq=4))
+            cfg = dataclasses.replace(get_config(arch).reduced(), decorr=LMDecorrConfig(
+                enabled=True, decorr=DecorrConfig(**aux), nu=0.5, tokens_per_seq=4))
+            rs = ref_state(ref_init(jax.random.PRNGKey(0), rcfg), ref_adamw())
+            state = create_train_state(ParamTree(params_from_jax(cfg, jax.tree.map(np.asarray, rs.params),
+                                                                 device="cpu")), adamw())
+            rstep = jax.jit(ref_step(rcfg, ref_adamw(), ref_wc(3e-3, 0, 10), num_microbatches=micro))
+            step = make_train_step(cfg, adamw(), warmup_cosine(3e-3, 0, 10), num_microbatches=micro,
+                                   perm_fn=lambda s: torch.from_numpy(np.array(jax.random.permutation(
+                                       jax.random.fold_in(jax.random.PRNGKey(0), s), cfg.d_model))))
+            for s in range(2):
+                b = lm_batch(LMDataConfig(cfg.vocab_size, 4, 8), s)
+                rs, _ = rstep(rs, {k: jnp.asarray(v) for k, v in b.items()})
+                state, _ = step(state, {k: torch.from_numpy(v) for k, v in b.items()})
+            want = {".".join(str(k.key) for k in p): np.asarray(v)
+                    for p, v in jax.tree_util.tree_flatten_with_path(rs.params)[0]}
+            got = dict(state.model.named_parameters())
+            out.append(row("train/step make_train_step", f"{arch} reduced, 2 AdamW steps, {micro} microbatch(es): "
+                           "parameters", [got[n].detach() for n in sorted(got)], [want[n] for n in sorted(got)]))
+    z1 = rng.standard_normal((64, 24)).astype(np.float32)
+    z2 = (z1 + 0.3 * rng.standard_normal(z1.shape)).astype(np.float32)
+    cov = (z1.T @ z1 / 63).astype(np.float32)
+    out.append(row("core/whitening newton_schulz_inv_sqrt", "(24,24), 7 iterations",
+                   whitening.newton_schulz_inv_sqrt(torch.from_numpy(cov)),
+                   rw.newton_schulz_inv_sqrt(jnp.asarray(cov))))
+    out.append(row("core/whitening zca_whiten", "(64,24)", whitening.zca_whiten(torch.from_numpy(z1)),
+                   rw.zca_whiten(jnp.asarray(z1))))
+    out.append(row("core/whitening wmse_loss", "(64,24) x 2", float(whitening.wmse_loss(
+        torch.from_numpy(z1), torch.from_numpy(z2))[0]), float(rw.wmse_loss(jnp.asarray(z1), jnp.asarray(z2))[0])))
+    widths = dict(input_dim=32, backbone_widths=(48,), projector_widths=(64, 64))
+    rp = init_ssl_params(jax.random.PRNGKey(4), RefModelConfig(**widths))
+    x = rng.standard_normal((7, 32)).astype(np.float32)
+    with tempfile.TemporaryDirectory() as tmp:
+        ref_save(f"{tmp}/ref", 3, RefTrainState(jnp.asarray(3), rp, None, jax.random.PRNGKey(0)))
+        model = ssl_params_from_jax(jax.tree.map(np.asarray, rp), SSLModelConfig(**widths))
+        save_checkpoint(f"{tmp}/port", 3, create_train_state(model, adamw()).state_dict())
+        want = RefEngine.from_checkpoint(f"{tmp}/ref", RefModelConfig(**widths)).encode(x)
+        got = ServeEngine.from_checkpoint(f"{tmp}/port", SSLModelConfig(**widths), device="cpu").encode(x)
+    out.append(row("serve/engine ServeEngine.from_checkpoint", "TrainState checkpoint, n=7: embeddings", got,
+                   np.asarray(want)))
     return out
 
 
