@@ -64,6 +64,26 @@ Phases (any failed check exits non-zero and prints no result):
      Arm (a)'s trained state is saved through ``checkpoint/`` and served by
      ``ServeEngine.from_checkpoint``: its embeddings of a 256-row batch must
      equal the trained model's forward bit for bit.
+  4b. dist — distributed decorrelation on one NCCL rank (a group of one,
+     ``FileStore`` rendezvous; collectives across ranks are the CPU tests'
+     job): (1) the BT loss, R_sum b = 128 q = 2 at n = 256, d = 8192 (a
+     65 x 64 x 64 complex accumulator all-reduced), under ``global`` (axis
+     "data") and ``tp`` (a 1 x 1 mesh, the all-to-all) on the kernel route
+     against ``local``'s kernel route, and ``global``'s kernel route against
+     its ``impl="plain"`` route: loss and input gradients within 5e-4,
+     pmatmul and freq_outer launched on the forward, pmatmul and freq_mat on
+     the backward; (2) ``make_sharded_ssl_train_step`` at the ssl-paper
+     width, arm (a) of phase 4 (LARS, peak lr 0.05, 20 steps), in ``global``
+     and ``tp`` against ``make_ssl_train_step`` from the same parameters,
+     batches and permutations: step-0 gradients per parameter and every
+     step's loss within 5e-4, the kernels launched, the median step ms of
+     both (the collectives' cost at world size 1; printed, not gated);
+     (3) ``make_compressed_dp_step`` on the same model and batches, 5 steps:
+     ``none``'s losses equal ``make_ssl_train_step``'s within 5e-4, the
+     reduced step-0 gradients of bf16 / int8_ef within 0.01 / 0.05 relative
+     of ``none``'s (the reference test's bounds) — NCCL takes the f32, bf16,
+     int32 and MAX all-reduces.  The sharded steps' launches count toward
+     the ``kernels`` line.
   5. lm — paged continuous-batching LM serving of ``gemma2-2b`` at its full
      published width and depth (26 layers, d = 2304, 8 query / 4 kv heads of
      256, vocab 256000; random weights from ``init_params(seed=0)``) through
@@ -200,6 +220,10 @@ PROFILE_STEPS = 10
 # holds the routes' rounding differences.
 TRAIN_LR = 0.05
 SENSITIVITY_LR = 0.2
+# dist phase: the regularizer at the paper's d = 8192 (b = 128: a 65 x 64 x
+# 64 complex accumulator, 2.1 MB an all-reduce); compressed steps run
+DIST_N, DIST_D, DIST_BLOCK = 256, 8192, 128
+DIST_DP_STEPS = 5
 # lm phase: kernel-route logits vs the plain route's on the same pool state,
 # relative to max(1, max |logit|) — the reference's 1e-4 logit tolerance
 LOGIT_TOL = 1e-4
@@ -1277,14 +1301,230 @@ def _profile_train(ph: Phase, dev, batches, arm, names, state, step):
     # torch.cat's device copies (arm a: the four around the two freq_outer
     # calls of grouped_sumvec/ops.grouped_frequency_accumulator_kernel)
     cat = [us for name, us in events if "CatArrayBatchedCopy" in name]
+    nccl = [us for name, us in events if "nccl" in name.lower()]
     print(
         f"[profile] train {arm}: {PROFILE_STEPS} steps wall_ms={wall_ms:.3f} device_busy_ms={busy_ms:.4f} "
         f"idle_share={1 - busy_ms / wall_ms:.4f} device events={len(events)} | ported kernels ms: "
         + " ".join(f"{k}={ms:.4f} ({n} device launches)" for k, (ms, n) in ours.items())
         + f" | torch.cat ms={sum(cat) / 1e3:.4f} ({len(cat)} device launches)"
+        + f" | nccl ms={sum(nccl) / 1e3:.4f} ({len(nccl)} device launches)"
         + " | top: " + "; ".join(f"{n[:60]}={us / 1e3:.4f}ms" for n, us in top),
         flush=True,
     )
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: distributed decorrelation and data-parallel steps, one NCCL rank
+# ---------------------------------------------------------------------------
+
+
+def _dist_regularizer(ph: Phase, dev, meshes):
+    """BT loss (R_sum, b = 128, q = 2) at n = 256, d = 8192 under ``global``
+    and ``tp`` on the kernel route against ``local``'s kernel route, and
+    ``global``'s kernel route against its ``impl="plain"`` route: loss and
+    input gradients within 5e-4; pmatmul and freq_outer launched on the
+    forward, pmatmul and freq_mat on the backward."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.core.permutation import permutation_for_step
+    from repro_torch.decorr import DecorrConfig, engine
+    from repro_torch.parallel import sharding as shd
+
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 11)
+    n, d = DIST_N, DIST_D
+    z1 = torch.randn(n, d, generator=gen).to(dev)
+    z2 = (0.6 * z1 + 0.8 * torch.randn(n, d, generator=gen).to(dev))
+    perm = permutation_for_step(SEED, 0, d).to(dev)
+
+    def run(mode, impl=None, count=False):
+        cfg = DecorrConfig(style="bt", reg="sum", block_size=DIST_BLOCK, q=2, distributed=mode,
+                           axis_name=None if mode == "local" else "data", model_axis="model" if mode == "tp" else None)
+        a, c = z1.clone().requires_grad_(), z2.clone().requires_grad_()
+        with shd.sharding_context(meshes[mode]):
+            kernels.reset_launch_counts()
+            loss = engine.apply(a, c, cfg, perm, impl=impl)[0]
+            torch.cuda.synchronize()
+            fwd = kernels.launch_counts()
+            grads = torch.autograd.grad(loss, (a, c))
+            torch.cuda.synchronize()
+            bwd = {k: v - fwd[k] for k, v in kernels.launch_counts().items()}
+        if count:
+            for name in ("pmatmul", "freq_outer"):
+                ph.check(fwd[name] > 0, f"[dist] {mode}: {name} never launched on the forward pass")
+            for name in ("pmatmul", "freq_mat"):
+                ph.check(bwd[name] > 0, f"[dist] {mode}: {name} never launched on the backward pass")
+        return (loss.detach(),) + grads, fwd, bwd
+
+    def rel(got, want):
+        loss_rel = abs(float(got[0]) - float(want[0])) / abs(float(want[0]))
+        return loss_rel, max(_max_err(g, w)[0] / float(w.abs().max()) for g, w in zip(got[1:], want[1:]))
+
+    local, _, _ = run("local")
+    plain, _, _ = run("global", impl="plain")
+    for mode in ("global", "tp"):
+        got, fwd, bwd = run(mode, count=True)
+        for what, want in (("local kernel route", local), ("global plain route", plain)):
+            if mode == "tp" and what.startswith("global"):
+                continue
+            loss_rel, grad_rel = rel(got, want)
+            ph.check(loss_rel <= LOSS_TOL and grad_rel <= LOSS_TOL,
+                     f"[dist] {mode} kernel route vs {what}: loss {loss_rel:.3g} grad {grad_rel:.3g} > {LOSS_TOL}")
+            print(f"[dist] n={n} d={d} b={DIST_BLOCK} q=2 {mode} kernel route vs {what}: loss_rel_err={loss_rel:.3g} "
+                  f"grad_rel_err={grad_rel:.3g} | launches fwd {_nonzero(fwd)} bwd {_nonzero(bwd)}", flush=True)
+
+
+def _dist_steps(ph: Phase, dev, meshes, batches):
+    """Arm (a) at the ssl-paper width (LARS, peak lr TRAIN_LR), TRAIN_STEPS
+    steps of ``make_sharded_ssl_train_step`` in ``global`` and ``tp`` from
+    the same parameters, batches and permutations as ``make_ssl_train_step``
+    (run here too, the same call): step-0 gradients per parameter and every
+    step's loss within 5e-4; median step ms beside the unsharded step's.
+    Returns the sharded runs' ({kernel: launches}, {kernel: backward
+    launches})."""
+    import statistics
+
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.core.permutation import permutation_for_step
+    from repro_torch.decorr.config import DecorrConfig
+    from repro_torch.optim import lars, warmup_cosine
+    from repro_torch.train.ssl import (
+        create_sharded_ssl_state,
+        init_ssl_model,
+        make_sharded_ssl_train_step,
+        shard_ssl_batch,
+        ssl_param_specs,
+    )
+
+    loss_kw, names = ARMS["a bt r_sum b=128 q=2"]
+    want_grads, want_loss, want_ms, _, _, _, _ = _train_route(dev, loss_kw, None, batches)
+    model_cfg, _ = _paper()
+    fwd_total, bwd_total = {}, {}
+    for mode in ("global", "tp"):
+        mesh = meshes[mode]
+        cfg = DecorrConfig(**loss_kw, distributed=mode)
+        opt = lars(weight_decay=1e-4)
+        state = create_sharded_ssl_state(init_ssl_model(model_cfg, seed=SEED, device=dev), opt,
+                                         ssl_param_specs(model_cfg, cfg, mesh), mesh, seed=SEED)
+        step, loss_and_grads = make_sharded_ssl_train_step(model_cfg, cfg, opt, warmup_cosine(TRAIN_LR, 2, TRAIN_STEPS), mesh)
+        local = [shard_ssl_batch(b, mesh) for b in batches]
+        perm = permutation_for_step(SEED, 0, model_cfg.projector_widths[-1]).to(dev)
+        grads = loss_and_grads(state.model, local[0], perm)[2]
+        grad_rel = _grad_rel(grads, want_grads)
+        losses, step_ms = [], []
+        kernels.reset_launch_counts()
+        for batch in local:
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(metrics["bt_loss"])
+        fwd, bwd = kernels.launch_counts(), kernels.backward_launch_counts()
+        losses = torch.stack(losses).cpu().tolist()
+        loss_rel = _max_rel(losses, want_loss)
+        ph.check(grad_rel <= LOSS_TOL, f"[dist] {mode} step: step-0 grad rel err {grad_rel:.3g} > {LOSS_TOL}")
+        ph.check(loss_rel <= LOSS_TOL, f"[dist] {mode} step: loss rel err {loss_rel:.3g} > {LOSS_TOL}")
+        for name in names:
+            ph.check(fwd[name] > 0, f"[dist] {mode} step: kernel {name} never launched")
+            if name in WITH_KERNEL_BWD:
+                ph.check(bwd[name] > 0, f"[dist] {mode} step: kernel {name} never launched on the backward pass")
+        for k, v in fwd.items():
+            fwd_total[k] = fwd_total.get(k, 0) + v
+        for k, v in bwd.items():
+            bwd_total[k] = bwd_total.get(k, 0) + v
+        print(f"[dist] {mode} sharded step, arm a, {TRAIN_STEPS} steps on a 1 x 1 mesh: step-0 grad_rel_err={grad_rel:.3g} "
+              f"max loss_rel_err={loss_rel:.3g} loss[0]={losses[0]:.6g} loss[-1]={losses[-1]:.6g} | median step ms "
+              f"sharded={statistics.median(step_ms):.4f} make_ssl_train_step={statistics.median(want_ms):.4f} | "
+              f"launches fwd {_nonzero(fwd)} bwd {_nonzero(bwd)}", flush=True)
+        # where the collectives' cost lands: device busy vs wall, NCCL's kernels
+        _profile_train(ph, dev, local, f"dist {mode}", names, state, step)
+    return fwd_total, bwd_total
+
+
+def _dist_compressed(ph: Phase, dev, meshes, batches):
+    """``make_compressed_dp_step`` on arm (a)'s model and batches, none /
+    bf16 / int8_ef, DIST_DP_STEPS steps: ``none``'s losses equal
+    ``make_ssl_train_step``'s within 5e-4; the reduced step-0 gradients of
+    bf16 and int8_ef within 0.01 / 0.05 relative (the reference test's
+    bounds) of ``none``'s.  NCCL takes the f32, bf16, int32 and MAX
+    all-reduces."""
+    import torch
+
+    from repro_torch.core.permutation import permutation_for_step
+    from repro_torch.decorr.config import DecorrConfig
+    from repro_torch.optim import compression, lars, warmup_cosine
+    from repro_torch.train import create_train_state
+    from repro_torch.train.ssl import init_ssl_model, make_ssl_train_step
+    from repro_torch.train.step import make_compressed_dp_step
+
+    loss_kw, _ = ARMS["a bt r_sum b=128 q=2"]
+    model_cfg, _ = _paper()
+    sched = warmup_cosine(TRAIN_LR, 2, TRAIN_STEPS)
+    want = _train_route(dev, loss_kw, None, batches[:DIST_DP_STEPS])[1]
+    d = model_cfg.projector_widths[-1]
+    perm_fn = lambda s: permutation_for_step(SEED, s, d)  # noqa: E731
+    first = {}
+    for kind, bound in (("none", None), ("bf16", 0.01), ("int8_ef", 0.05)):
+        opt = lars(weight_decay=1e-4)
+        state = create_train_state(init_ssl_model(model_cfg, seed=SEED, device=dev), opt, seed=SEED)
+        _, loss_fn = make_ssl_train_step(model_cfg, DecorrConfig(**loss_kw), opt, sched)
+        step = make_compressed_dp_step(loss_fn, opt, sched, "data", kind, mesh=meshes["global"], perm_fn=perm_fn)
+        update = state.opt_state.step
+
+        def spy(lr, grads=None, kind=kind):
+            first.setdefault(kind, [g.clone() for g in grads])
+            return update(lr, grads)
+
+        state.opt_state.step = spy
+        ef = compression.init_error_feedback(list(state.model.parameters()))
+        losses = []
+        for batch in batches[:DIST_DP_STEPS]:
+            state, metrics, ef = step(state, batch, ef)
+            losses.append(metrics["bt_loss"])
+        losses = torch.stack(losses).cpu().tolist()
+        if bound is None:
+            rel = _max_rel(losses, want)
+            ph.check(rel <= LOSS_TOL, f"[dist] compressed none: loss rel err {rel:.3g} vs make_ssl_train_step > {LOSS_TOL}")
+            what = f"max loss_rel_err vs make_ssl_train_step={rel:.3g}"
+        else:
+            num = torch.sqrt(sum(torch.sum((g - w) ** 2) for g, w in zip(first[kind], first["none"])))
+            rel = float(num / torch.sqrt(sum(torch.sum(w**2) for w in first["none"])))
+            ph.check(rel <= bound, f"[dist] compressed {kind}: step-0 gradient rel err {rel:.3g} > {bound}")
+            what = f"step-0 reduced gradient rel err vs none={rel:.3g} (bound {bound})"
+        print(f"[dist] make_compressed_dp_step {kind}, {DIST_DP_STEPS} steps: {what} loss[-1]={losses[-1]:.6g}", flush=True)
+
+
+def phase_dist(ph: Phase, dev):
+    """Distributed decorrelation on one NCCL rank (a group of one through a
+    ``FileStore``): the regularizer, the sharded SSL step and the compressed
+    data-parallel step, each against its single-device twin.  Returns the
+    sharded steps' ({kernel: launches}, {kernel: backward launches})."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh_for_devices
+
+    import torch
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
+    torch.cuda.set_device(dev.index or 0)  # the rank's device, before NCCL and the mesh start
+    dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_mesh_for_devices(1, 1)
+        meshes = {"local": None, "global": mesh, "tp": mesh}
+        _dist_regularizer(ph, dev, meshes)
+        batches = _train_batches(dev, TRAIN_STEPS)
+        out = _dist_steps(ph, dev, meshes, batches)
+        _dist_compressed(ph, dev, meshes, batches)
+        return out
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 # ---------------------------------------------------------------------------
@@ -2696,14 +2936,16 @@ def main() -> int:
     launches = ph.run("service", phase_service, ph, dev) or {}
     ph.run("profile", phase_profile, ph, dev)
     train_fwd, train_bwd = ph.run("train", phase_train, ph, dev) or ({}, {})
+    dist_fwd, dist_bwd = ph.run("dist", phase_dist, ph, dev) or ({}, {})
     lm = ph.run("lm", phase_lm, ph, dev) or {}
     archs = ph.run("archs", phase_archs, ph, dev) or {}
     lmtrain_fwd, lmtrain_bwd = ph.run("lmtrain", phase_lmtrain, ph, dev) or ({}, {})
-    for part in (train_fwd, lm, archs, lmtrain_fwd):
+    for part in (train_fwd, dist_fwd, lm, archs, lmtrain_fwd):
         for k, v in part.items():
             launches[k] = launches.get(k, 0) + v
-    for k, v in lmtrain_bwd.items():
-        train_bwd[k] = train_bwd.get(k, 0) + v
+    for part in (dist_bwd, lmtrain_bwd):
+        for k, v in part.items():
+            train_bwd[k] = train_bwd.get(k, 0) + v
     for name in REPLACES:
         ph.check(name in rows, f"no timing row for {name}")
         ph.check(launches.get(name, 0) > 0, f"{name} never launched on the main path")

@@ -18,13 +18,20 @@ from repro_torch.checkpoint.checkpointer import (
 
 class CheckpointManager:
     """Saves every ``interval`` steps (or when forced), keeps the newest
-    ``keep`` committed checkpoints, restores the newest one."""
+    ``keep`` committed checkpoints, restores the newest one.
 
-    def __init__(self, ckpt_dir: str, interval: int = 100, keep: int = 3, use_async: bool = True):
+    ``writer=False`` makes a manager that restores but never writes or
+    deletes: the other ranks of a multi-rank job, whose rank 0 writes."""
+
+    def __init__(self, ckpt_dir: str, interval: int = 100, keep: int = 3, use_async: bool = True,
+                 writer: bool = True):
         self.ckpt_dir = ckpt_dir
         self.interval = interval
         self.keep = keep
-        self._async = AsyncCheckpointer() if use_async else None
+        self.writer = writer
+        self._async = AsyncCheckpointer() if use_async and writer else None
+        if not writer:
+            return
         os.makedirs(ckpt_dir, exist_ok=True)
         # collect torn writes of a previous crashed process (safe here: no
         # save of ours is in flight yet): .tmp dirs and dirs without COMMIT
@@ -39,8 +46,9 @@ class CheckpointManager:
 
     def save(self, step: int, state, force: bool = False):
         """Save ``state`` at ``step`` when due (or forced); returns the
-        future (async), the directory (sync) or None when not due."""
-        if not (force or self.should_save(step)):
+        future (async), the directory (sync) or None when not due (or not
+        a writer)."""
+        if not self.writer or not (force or self.should_save(step)):
             return None
         if self._async is not None:
             # retention runs on the worker once this save has committed

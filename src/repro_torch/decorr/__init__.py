@@ -1,4 +1,6 @@
-"""repro_torch.decorr — the decorrelation engine (``local`` mode): losses, regularizers, probes."""
+"""repro_torch.decorr — the decorrelation engine: normalization, permutation, the
+``local | global | tp`` modes (``decorr/modes.py``), impl routing and scale
+bookkeeping for the losses and regularizers; the serving probe."""
 
 from repro_torch.decorr.config import DecorrConfig
 from repro_torch.decorr.engine import (

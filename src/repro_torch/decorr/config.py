@@ -17,9 +17,12 @@ class DecorrConfig:
     permute:     feature permutation each step (essential; paper Table 5)
     lam:         BT lambda
     alpha/mu/nu: VICReg coefficients;  gamma: target std
-    distributed: 'local' | 'global' | 'tp'  (the port runs 'local' only so far)
-    axis_name:   process-group axis the BATCH is sharded over ('global'/'tp')
-    model_axis:  axis the FEATURE dim is sharded over ('tp')
+    distributed: 'local' | 'global' | 'tp'  (see ``decorr/modes.py``)
+    axis_name:   mesh axis the BATCH is sharded over ('global'/'tp' modes);
+                 None means single-shard semantics even in 'global' mode
+    model_axis:  mesh axis the FEATURE dim is sharded over — required by the
+                 'tp' mode (the engine refuses to run 'tp' without it rather
+                 than silently computing the shard-local loss)
     use_kernel:  pin the regularizer to the kernel route (False lets the
                  tensor's device pick: CUDA -> kernels, CPU -> plain)
     """

@@ -1,5 +1,6 @@
 """Inference-time decorrelation probes (port of ``repro/decorr/probe.py``,
-``local`` mode).
+``local`` mode; the sharded batches of ``global`` / ``tp`` come with the
+``ServeEngine`` mesh forwards, not ported yet, and raise).
 
 ``probe_metrics`` measures the representation health of a served batch with
 the training loss's semantics: the same normalization (standardize for
@@ -72,7 +73,11 @@ def probe_metrics(
     how the smoke checks the kernel route on the card).
     """
     cfg.validate()
-    engine.effective_mode(cfg)
+    if engine.effective_mode(cfg) != "local":
+        raise NotImplementedError(
+            f"probe_metrics(distributed={cfg.distributed!r}) probes a batch sharded over a mesh, "
+            "which the ServeEngine mesh forwards serve: not ported yet; use distributed='local'"
+        )
     same = z2 is None or z2 is z1
     z1 = z1.float()
     z2 = z1 if same else z2.float()

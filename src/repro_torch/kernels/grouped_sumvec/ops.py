@@ -97,22 +97,10 @@ def grouped_frequency_accumulator_kernel(
     return g_r, g_i
 
 
-def r_sum_kernel(
-    z1: Tensor,
-    z2: Tensor,
-    *,
-    block_size: Optional[int],
-    q: int = 2,
-    scale: Optional[float] = None,
-) -> Tensor:
-    """Eq. (13) (or Eq. 6 when the block covers d) through the kernel pipeline."""
-    d = z1.shape[-1]
-    b = int(block_size) if block_size is not None else d
-    b = min(b, d)
-    s = 1.0 if scale is None else float(scale)
-    g_r, g_i = grouped_frequency_accumulator_kernel(z1, z2, b)
-    g_r = g_r / s
-    g_i = g_i / s
+def reg_from_planes(g_r: Tensor, g_i: Tensor, b: int, q: int = 2) -> Tensor:
+    """Eq. (13) from the (already normalized) accumulator planes, each
+    (nf, nb, nb) frequency-major: Parseval in torch for q = 2, the
+    synthesis basis through ``pmatmul`` for q = 1."""
     nb = g_r.shape[1]
     w = rfft_parseval_weights(b, g_r.device)[:, None, None]
     eye = torch.eye(nb, dtype=torch.float32, device=g_r.device)
@@ -130,3 +118,20 @@ def r_sum_kernel(
     sv = sv.reshape(nb, nb, b)
     full = torch.sum(torch.abs(sv), dim=-1)
     return torch.sum(full) - torch.sum(eye * torch.abs(sv[..., 0]))
+
+
+def r_sum_kernel(
+    z1: Tensor,
+    z2: Tensor,
+    *,
+    block_size: Optional[int],
+    q: int = 2,
+    scale: Optional[float] = None,
+) -> Tensor:
+    """Eq. (13) (or Eq. 6 when the block covers d) through the kernel pipeline."""
+    d = z1.shape[-1]
+    b = int(block_size) if block_size is not None else d
+    b = min(b, d)
+    s = 1.0 if scale is None else float(scale)
+    g_r, g_i = grouped_frequency_accumulator_kernel(z1, z2, b)
+    return reg_from_planes(g_r / s, g_i / s, b, q)

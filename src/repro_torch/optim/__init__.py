@@ -1,4 +1,5 @@
-"""Optimizers of the port (LARS, AdamW, SGD) and gradient utilities."""
+"""Optimizers of the port (LARS, AdamW, SGD), gradient utilities and the
+compressed data-parallel all-reduce (``optim.compression``)."""
 
 from repro_torch.optim.optimizers import (
     Optimizer,
@@ -10,3 +11,4 @@ from repro_torch.optim.optimizers import (
     sgd_momentum,
     warmup_cosine,
 )
+from repro_torch.optim.compression import bf16_psum, init_error_feedback, int8_psum_ef

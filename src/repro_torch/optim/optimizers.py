@@ -8,23 +8,35 @@
 
 Each factory returns an ``Optimizer`` recipe whose ``init(params)`` builds a
 ``torch.optim.Optimizer`` holding the parameters and their state (the
-reference's ``init(params) -> state``).  ``step(lr)`` takes the step's
-learning rate explicitly, as the reference's ``update(..., lr)`` does, and
-updates the parameters in place from their ``.grad``.  The update order and
-formulas are the reference's, not ``torch.optim``'s (LARS scales the
-momentum input by the trust ratio; AdamW adds the decay to the Adam
-direction).  Nothing here syncs the host: LARS's trust ratio is a
-``torch.where`` on device scalars.
+reference's ``init(params) -> state``).  ``step(lr, grads=None)`` takes the
+step's learning rate explicitly, as the reference's ``update(..., lr)``
+does, and updates the parameters in place from ``grads`` (one per
+parameter, in the optimizer's order, of any float dtype: an f32 gradient
+of a bf16 parameter stays f32, as the reference hands it to its update) or,
+without them, from their ``.grad``.  The update order and formulas are the
+reference's, not ``torch.optim``'s (LARS scales the momentum input by the
+trust ratio; AdamW adds the decay to the Adam direction), and each new
+parameter is computed in f32 and rounded once to the parameter's dtype.
+Nothing here syncs the host: LARS's trust ratio is a ``torch.where`` on
+device scalars.
+
+A parameter that holds one shard of a larger tensor (the ``tp``-sharded
+projector output layer of ``train/ssl``) carries the process groups it is
+sharded over as ``p.shard_groups``: LARS all-reduces the squared norms of
+such a parameter and its gradient over them, so the trust ratio is the
+whole layer's, and ``clip_by_global_norm(..., params=)`` does the same for
+the global norm.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Iterable, List, Sequence, Tuple
+from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 Tensor = torch.Tensor
 
@@ -61,11 +73,42 @@ class _Explicit(torch.optim.Optimizer):
                 for name in self.BUFFERS:
                     self.state[p][name] = torch.zeros_like(p, dtype=torch.float32)
 
-    def _params_with_grad(self):
-        for group in self.param_groups:
-            for p in group["params"]:
-                if p.grad is not None:
-                    yield group, p, p.grad.float()
+    def _params_with_grad(self, grads: Optional[Sequence[Tensor]] = None):
+        """(group, param, f32 gradient) for every parameter with a gradient:
+        ``grads`` (one per parameter, in order) or else each ``.grad``."""
+        pairs = [(group, p) for group in self.param_groups for p in group["params"]]
+        if grads is None:
+            grads = [p.grad for _, p in pairs]
+        elif len(grads) != len(pairs):
+            raise ValueError(f"{len(grads)} gradients for {len(pairs)} parameters")
+        for (group, p), g in zip(pairs, grads):
+            if g is not None:
+                yield group, p, g.float()
+
+
+def _apply(p: Tensor, delta: Tensor) -> None:
+    """p <- p - delta, computed in f32 and rounded once to p's dtype (the
+    reference's ``(p32 - lr * upd).astype(p.dtype)``)."""
+    if p.dtype == torch.float32:
+        p.sub_(delta)
+    else:
+        p.copy_(p.float() - delta)
+
+
+def _sum_over_shards_(x: Tensor, p: Tensor) -> Tensor:
+    """Sum ``x`` in place over the groups parameter ``p`` is sharded over."""
+    for group in getattr(p, "shard_groups", ()):
+        dist.all_reduce(x, group=group)
+    return x
+
+
+def _norms(p: Tensor, w: Tensor, g: Tensor) -> Tuple[Tensor, Tensor]:
+    """(|w|, |g|) of the whole leaf: where ``p`` is a shard, the squared
+    norms are summed over its ``shard_groups`` (one all-reduce each)."""
+    if not getattr(p, "shard_groups", ()):
+        return torch.linalg.vector_norm(w), torch.linalg.vector_norm(g)
+    sq = _sum_over_shards_(torch.stack([torch.sum(w * w), torch.sum(g * g)]), p)
+    return torch.sqrt(sq[0]), torch.sqrt(sq[1])
 
 
 class LARS(_Explicit):
@@ -81,15 +124,14 @@ class LARS(_Explicit):
         )
 
     @torch.no_grad()
-    def step(self, lr):
-        """One update at learning rate ``lr`` from the parameters' ``.grad``."""
-        for group, p, g in self._params_with_grad():
+    def step(self, lr, grads: Optional[Sequence[Tensor]] = None):
+        """One update at learning rate ``lr`` (see the module note on ``grads``)."""
+        for group, p, g in self._params_with_grad(grads):
             mu = self.state[p]["mu"]
             if _is_adaptive(p):
                 p32 = p.float()
                 g = g + group["weight_decay"] * p32
-                w_norm = torch.linalg.vector_norm(p32)
-                g_norm = torch.linalg.vector_norm(g)
+                w_norm, g_norm = _norms(p, p32, g)
                 trust = torch.where(
                     (w_norm > 0) & (g_norm > 0),
                     group["trust_coefficient"] * w_norm / (g_norm + group["eps"]),
@@ -97,7 +139,7 @@ class LARS(_Explicit):
                 )
                 g = trust * g
             mu.mul_(group["momentum"]).add_(g)
-            p.sub_((lr * mu).to(p.dtype))
+            _apply(p, lr * mu)
 
 
 # elements of one leaf that an elementwise update pass works on at a time:
@@ -132,11 +174,11 @@ class AdamW(_Explicit):
         super().__init__(params, dict(b1=b1, b2=b2, eps=eps, weight_decay=weight_decay, count=0))
 
     @torch.no_grad()
-    def step(self, lr):
-        """One update at learning rate ``lr`` from the parameters' ``.grad``."""
+    def step(self, lr, grads: Optional[Sequence[Tensor]] = None):
+        """One update at learning rate ``lr`` (see the module note on ``grads``)."""
         for group in self.param_groups:
             group["count"] += 1
-        for group, p, g in self._params_with_grad():
+        for group, p, g in self._params_with_grad(grads):
             b1, b2, count = group["b1"], group["b2"], group["count"]
             # bias corrections in f32, as the reference computes them
             c1 = float(np.float32(1.0) - np.float32(b1) ** np.float32(count))
@@ -148,7 +190,7 @@ class AdamW(_Explicit):
                 upd = (m / c1) / (torch.sqrt(v / c2) + group["eps"])
                 if decay is not None:
                     upd = upd + decay * ps.float()
-                ps.sub_((lr * upd).to(ps.dtype))
+                _apply(ps, lr * upd)
 
 
 class SGDMomentum(_Explicit):
@@ -160,12 +202,12 @@ class SGDMomentum(_Explicit):
         super().__init__(params, dict(momentum=momentum, weight_decay=weight_decay))
 
     @torch.no_grad()
-    def step(self, lr):
-        """One update at learning rate ``lr`` from the parameters' ``.grad``."""
-        for group, p, g in self._params_with_grad():
+    def step(self, lr, grads: Optional[Sequence[Tensor]] = None):
+        """One update at learning rate ``lr`` (see the module note on ``grads``)."""
+        for group, p, g in self._params_with_grad(grads):
             mu = self.state[p]["mu"]
             mu.mul_(group["momentum"]).add_(g + group["weight_decay"] * p.float())
-            p.sub_((lr * mu).to(p.dtype))
+            _apply(p, lr * mu)
 
 
 def lars(momentum=0.9, weight_decay=1e-4, trust_coefficient=0.001, eps=1e-8) -> Optimizer:
@@ -190,15 +232,27 @@ def sgd_momentum(momentum=0.9, weight_decay=0.0) -> Optimizer:
 # ---------------------------------------------------------------------------
 
 
-def global_norm(tensors: Sequence[Tensor]) -> Tensor:
-    """sqrt(sum of squares) over all tensors, as a device scalar."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in tensors))
+def global_norm(tensors: Sequence[Tensor], params: Optional[Sequence[Tensor]] = None) -> Tensor:
+    """sqrt(sum of squares) over all tensors, as a device scalar.  With
+    ``params`` (the parameters the tensors belong to), a shard's squared
+    norm is summed over its parameter's ``shard_groups`` first, so the norm
+    is the whole tree's on every rank."""
+    if params is None:
+        return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in tensors))
+    total = None
+    for x, p in zip(tensors, params):
+        sq = _sum_over_shards_(torch.sum(torch.square(x.float())), p)
+        total = sq if total is None else total + sq
+    return torch.sqrt(total)
 
 
-def clip_by_global_norm(grads: Sequence[Tensor], max_norm: float) -> Tuple[List[Tensor], Tensor]:
+def clip_by_global_norm(
+    grads: Sequence[Tensor], max_norm: float, params: Optional[Sequence[Tensor]] = None
+) -> Tuple[List[Tensor], Tensor]:
     """Scale every gradient by min(1, max_norm / (norm + 1e-9)); returns
-    (scaled grads, the pre-clip global norm).  No host sync."""
-    norm = global_norm(grads)
+    (scaled grads, the pre-clip global norm; ``params`` as in
+    ``global_norm``).  No host sync."""
+    norm = global_norm(grads, params)
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
     return [(g.float() * scale).to(g.dtype) for g in grads], norm
 

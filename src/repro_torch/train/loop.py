@@ -3,7 +3,8 @@
 
 What the loop adds around the step:
   * auto-resume from the newest committed checkpoint,
-  * interval + final + preemption-triggered checkpoints (async, atomic),
+  * interval + final + preemption-triggered checkpoints (async, atomic;
+    no final one when no step ran since the newest),
   * a straggler watchdog (rolling-median outlier detection),
   * bounded retry of transient step failures (fault injection in tests),
   * deterministic data (batches keyed by step: a restart replays nothing
@@ -36,6 +37,10 @@ class LoopConfig:
     log_interval: int = 10
     preempt_flag: Optional[str] = None
     max_step_retries: int = 2
+    # False on every rank of a multi-rank job but the one that writes: the
+    # others restore, and take part in a sharded state's gathers, but write
+    # nothing
+    ckpt_writer: bool = True
 
 
 def run_training(
@@ -63,7 +68,7 @@ def run_training(
                 f"run_training({name}=...) needs the observability slice of the port, which is not ported yet"
             )
     mgr = (
-        CheckpointManager(cfg.ckpt_dir, interval=cfg.ckpt_interval, keep=cfg.ckpt_keep)
+        CheckpointManager(cfg.ckpt_dir, interval=cfg.ckpt_interval, keep=cfg.ckpt_keep, writer=cfg.ckpt_writer)
         if cfg.ckpt_dir
         else None
     )
@@ -71,10 +76,12 @@ def run_training(
     watchdog = StragglerWatchdog()
 
     # auto-resume
+    saved = None  # the step the newest checkpoint holds
     if mgr is not None:
         restored, _ = mgr.restore_latest(state.state_dict())
         if restored is not None:
             state.load_state_dict(restored)
+            saved = state.step
 
     def one_step(step: int, state: TrainState):
         if fault_hook is not None:
@@ -94,13 +101,17 @@ def run_training(
                 host_metrics["stragglers"] = watchdog.straggler_events
                 log_fn(step + 1, host_metrics)
 
-            if mgr is not None:
+            if mgr is not None and mgr.should_save(state.step):
+                # the tree is built only when due: a sharded state gathers it
                 mgr.save(state.step, state.state_dict())
+                saved = state.step
 
             if preempt is not None and preempt.raised():
                 break  # through the final checkpoint below
 
-        if mgr is not None:
+        # no step since the newest checkpoint: it holds this state already, and
+        # rewriting it could pull it from under a rank still restoring it
+        if mgr is not None and state.step != saved:
             mgr.save(state.step, state.state_dict(), force=True)
     finally:
         # a failed step propagates, but only after the saves in flight landed

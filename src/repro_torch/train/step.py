@@ -1,4 +1,4 @@
-"""The LM train step (port of ``repro/train/step.py``, single device).
+"""The LM train step and the compressed data-parallel step (port of ``repro/train/step.py``).
 
 ``make_train_step`` builds the step of any arch of ``repro_torch.configs``:
 
@@ -22,13 +22,18 @@ Features, as in the reference:
 The parameters are a ``models.ParamTree`` in ``TrainState.model``.  Every
 gradient is complete before the optimizer touches a parameter, so a fault
 raised during the forward or backward pass leaves the state as it was and
-the loop's retry can replay the step.  The sharded accumulator
-(``grad_shardings``) and the compressed data-parallel step belong to the
-distributed slice of the port.
+the loop's retry can replay the step.
+
+``make_compressed_dp_step`` is the explicit data-parallel variant: every
+rank of a mesh steps on its batch slice and the gradients are summed over
+the data axis through a compressed all-reduce (``optim/compression.py``).
+The sharded accumulator (``grad_shardings``) belongs to a later slice of
+the port.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Callable, Dict, List, Mapping, Optional, Tuple
 
@@ -38,7 +43,9 @@ from repro_torch.core.decorrelation import lm_decorrelation_loss
 from repro_torch.core.permutation import permutation_for_step
 from repro_torch.models.common import ArchConfig
 from repro_torch.models.transformer import forward
+from repro_torch.optim import compression as comp
 from repro_torch.optim.optimizers import Optimizer, clip_by_global_norm_
+from repro_torch.parallel import sharding as shd
 from repro_torch.train.train_state import TrainState
 
 Tensor = torch.Tensor
@@ -110,9 +117,10 @@ def make_train_step(
     regularizer's route (``"plain"`` on a CUDA device is how the smoke holds
     the kernel route).  Metrics stay device tensors (no host sync), plus
     ``grad_norm`` and ``lr`` (the schedule's host float).  With
-    ``num_microbatches`` > 1 the averaged f32 gradients are cast to each
-    parameter's dtype for its ``.grad`` (the reference hands f32 to its
-    optimizer; the same for f32 parameters).
+    ``num_microbatches`` > 1 the gradients are summed in f32 and averaged,
+    and the clip and the optimizer take those f32 gradients whatever the
+    parameters' dtype, as the reference's do; with one microbatch they keep
+    the parameters' dtype, as the reference's ``value_and_grad`` gives them.
     """
     loss_fn = loss_fn or functools.partial(_lm_loss_fn, cfg=cfg, impl=impl)
     dcfg = cfg.decorr.decorr
@@ -145,7 +153,7 @@ def make_train_step(
                 acc = [x.float() for x in g] if acc is None else [a.add_(x.float()) for a, x in zip(acc, g)]
                 m = {k: v.detach().float() for k, v in m.items()}
                 metrics = m if metrics is None else {k: metrics[k] + m[k] for k in metrics}
-            grads = [(a / num_microbatches).to(p.dtype) for a, p in zip(acc, params)]
+            grads = [a.div_(num_microbatches) for a in acc]
             metrics = {k: v / num_microbatches for k, v in metrics.items()}
 
         if clip_norm is not None:
@@ -153,12 +161,76 @@ def make_train_step(
         lr = schedule(state.step)
         metrics["lr"] = lr
         # every gradient is complete: only now does anything change in place
-        for p, g in zip(params, grads):
-            p.grad = g
-        state.opt_state.step(lr)
-        for p in params:
-            p.grad = None
+        state.opt_state.step(lr, grads)
         state.step += 1
         return state, metrics
 
     return train_step
+
+
+# ---------------------------------------------------------------------------
+# Explicit data-parallel variant with a compressed gradient all-reduce
+# ---------------------------------------------------------------------------
+
+COMPRESSIONS = ("none", "bf16", "int8_ef")
+
+
+def make_compressed_dp_step(
+    loss_fn,
+    optimizer: Optimizer,
+    schedule: Callable[[int], float],
+    axis_name: str = "data",
+    compression: str = "int8_ef",
+    *,
+    mesh=None,
+    perm_fn: Optional[Callable[[int], Tensor]] = None,
+):
+    """Per-rank loss + an explicit compressed all-reduce of the gradients.
+
+    ``step(state, batch, ef_errors) -> (state, metrics, ef_errors)`` runs on
+    every rank of ``mesh`` (default: the mesh installed by
+    ``parallel.sharding.sharding_context``) with this rank's batch slice.
+    ``loss_fn(model, batch, perm=) -> (loss, metrics)`` takes the port's
+    loss signature (an LM loss reads ``model.tree()``); ``perm_fn(step)``
+    gives the step's permutation (None: no permutation).  ``compression``:
+
+      * ``none``    — the f32 mean over ``axis_name``;
+      * ``bf16``    — summed in bf16 (``bf16_psum``), divided by the axis size;
+      * ``int8_ef`` — summed in int8 with error feedback (``int8_psum_ef``),
+        divided by the axis size; ``ef_errors`` (from
+        ``optim.compression.init_error_feedback`` over the parameters) are
+        this rank's carried residuals, returned updated.
+
+    The optimizer takes the f32 reduced gradients whatever the parameters'
+    dtype, every one complete before it moves a parameter.  Metrics are the
+    mean over the axis; ``lr`` is the schedule's host float.
+    """
+    if compression not in COMPRESSIONS:
+        raise ValueError(f"compression must be one of {COMPRESSIONS}, got {compression!r}")
+
+    def step(state: TrainState, batch: Mapping[str, Tensor], ef_errors):
+        if not isinstance(state.opt_state, optimizer.cls):
+            raise TypeError(f"state holds a {type(state.opt_state).__name__}, the step was made for {optimizer.name}")
+        params = list(state.model.parameters())
+        perm = None if perm_fn is None else perm_fn(state.step).to(params[0].device)
+        with shd.sharding_context(mesh) if mesh is not None else contextlib.nullcontext():
+            loss, metrics = loss_fn(state.model, batch, perm=perm)
+            grads = [g.float() for g in _grads(loss, params)]
+            n = shd.axis_size(axis_name)
+            if compression == "bf16":
+                grads = comp.bf16_psum(grads, axis_name)
+            elif compression == "int8_ef":
+                grads, ef_errors = comp.int8_psum_ef(grads, ef_errors, axis_name)
+            else:
+                grads = comp.psum(grads, axis_name)
+            grads = [g.div_(n) for g in grads]
+            names = list(metrics)
+            means = comp.psum([torch.stack([metrics[k].detach().float() for k in names])], axis_name)[0] / n
+        metrics = dict(zip(names, means))
+        lr = schedule(state.step)
+        metrics["lr"] = lr
+        state.opt_state.step(lr, grads)
+        state.step += 1
+        return state, metrics, ef_errors
+
+    return step

@@ -31,6 +31,17 @@ from repro_torch.serve.loadgen import lm_probe_oracle_err  # noqa: E402
 from repro_torch.serve.probes import DecorrProbe  # noqa: E402
 from repro_torch.serve.service import LMService  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file (see tests/test_torch_lm_train.py):
+    under the parallel test workers torch's default pool oversubscribes the
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 SPEC = [(4, 5), (9, 3), (13, 8), (24, 2), (1, 4), (7, 7)]
 
 

@@ -38,6 +38,17 @@ from repro_torch.serve.service import LMService  # noqa: E402
 from repro_torch.train import serve  # noqa: E402
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file (see tests/test_torch_lm_train.py):
+    under the parallel test workers torch's default pool oversubscribes the
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _alloc_state(a):
     return dict(
         tables=[a.table(s) for s in range(a.n_slots)],

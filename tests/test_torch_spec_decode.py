@@ -36,6 +36,17 @@ from repro_torch.serve.paging import PagedKVManager  # noqa: E402
 from repro_torch.serve.service import LMService  # noqa: E402
 from repro_torch.train import serve  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file (see tests/test_torch_lm_train.py):
+    under the parallel test workers torch's default pool oversubscribes the
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 # the reference's decode-heavy mix (tests/test_spec_decode.py)
 SPEC = [(4, 12), (9, 8), (13, 8), (24, 6), (1, 10), (7, 7)]
 

@@ -361,7 +361,7 @@ def test_cli_tiny_on_cpu_trains_checkpoints_and_reports_eq16(tmp_path, capsys):
     assert latest_step(str(tmp_path)) == 6
 
 
-@pytest.mark.parametrize("flag", [["--distributed", "global"], ["--pretune", "analytic"]])
+@pytest.mark.parametrize("flag", [["--pretune", "measure"], ["--pretune", "analytic"]])
 def test_cli_refuses_later_slices(flag):
     from repro_torch.train import cli
 

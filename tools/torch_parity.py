@@ -111,6 +111,7 @@ def _rows():
     out.extend(_family_rows(row))
     out.extend(_arch_rows(row))
     out.extend(_lm_train_rows(row))
+    out.extend(_dist_rows(row))
     return out
 
 
@@ -799,6 +800,73 @@ def _lm_train_rows(row):
         got = ServeEngine.from_checkpoint(f"{tmp}/port", SSLModelConfig(**widths), device="cpu").encode(x)
     out.append(row("serve/engine ServeEngine.from_checkpoint", "TrainState checkpoint, n=7: embeddings", got,
                    np.asarray(want)))
+    return out
+
+
+def _dist_rows(row):
+    """The distributed slice: the jobs of ``tests/test_torch_distributed.py``
+    (the port on 4 gloo ranks, a (4, 1) and a (2, 2) mesh; the reference on
+    4 fake XLA devices and on one device) — ``decorr/modes`` and the
+    engine's ``global`` / ``tp`` against the reference's sharded forward,
+    input gradients and the sharded SSL step against the single-device
+    oracle, the compressed all-reduces and the compressed DP step."""
+    import os
+    import sys
+    import tempfile
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tests"))
+    import test_torch_distributed as td
+
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = td.run_jobs(tmp)
+    ref, port = runs["ref"], lambda key: td._port(runs, key)  # noqa: E731
+    out = []
+    where = {"global": "4 data ranks", "tp": "(2, 2) mesh"}
+    for mode in ("global", "tp"):
+        keys = [f"apply/{mode}/{s}/q{q}/b{b}" for s, q, b in td.CASES["apply"]]
+        out.append(row("decorr/engine apply", f"{mode}, {where[mode]}, bt / vic x q 1, 2 x b None, 8 (n 32, d 32): "
+                       "loss vs the reference's sharded forward", [port(k) for k in keys], [ref[k] for k in keys]))
+        out.append(row("decorr/engine apply", f"{mode}, the same 8 cases: dL/dz1, dL/dz2 gathered vs jax.grad on one device",
+                       [port(f"{k}/dz{i}") for k in keys for i in (1, 2)],
+                       [ref[f"oracle/{k.replace(f'/{mode}/', '/')}/dz{i}"] for k in keys for i in (1, 2)]))
+    keys = [f"rsum/q{q}/b{b}" for q, b in td.CASES["rsum"]]
+    out.append(row("decorr/modes r_sum_global", "4 data ranks, q 1, 2 x b None, 8: value vs sharded forward",
+                   [port(k) for k in keys], [ref[k] for k in keys]))
+    out.append(row("decorr/modes r_sum_global", "the same: input gradients vs one device",
+                   [port(f"{k}/dz{i}") for k in keys for i in (1, 2)], [ref[f"oracle/{k}/dz{i}"] for k in keys for i in (1, 2)]))
+    keys = [f"rsum_tp/q{q}/b{b}" for q, b in td.CASES["rsum_tp"]]
+    out.append(row("decorr/modes r_sum_tp", "(2, 2) mesh, q 2 ungrouped and q 1 b 8: value vs sharded forward",
+                   [port(k) for k in keys], [ref[k] for k in keys]))
+    out.append(row("decorr/modes r_sum_tp", "the same: input gradients vs one device",
+                   [port(f"{k}/dz{i}") for k in keys for i in (1, 2)],
+                   [ref[f"oracle/{k.replace('rsum_tp', 'rsum')}/dz{i}"] for k in keys for i in (1, 2)]))
+    out.append(row("decorr/modes r_off_global", "4 data ranks: value, then input gradients vs one device",
+                   [port("roff"), port("roff/dz1"), port("roff/dz2")], [ref["roff"], ref["oracle/roff/dz1"], ref["oracle/roff/dz2"]]))
+    keys = ["ddof0", "ddof1", "ddofNone", "vicmom"]
+    out.append(row("decorr/engine regularizer, vicreg", "global, 4 ranks: ddof 0 / 1 / None scales (n 64, d 16), "
+                   "VICReg on global moments (shifted shards)", [port(k) for k in keys], [ref[k] for k in keys]))
+    for name in td.CASES["steps"]:
+        for mode, job in (("global", "a"), ("local", "a"), ("global", "b"), ("tp", "b")):
+            oracle = f"oracle/local/{name}" if mode == "local" else f"oracle/step/{name}"
+            key = f"step/{mode}/{name}"
+            names = [k.split("/")[-1] for k in ref if k.startswith(f"{oracle}/param/")]
+            tag = f"{mode}, {'4 data ranks' if job == 'a' else '(2, 2) mesh'}, {name}"
+            out.append(row("train/ssl make_sharded_ssl_train_step", f"{tag}: step-0 gradients, 2 AdamW losses vs "
+                           f"{'the mean-gradient step' if mode == 'local' else 'make_ssl_train_step on the whole batch'}",
+                           [runs[job][f"{key}/grad0/{n}"] for n in names] + [runs[job][f"{key}/losses"]],
+                           [ref[f"{oracle}/grad0/{n}"] for n in names] + [ref[f"{oracle}/losses"]]))
+            noise = 1e-6 * max(float(np.abs(ref[f"{oracle}/grad0/{n}"]).max()) for n in names)
+            real = [np.abs(ref[f"{oracle}/grad0/{n}"]) > noise for n in names]
+            out.append(row("train/ssl make_sharded_ssl_train_step", f"{tag}: parameters after 2 steps "
+                           "(entries whose gradient is not a rounding residual)",
+                           [runs[job][f"{key}/param/{n}"][m] for n, m in zip(names, real)],
+                           [ref[f"{oracle}/param/{n}"][m] for n, m in zip(names, real)]))
+    out.append(row("optim/compression int8_psum_ef", "4 ranks, (64,16): int8 sum; carried residuals",
+                   [port("int8"), port("int8_err")], [ref["int8"], ref["int8_err"]]))
+    out.append(row("optim/compression bf16_psum", "4 ranks, (64,16): the bf16 sum", port("bf16"), ref["bf16"]))
+    names = [k.split("/")[-1] for k in ref if k.startswith("oracle/dp/param/")]
+    out.append(row("train/step make_compressed_dp_step", "none, 4 ranks, SGD, 2 steps: parameters vs the mean-gradient step",
+                   [port(f"dp/none/param/{n}") for n in names], [ref[f"oracle/dp/param/{n}"] for n in names]))
     return out
 
 
