@@ -82,8 +82,36 @@ Phases (any failed check exits non-zero and prints no result):
      ``none``'s losses equal ``make_ssl_train_step``'s within 5e-4, the
      reduced step-0 gradients of bf16 / int8_ef within 0.01 / 0.05 relative
      of ``none``'s (the reference test's bounds) — NCCL takes the f32, bf16,
-     int32 and MAX all-reduces.  The sharded steps' launches count toward
-     the ``kernels`` line.
+     int32 and MAX all-reduces; (4) ``ServeEngine`` at the ssl-paper width
+     on the 1 x 1 mesh, data-parallel and tp (``model_axis="model"``), 512
+     rows: bit for bit the unmeshed engine's; (5) ``probe_metrics`` in
+     ``global`` / ``tp`` (VICReg, b = 128) on those rows: the kernel route
+     against ``impl="plain"`` and against ``local`` within 5e-4, pmatmul and
+     freq_outer launched; (6) ``make_train_step`` on ``gemma2-2b`` at full
+     width (2 layers), batch 8 x 128 in 2 microbatches, aux R_sum b = 128, 3
+     AdamW steps, unmeshed, on the mesh, and on it with ``grad_shardings``:
+     losses and parameters within 5e-4 of the unmeshed run's, pmatmul /
+     freq_outer forward and pmatmul / freq_mat backward launched; (7) the
+     ``global`` arm (a) run fed by ``ShardedPrefetcher`` from host batches:
+     its 20 losses equal the direct run's; (8) the ``tp`` run's state,
+     checkpointed and restored by ``elastic_restore`` as a ``global`` state:
+     equal parameters and an equal next-step loss.  The meshed paths'
+     launches count toward the ``kernels`` line.
+  4c. obs — telemetry: (a) ``EmbeddingService`` with an enabled ``Obs`` at
+     the ssl-paper width, probe b = 128, 512 requests: an ``encode`` span
+     and a ``serve_encode_seconds`` observation a dispatch, request spans a
+     request, a first-call gauge for every bucket, ExecTimer calls equal to
+     the dispatches, a scrape of ``127.0.0.1:0/metrics`` listing every
+     ``metrics()`` series; req/s with telemetry on and off (on, off, on,
+     off); (b) ``run_training`` of arm (a), 20 steps, with a registry, a
+     health monitor and an ExecTimer: ``train_steps_total`` 20, the
+     monitor's gauges against ``probe_metrics``'s plain route within 5e-4;
+     step ms with and without the hooks; (d) a ``Profiler`` start / stop
+     whose Chrome trace names the port's kernels.  (c), ``LMService`` on
+     the bf16 ``gemma2-2b`` with telemetry on (8 requests: a
+     ``decode_step`` span, a histogram observation and an ExecTimer call a
+     tick, 26 ``paged_attention`` launches a tick) and its decode tick ms
+     on / off, runs at the end of phase 5 on that phase's bf16 model.
   5. lm — paged continuous-batching LM serving of ``gemma2-2b`` at its full
      published width and depth (26 layers, d = 2304, 8 query / 4 kv heads of
      256, vocab 256000; random weights from ``init_params(seed=0)``) through
@@ -224,6 +252,13 @@ SENSITIVITY_LR = 0.2
 # 64 complex accumulator, 2.1 MB an all-reduce); compressed steps run
 DIST_N, DIST_D, DIST_BLOCK = 256, 8192, 128
 DIST_DP_STEPS = 5
+# dist (4)-(6): the meshed ServeEngine on 512 rows at the ssl-paper width;
+# the data-parallel LM step on gemma2-2b at full width, depth cut to 2
+# layers, batch 8 x 128 in 2 microbatches, aux R_sum b = 128, 3 AdamW steps
+DIST_SERVE_ROWS = 512
+DIST_LM, DIST_LM_DEPTH, DIST_LM_STEPS, DIST_LM_MICRO = "gemma2-2b", 2, 3, 2
+# obs: (c) the LM service with telemetry on and off, gemma2-2b bf16
+OBS_LM_REQUESTS = 8
 # lm phase: kernel-route logits vs the plain route's on the same pool state,
 # relative to max(1, max |logit|) — the reference's 1e-4 logit tolerance
 LOGIT_TOL = 1e-4
@@ -1381,34 +1416,22 @@ def _dist_steps(ph: Phase, dev, meshes, batches):
     (run here too, the same call): step-0 gradients per parameter and every
     step's loss within 5e-4; median step ms beside the unsharded step's.
     Returns the sharded runs' ({kernel: launches}, {kernel: backward
-    launches})."""
+    launches}, {mode: (losses, final state, step)})."""
     import statistics
 
     import torch
 
     from repro_torch import kernels
     from repro_torch.core.permutation import permutation_for_step
-    from repro_torch.decorr.config import DecorrConfig
-    from repro_torch.optim import lars, warmup_cosine
-    from repro_torch.train.ssl import (
-        create_sharded_ssl_state,
-        init_ssl_model,
-        make_sharded_ssl_train_step,
-        shard_ssl_batch,
-        ssl_param_specs,
-    )
+    from repro_torch.train.ssl import shard_ssl_batch
 
     loss_kw, names = ARMS["a bt r_sum b=128 q=2"]
     want_grads, want_loss, want_ms, _, _, _, _ = _train_route(dev, loss_kw, None, batches)
     model_cfg, _ = _paper()
-    fwd_total, bwd_total = {}, {}
+    fwd_total, bwd_total, runs = {}, {}, {}
     for mode in ("global", "tp"):
         mesh = meshes[mode]
-        cfg = DecorrConfig(**loss_kw, distributed=mode)
-        opt = lars(weight_decay=1e-4)
-        state = create_sharded_ssl_state(init_ssl_model(model_cfg, seed=SEED, device=dev), opt,
-                                         ssl_param_specs(model_cfg, cfg, mesh), mesh, seed=SEED)
-        step, loss_and_grads = make_sharded_ssl_train_step(model_cfg, cfg, opt, warmup_cosine(TRAIN_LR, 2, TRAIN_STEPS), mesh)
+        state, step, loss_and_grads = _sharded_arm_a(dev, mesh, mode)
         local = [shard_ssl_batch(b, mesh) for b in batches]
         perm = permutation_for_step(SEED, 0, model_cfg.projector_widths[-1]).to(dev)
         grads = loss_and_grads(state.model, local[0], perm)[2]
@@ -1440,7 +1463,228 @@ def _dist_steps(ph: Phase, dev, meshes, batches):
               f"launches fwd {_nonzero(fwd)} bwd {_nonzero(bwd)}", flush=True)
         # where the collectives' cost lands: device busy vs wall, NCCL's kernels
         _profile_train(ph, dev, local, f"dist {mode}", names, state, step)
+        runs[mode] = (losses, state, step)
+    return fwd_total, bwd_total, runs
+
+
+def _sharded_arm_a(dev, mesh, mode):
+    """(state, step, loss_and_grads) of train arm (a) sharded in ``mode`` on
+    ``mesh``: seeded weights, LARS, the arm's schedule."""
+    from repro_torch.decorr.config import DecorrConfig
+    from repro_torch.optim import lars, warmup_cosine
+    from repro_torch.train.ssl import create_sharded_ssl_state, init_ssl_model, make_sharded_ssl_train_step, ssl_param_specs
+
+    loss_kw, _ = ARMS["a bt r_sum b=128 q=2"]
+    model_cfg, _ = _paper()
+    cfg = DecorrConfig(**loss_kw, distributed=mode)
+    opt = lars(weight_decay=1e-4)
+    state = create_sharded_ssl_state(init_ssl_model(model_cfg, seed=SEED, device=dev), opt,
+                                     ssl_param_specs(model_cfg, cfg, mesh), mesh, seed=SEED)
+    step, loss_and_grads = make_sharded_ssl_train_step(model_cfg, cfg, opt, warmup_cosine(TRAIN_LR, 2, TRAIN_STEPS), mesh)
+    return state, step, loss_and_grads
+
+
+def _dist_serve(ph: Phase, dev, mesh):
+    """(4) ``ServeEngine`` at the ssl-paper width on the 1 x 1 mesh,
+    data-parallel and tp (``model_axis="model"``), 512 rows: bit for bit
+    the unmeshed engine's.  Returns the rows."""
+    import torch
+
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.loadgen import LoadConfig, request_stream
+    from repro_torch.train.ssl import init_ssl_model
+
+    model_cfg, policy = _paper()
+    xs, _ = request_stream(LoadConfig(n_requests=DIST_SERVE_ROWS, input_dim=model_cfg.input_dim, seed=SEED + 2))
+    model = init_ssl_model(model_cfg, seed=SEED, device=dev)
+    base = ServeEngine(model_cfg, model, policy=policy, device=dev)
+    want = base.encode(xs)
+    base_ms = _time_ms(lambda: base.encode(xs), iters=10)
+    for tag, kw in (("dp", {}), ("tp", dict(model_axis="model"))):
+        eng = ServeEngine(model_cfg, model, policy=policy, mesh=mesh, device=dev, **kw)
+        got = eng.encode(xs)
+        err = float((got - want).abs().max())
+        ph.check(torch.equal(got, want), f"[dist] ServeEngine {tag} on a 1 x 1 mesh differs from unmeshed (max abs {err:.3g})")
+        ms = _time_ms(lambda: eng.encode(xs), iters=10)
+        print(f"[dist] ServeEngine {tag} on a 1 x 1 mesh, {DIST_SERVE_ROWS} rows d={eng.d}: bit-identical="
+              f"{torch.equal(got, want)} max_abs_err={err:.3g} | encode ms meshed={ms:.4f} unmeshed={base_ms:.4f}",
+              flush=True)
+    return want
+
+
+def _dist_probe(ph: Phase, dev, mesh, z):
+    """(5) ``probe_metrics`` in ``global`` / ``tp`` (VICReg, R_sum b = 128,
+    q = 2) on the served rows: the kernel route against ``impl="plain"``
+    and against ``local``'s kernel route within 5e-4 relative; pmatmul and
+    freq_outer launched.  Returns the kernel runs' launches."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.core.permutation import permutation_for_step
+    from repro_torch.decorr.config import DecorrConfig
+    from repro_torch.decorr.probe import probe_metrics
+    from repro_torch.parallel import sharding as shd
+
+    perm = permutation_for_step(SEED, 0, z.shape[1]).to(dev)
+    base = dict(style="vic", reg="sum", q=2, block_size=DIST_BLOCK)
+    local = probe_metrics(z, None, DecorrConfig(**base), perm)
+    rel = lambda a, b: abs(float(a) - float(b)) / max(abs(float(b)), 1e-12)  # noqa: E731
+    totals = {}
+    with shd.sharding_context(mesh):
+        for mode in ("global", "tp"):
+            cfg = DecorrConfig(**base, distributed=mode, axis_name="data", model_axis="model" if mode == "tp" else None)
+            kernels.reset_launch_counts()
+            got = probe_metrics(z, None, cfg, perm)
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+            plain = probe_metrics(z, None, cfg, perm, impl="plain")
+            for name in ("pmatmul", "freq_outer"):
+                ph.check(counts[name] > 0, f"[dist] probe {mode}: {name} never launched")
+            vs_plain = max(rel(got[k], plain[k]) for k in got)
+            vs_local = max(rel(got[k], local[k]) for k in got)
+            ph.check(vs_plain <= PROBE_TOL and vs_local <= PROBE_TOL,
+                     f"[dist] probe {mode}: rel err vs plain {vs_plain:.3g}, vs local {vs_local:.3g} > {PROBE_TOL}")
+            k_ms = _time_ms(lambda: probe_metrics(z, None, cfg, perm), iters=20)
+            p_ms = _time_ms(lambda: probe_metrics(z, None, cfg, perm, impl="plain"), iters=20)
+            print(f"[dist] probe_metrics {mode} b={DIST_BLOCK} on {tuple(z.shape)}: kernel vs plain rel err={vs_plain:.3g} "
+                  f"vs local={vs_local:.3g} keys={sorted(got)} r_sum={float(got['r_sum']):.6g} | ms kernel={k_ms:.4f} "
+                  f"plain={p_ms:.4f} | launches {_nonzero(counts)}", flush=True)
+            for k, v in counts.items():
+                totals[k] = totals.get(k, 0) + v
+    return totals
+
+
+def _dist_lmtrain(ph: Phase, dev, mesh):
+    """(6) ``make_train_step`` on gemma2-2b at full width (2 layers), batch
+    8 x 128 in 2 microbatches, aux R_sum b = 128: unmeshed, on the 1 x 1
+    mesh, and on it with ``grad_shardings`` (dim 0 over "data"); 3 AdamW
+    steps each from the same weights and batches.  Losses and parameters of
+    the meshed runs within 5e-4 of the unmeshed run's; pmatmul and
+    freq_outer launched forward, pmatmul and freq_mat backward.  Returns the
+    meshed runs' ({kernel: launches}, {kernel: backward launches})."""
+    import statistics
+
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.data.synthetic import LMDataConfig, lm_batch
+    from repro_torch.models import ParamTree, init_params
+    from repro_torch.optim import adamw, warmup_cosine
+    from repro_torch.train import create_train_state, make_train_step
+
+    cfg = _lmtrain_cfg(DIST_LM, DIST_LM_DEPTH, dict(style="vic", reg="sum", q=2, block_size=DIST_BLOCK))
+    data = LMDataConfig(vocab_size=cfg.vocab_size, batch=LMTRAIN_BATCH, seq_len=LMTRAIN_SEQ, seed=SEED)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in lm_batch(data, s).items()} for s in range(DIST_LM_STEPS)]
+    sched = warmup_cosine(LMTRAIN_LR, 1, DIST_LM_STEPS)
+    fwd_total, bwd_total, base = {}, {}, None
+    for tag in ("unmeshed", "mesh", "mesh grad_shardings"):
+        opt = adamw()
+        state = create_train_state(ParamTree(init_params(cfg, seed=SEED, device=dev)), opt, seed=SEED)
+        kw = {} if tag == "unmeshed" else dict(mesh=mesh)
+        if tag.endswith("grad_shardings"):
+            kw["grad_shardings"] = [("data",) + (None,) * (p.dim() - 1) for p in state.model.parameters()]
+        step = make_train_step(cfg, opt, sched, num_microbatches=DIST_LM_MICRO, **kw)
+        kernels.reset_launch_counts()
+        metrics, ms = _lmtrain_steps(state, step, batches)
+        fwd, bwd = kernels.launch_counts(), kernels.backward_launch_counts()
+        losses = [m["loss"] for m in metrics]
+        params = [p.detach().clone() for p in state.model.parameters()]
+        del state, step, opt
+        _free()
+        if base is None:
+            base = (losses, params)
+            what = ""
+        else:
+            loss_rel = _max_rel(losses, base[0])
+            param_rel = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30) for a, b in zip(params, base[1]))
+            same = all(torch.equal(a, b) for a, b in zip(params, base[1]))
+            ph.check(loss_rel <= LOSS_TOL and param_rel <= LOSS_TOL,
+                     f"[dist] lm step {tag}: loss rel err {loss_rel:.3g}, param rel err {param_rel:.3g} > {LOSS_TOL}")
+            for name in ("pmatmul", "freq_outer"):
+                ph.check(fwd[name] > 0, f"[dist] lm step {tag}: {name} never launched")
+            for name in ("pmatmul", "freq_mat"):
+                ph.check(bwd[name] > 0, f"[dist] lm step {tag}: {name} never launched on the backward pass")
+            fallbacks = metrics[-1].get("grad_shard_fallbacks")
+            what = (f" vs unmeshed: max loss_rel_err={loss_rel:.3g} max param_rel_err={param_rel:.3g} "
+                    f"params bit-identical={same}" + ("" if fallbacks is None else f" grad_shard_fallbacks={fallbacks:.0f}"))
+            for k, v in fwd.items():
+                fwd_total[k] = fwd_total.get(k, 0) + v
+            for k, v in bwd.items():
+                bwd_total[k] = bwd_total.get(k, 0) + v
+        print(f"[dist] lm step {tag}: {DIST_LM} full width, {DIST_LM_DEPTH} layers, batch {LMTRAIN_BATCH}x{LMTRAIN_SEQ} "
+              f"in {DIST_LM_MICRO} microbatches, aux r_sum b={DIST_BLOCK}, {DIST_LM_STEPS} steps: "
+              f"loss={['%.7g' % x for x in losses]} median step ms={statistics.median(ms):.3f}{what} | "
+              f"launches fwd {_nonzero(fwd)} bwd {_nonzero(bwd)}", flush=True)
+    del base
+    _free()
     return fwd_total, bwd_total
+
+
+def _dist_prefetch(ph: Phase, dev, mesh, batches, direct):
+    """(7) Arm (a) sharded in ``global``, fed by ``ShardedPrefetcher`` from
+    host batches (pinned copies on a side stream, this rank's block cut by
+    the batch's ``NamedSharding``): its losses equal the directly fed run's."""
+    import torch
+
+    from repro_torch.data import ShardedPrefetcher
+    from repro_torch.parallel import sharding as shd
+
+    with shd.sharding_context(mesh):
+        rows = shd.named_sharding(("batch", None))
+    host = [{k: v.cpu() for k, v in b.items()} for b in batches]
+    state, step, _ = _sharded_arm_a(dev, mesh, "global")
+    it = ShardedPrefetcher(iter(host), sharding=rows, depth=2, device=dev)
+    losses = []
+    t0 = time.perf_counter()
+    for batch in it:
+        state, metrics = step(state, batch)
+        losses.append(metrics["bt_loss"])
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    losses = torch.stack(losses).cpu().tolist()
+    same = losses == direct
+    ph.check(same and len(losses) == len(direct),
+             f"[dist] prefetched arm (a): {len(losses)} losses, max diff {max(abs(a - b) for a, b in zip(losses, direct)):.3g}")
+    print(f"[dist] arm (a) global fed by ShardedPrefetcher: {len(losses)} losses equal the direct run's={same} "
+          f"loss[-1]={losses[-1]:.6g} wall ms={wall_ms:.3f} ({wall_ms / len(losses):.3f} a step)", flush=True)
+
+
+def _dist_elastic(ph: Phase, dev, mesh, tp_run, batches):
+    """(8) The ``tp`` run's state, checkpointed (the full tree), restored by
+    ``elastic_restore`` onto the 1 x 1 mesh as a ``global`` state: the
+    parameters equal, and so does one more step's loss."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.ft.elastic import elastic_restore
+    from repro_torch.decorr.config import DecorrConfig
+    from repro_torch.train.ssl import shard_ssl_batch, ssl_param_specs
+
+    _, tp_state, tp_step = tp_run
+    tmp = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
+    try:
+        tree = tp_state.state_dict()
+        save_checkpoint(tmp, tp_state.step, tree)
+        state, step, _ = _sharded_arm_a(dev, mesh, "global")
+        loss_kw, _ = ARMS["a bt r_sum b=128 q=2"]
+        model_cfg, _ = _paper()
+        specs = ssl_param_specs(model_cfg, DecorrConfig(**loss_kw, distributed="global"), mesh)
+        restored = elastic_restore(tmp, tp_state.step, state.state_dict(), mesh,
+                                   spec_fn=lambda path, leaf: specs.get(path[-1]) if path[0] == "params" else None)
+        state.load_state_dict(restored)
+        same = all(torch.equal(state.model.state_dict()[k], v) for k, v in tree["params"].items())
+        ph.check(same and state.step == tp_state.step, "[dist] elastic restore: parameters or step differ from the tp run's")
+        batch = shard_ssl_batch(batches[0], mesh)
+        a = float(tp_step(tp_state, batch)[1]["bt_loss"])
+        b = float(step(state, batch)[1]["bt_loss"])
+        ph.check(a == b, f"[dist] elastic restore: one more step's loss {b!r} vs the tp run's {a!r}")
+        print(f"[dist] tp checkpoint at step {tree['step']} restored by elastic_restore onto a 1 x 1 global mesh: "
+              f"params equal={same}; one more step: loss tp={a!r} restored={b!r} equal={a == b}", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def _dist_compressed(ph: Phase, dev, meshes, batches):
@@ -1497,10 +1741,12 @@ def _dist_compressed(ph: Phase, dev, meshes, batches):
 
 
 def phase_dist(ph: Phase, dev):
-    """Distributed decorrelation on one NCCL rank (a group of one through a
-    ``FileStore``): the regularizer, the sharded SSL step and the compressed
-    data-parallel step, each against its single-device twin.  Returns the
-    sharded steps' ({kernel: launches}, {kernel: backward launches})."""
+    """Distributed training and serving on one NCCL rank (a group of one
+    through a ``FileStore``): the regularizer, the sharded SSL step and the
+    compressed data-parallel step, each against its single-device twin;
+    then the meshed ServeEngine, the global / tp probes, the data-parallel
+    LM step, the prefetched SSL run and the elastic restore.  Returns the
+    meshed paths' ({kernel: launches}, {kernel: backward launches})."""
     import shutil
     import tempfile
 
@@ -1519,12 +1765,198 @@ def phase_dist(ph: Phase, dev):
         meshes = {"local": None, "global": mesh, "tp": mesh}
         _dist_regularizer(ph, dev, meshes)
         batches = _train_batches(dev, TRAIN_STEPS)
-        out = _dist_steps(ph, dev, meshes, batches)
+        fwd, bwd, runs = _dist_steps(ph, dev, meshes, batches)
         _dist_compressed(ph, dev, meshes, batches)
-        return out
+        rows = _dist_serve(ph, dev, mesh)
+        parts = [_dist_probe(ph, dev, mesh, rows)]
+        lm_fwd, lm_bwd = _dist_lmtrain(ph, dev, mesh)
+        parts.append(lm_fwd)
+        _dist_prefetch(ph, dev, mesh, batches, runs["global"][0])
+        _dist_elastic(ph, dev, mesh, runs["tp"], batches)
+        for part in parts:
+            for k, v in part.items():
+                fwd[k] = fwd.get(k, 0) + v
+        for k, v in lm_bwd.items():
+            bwd[k] = bwd.get(k, 0) + v
+        return fwd, bwd
     finally:
         dist.destroy_process_group()
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# phase obs: telemetry on the serve and train paths
+# ---------------------------------------------------------------------------
+
+
+def _obs_serve(ph: Phase, dev):
+    """(a) ``EmbeddingService`` with an enabled ``Obs`` at the ssl-paper
+    width, probe b = 128, 512 requests: one ``encode`` span and one
+    ``serve_encode_seconds`` observation a dispatch, a queue and a dispatch
+    span a request, an ``ExecTimer`` first-call gauge for every bucket and
+    rows whose calls sum to the dispatches, and a scrape of
+    ``127.0.0.1:0/metrics`` that lists every series of ``metrics()``.  Then
+    req/s with telemetry on and off (fresh warmed services, same load).
+    Returns the runs' launches."""
+    import urllib.request
+
+    from repro_torch import kernels
+    from repro_torch.decorr.config import DecorrConfig
+    from repro_torch.obs import Obs
+    from repro_torch.obs.registry import sanitize_name
+    from repro_torch.serve.buckets import bucket_sizes
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.loadgen import LoadConfig, run_microbatched
+    from repro_torch.serve.probes import DecorrProbe
+    from repro_torch.serve.service import EmbeddingService
+    from repro_torch.train.ssl import init_ssl_model
+
+    model_cfg, policy = _paper()
+    cfg = DecorrConfig(style="vic", reg="sum", q=2, block_size=128)
+    load = LoadConfig(n_requests=N_REQUESTS, input_dim=model_cfg.input_dim, seed=SEED + 3)
+    rps, totals = {}, {}
+    for tag in ("on", "off", "on ", "off "):
+        obs = Obs() if tag.strip() == "on" else Obs.disabled()
+        engine = ServeEngine(model_cfg, init_ssl_model(model_cfg, seed=SEED), policy=policy, device=dev)
+        service = EmbeddingService(engine, policy=policy, probe=DecorrProbe(cfg, perm_seed=SEED, device=dev), obs=obs)
+        service.warmup().start()
+        kernels.reset_launch_counts()
+        try:
+            summary = run_microbatched(service, load)
+            metrics = service.metrics()
+        finally:
+            service.stop()
+        for k, v in kernels.launch_counts().items():
+            totals[k] = totals.get(k, 0) + v
+        rps.setdefault(tag.strip(), []).append(summary["throughput_rps"])
+        if tag != "on":
+            continue
+        dispatches = service.stats.batches
+        events = obs.tracer.to_chrome()["traceEvents"]
+        spans = {n: sum(1 for e in events if e["name"] == n) for n in ("encode", "queue", "dispatch", "retire")}
+        ph.check(spans["encode"] == dispatches, f"[obs] serve: {spans['encode']} encode spans for {dispatches} dispatches")
+        ph.check(spans["queue"] == spans["dispatch"] == spans["retire"] == N_REQUESTS,
+                 f"[obs] serve: request spans {spans} for {N_REQUESTS} requests")
+        h = obs.registry.get("serve_encode_seconds")
+        ph.check(h.count == dispatches, f"[obs] serve: serve_encode_seconds count {h.count} != {dispatches} dispatches")
+        rows = {r["executable"]: r for r in obs.perf.snapshot()}
+        warmed = [obs.registry.value("exec_compile_seconds", {"executable": f"embed_b{b}"}) for b in bucket_sizes(policy)]
+        ph.check(all(v is not None and v > 0 for v in warmed), "[obs] serve: a bucket has no first-call gauge")
+        embed_calls = sum(r["calls"] for n, r in rows.items() if n.startswith("embed_b"))
+        ph.check(embed_calls == dispatches, f"[obs] serve: ExecTimer embed calls {embed_calls} != {dispatches} dispatches")
+        ph.check(rows.get("probe_update", {}).get("calls") == metrics["decorr_probe_steps"],
+                 "[obs] serve: probe_update calls != probe steps")
+        server = obs.start_server(port=0, metrics_fn=service.metrics)
+        try:
+            text = urllib.request.urlopen(f"{server.url}/metrics", timeout=10).read().decode()
+        finally:
+            server.stop()
+        exposed = {ln.split("{")[0].split(" ")[0] for ln in text.splitlines() if ln and not ln.startswith("#")}
+        missing = [k for k in metrics if sanitize_name(k) not in exposed
+                   and not (sanitize_name(k).startswith("heartbeat_age_s_") and "heartbeat_age_s" in exposed)]
+        ph.check(not missing, f"[obs] serve: scrape lacks {missing[:8]}")
+        top = ", ".join(f"{r['executable']} {r['calls']}x best {r['best_s'] * 1e3:.4f}ms" for r in obs.perf.snapshot(top_k=4))
+        print(f"[obs] (a) EmbeddingService, {N_REQUESTS} requests, {dispatches} dispatches: encode spans={spans['encode']} "
+              f"request spans queue/dispatch/retire={spans['queue']}/{spans['dispatch']}/{spans['retire']} "
+              f"serve_encode_seconds count={h.count} buckets with a first-call gauge={len(warmed)} | scrape "
+              f"{len(text.splitlines())} lines, {len(exposed)} series, metrics() keys missing={len(missing)} | "
+              f"ExecTimer: {top}", flush=True)
+    print(f"[obs] (a) EmbeddingService req/s, telemetry on: {rps['on']} off: {rps['off']} (order on, off, on, off)",
+          flush=True)
+    return totals
+
+
+def _obs_train(ph: Phase, dev):
+    """(b) ``run_training`` of train arm (a), 20 steps, with a registry, a
+    health monitor (log interval 10) and an ExecTimer, then without them:
+    ``train_steps_total`` = 20, ``train_step`` timed 20 times, and the
+    monitor's gauges at its last update against ``probe_metrics``'s plain
+    route on the same rows within 5e-4; step ms with and without the hooks."""
+    import torch
+
+    from repro_torch.decorr.config import DecorrConfig
+    from repro_torch.decorr.probe import probe_metrics
+    from repro_torch.obs import DecorrHealthMonitor, ExecTimer, MetricsRegistry
+    from repro_torch.train.loop import LoopConfig, run_training
+
+    loss_kw, _ = ARMS["a bt r_sum b=128 q=2"]
+    batches = _train_batches(dev, TRAIN_STEPS)
+    pcfg = DecorrConfig(style="vic", reg="sum", q=2, block_size=128)
+    ms = {}
+    for tag in ("hooks", "none", "hooks ", "none "):
+        state, step, _ = _train_setup(dev, loss_kw, None)
+        kw = {}
+        if tag.strip() == "hooks":
+            reg = MetricsRegistry()
+            monitor = DecorrHealthMonitor(lambda model, batch: model(batch["view1"]), cfg=pcfg, ema=0.0, device=dev)
+            kw = dict(registry=reg, monitor=monitor, perf=ExecTimer(reg))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = run_training(state, step, lambda s: batches[s], LoopConfig(total_steps=TRAIN_STEPS, log_interval=10), **kw)
+        torch.cuda.synchronize()
+        ms.setdefault(tag.strip(), []).append((time.perf_counter() - t0) * 1e3 / TRAIN_STEPS)
+        if tag != "hooks":
+            continue
+        ph.check(reg.value("train_steps_total") == TRAIN_STEPS, "[obs] train: train_steps_total != 20")
+        (row,) = [r for r in kw["perf"].snapshot() if r["executable"] == "train_step"]
+        ph.check(row["calls"] == TRAIN_STEPS, f"[obs] train: train_step timed {row['calls']} times")
+        got = monitor.metrics()
+        with torch.no_grad():
+            z = state.model(batches[TRAIN_STEPS - 1]["view1"])
+        perm = monitor.probe.permutation(monitor.probe.steps - 1, z.shape[1])
+        want = probe_metrics(z, None, pcfg, perm, impl="plain")
+        worst = max(abs(got[f"train_decorr_{k}"] - float(v)) / max(abs(float(v)), 1e-12) for k, v in want.items())
+        ph.check(worst <= PROBE_TOL, f"[obs] train: monitor gauges vs the plain probe rel err {worst:.3g} > {PROBE_TOL}")
+        kernel = probe_metrics(z, None, pcfg, perm)
+        vs_kernel = max(abs(got[f"train_decorr_{k}"] - float(v)) / max(abs(float(v)), 1e-12) for k, v in kernel.items())
+        print(f"[obs] (b) run_training arm a, {TRAIN_STEPS} steps with registry / monitor / perf: train_steps_total="
+              f"{reg.value('train_steps_total'):.0f} train_step calls={row['calls']} monitor updates={monitor.updates} "
+              f"gauges vs plain probe worst rel err={worst:.3g} (vs the kernel route {vs_kernel:.3g}) relaxation_gap={got.get('train_decorr_relaxation_gap_ema')} "
+              f"param_norm={reg.value('train_param_norm'):.6g}", flush=True)
+    print(f"[obs] (b) train step ms (loop wall / steps) with hooks: {ms['hooks']} without: {ms['none']} "
+          "(order hooks, none, hooks, none)", flush=True)
+
+
+def _obs_profile(ph: Phase, dev):
+    """(d) A ``Profiler`` start / stop around a b = 128 probe update on the
+    card: the Chrome trace it writes names the port's kernels."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.core.permutation import permutation_for_step
+    from repro_torch.decorr.config import DecorrConfig
+    from repro_torch.decorr.probe import probe_metrics
+    from repro_torch.obs import Profiler
+
+    z = torch.randn(256, 2048, generator=torch.Generator().manual_seed(SEED)).to(dev)
+    perm = permutation_for_step(SEED, 0, 2048).to(dev)
+    cfg = DecorrConfig(style="vic", reg="sum", q=2, block_size=128)
+    tmp = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
+    try:
+        prof = Profiler(tmp)
+        started = prof.start()
+        probe_metrics(z, None, cfg, perm)
+        torch.cuda.synchronize()
+        path = prof.stop()
+        text = open(path).read() if path else ""
+        named = sorted({sym for sym in _OWNER if sym in text})
+        ph.check(started and bool(named), f"[obs] profiler: trace {path} names none of the port's kernels")
+        print(f"[obs] (d) Profiler start={started} stop -> {os.path.basename(path or 'None')} "
+              f"({len(text)} bytes) names {named}", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_obs(ph: Phase, dev):
+    """Telemetry: (a) the embedding service, (b) the train loop's hooks,
+    (d) the profiler; (c), the LM service, runs in phase lm on its bf16
+    model.  Returns the launches."""
+    totals = _obs_serve(ph, dev)
+    _obs_train(ph, dev)
+    _obs_profile(ph, dev)
+    return totals
 
 
 # ---------------------------------------------------------------------------
@@ -1585,7 +2017,7 @@ class _CheckedSteps:
         return logits, hidden, caches
 
 
-def _lm_service(cfg, params, dev, n_slots, max_len, max_prompt, probe=False, record=False, **engine_kw):
+def _lm_service(cfg, params, dev, n_slots, max_len, max_prompt, probe=False, record=False, obs=None, **engine_kw):
     from repro_torch.decorr.config import DecorrConfig
     from repro_torch.serve.engine import ContinuousLMEngine
     from repro_torch.serve.probes import DecorrProbe
@@ -1594,7 +2026,7 @@ def _lm_service(cfg, params, dev, n_slots, max_len, max_prompt, probe=False, rec
     engine = ContinuousLMEngine(cfg, params, n_slots=n_slots, max_len=max_len, max_prompt_len=max_prompt,
                                  device=dev, **engine_kw)
     pr = DecorrProbe(DecorrConfig(style="vic", reg="sum", q=2), perm_seed=SEED, device=dev) if probe else None
-    return LMService(engine, probe=pr, record_probe_rows=record).warmup()
+    return LMService(engine, probe=pr, record_probe_rows=record, obs=obs).warmup()
 
 
 def _lm_drive(service, stream, checked=None):
@@ -2387,7 +2819,66 @@ def phase_lm(ph: Phase, dev):
                          capture_output=True, text=True, timeout=60).stdout.strip()
     for k, v in _lm_timed_options(ph, cfg, params, dev, smi).items():
         counts[k] = counts.get(k, 0) + v
+    for k, v in _lm_obs(ph, cfg, params, dev, smi).items():
+        counts[k] = counts.get(k, 0) + v
     return counts
+
+
+def _lm_obs(ph: Phase, cfg, params, dev, smi):
+    """obs (c): ``LMService`` on the bf16 model with telemetry on, 8
+    requests: one ``decode_step`` span and one ``serve_decode_step_seconds``
+    observation a decode tick, the ExecTimer's decode_step calls equal to
+    the ticks, 26 ``paged_attention`` launches a tick, a prefill span per
+    request; then decode tick ms with telemetry on and off (on, off, on,
+    off).  Returns the runs' launches."""
+    import statistics
+
+    from repro_torch import kernels
+    from repro_torch.obs import Obs
+    from repro_torch.serve.loadgen import LMLoadConfig
+
+    load = LMLoadConfig(n_requests=OBS_LM_REQUESTS, seed=SEED + 12)
+    max_len = -(-max(load.max_request_len + 8, 32) // LM_PAGE) * LM_PAGE
+    stream = load.request_stream(cfg.vocab_size)
+    layers = _attn_layers(cfg)
+    tick_ms, totals = {}, {}
+    for tag in ("on", "off", "on ", "off "):
+        obs = Obs() if tag.strip() == "on" else Obs.disabled()
+        svc = _lm_service(cfg, params, dev, n_slots=LM_SLOTS, max_len=max_len, max_prompt=max(load.prompt_lens),
+                          probe=True, paged=True, page_size=LM_PAGE, obs=obs)
+        times = {"decode": []}
+        svc.engine.decode_step = _timed(times, "decode", svc.engine.decode_step)
+        kernels.reset_launch_counts()
+        outs, wall, futs = _lm_drive(svc, stream)
+        counts = kernels.launch_counts()
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+        ticks = len(times["decode"])
+        tick_ms.setdefault(tag.strip(), []).append(statistics.median(times["decode"]))
+        ph.check(counts["paged_attention"] == layers * ticks,
+                 f"[obs] lm {tag}: paged_attention {counts['paged_attention']} launches in {ticks} ticks")
+        if tag != "on":
+            continue
+        events = obs.tracer.to_chrome()["traceEvents"]
+        spans = {n: sum(1 for e in events if e["name"] == n) for n in ("decode_step", "prefill_exec", "decode", "retire")}
+        row = {r["executable"]: r for r in obs.perf.snapshot()}.get("decode_step", {})
+        h = obs.registry.get("serve_decode_step_seconds")
+        ph.check(spans["decode_step"] == ticks == h.count == row.get("calls"),
+                 f"[obs] lm: {spans['decode_step']} decode spans, {h.count} observations, {row.get('calls')} timer calls "
+                 f"for {ticks} ticks")
+        ph.check(spans["prefill_exec"] == spans["decode"] == spans["retire"] == OBS_LM_REQUESTS,
+                 f"[obs] lm: request spans {spans} for {OBS_LM_REQUESTS} requests")
+        rec = obs.recorder.counts()
+        ph.check(rec.get("admit") == rec.get("retire") == OBS_LM_REQUESTS, f"[obs] lm: flight recorder {rec}")
+        print(f"[obs] (c) LMService {cfg.name} bf16, {OBS_LM_REQUESTS} requests, {ticks} decode ticks: decode_step "
+              f"spans={spans['decode_step']} serve_decode_step_seconds count={h.count} ExecTimer decode_step "
+              f"calls={row.get('calls')} best={row.get('best_s', 0) * 1e3:.3f}ms | paged_attention "
+              f"{counts['paged_attention']} launches = {layers} x {ticks} ticks | request spans "
+              f"prefill/decode/retire={spans['prefill_exec']}/{spans['decode']}/{spans['retire']} flight {rec}",
+              flush=True)
+    print(f"[obs] (c) LMService decode tick ms (median), telemetry on: {tick_ms['on']} off: {tick_ms['off']} "
+          f"(order on, off, on, off) | {smi}", flush=True)
+    return totals
 
 
 # ---------------------------------------------------------------------------
@@ -2937,10 +3428,11 @@ def main() -> int:
     ph.run("profile", phase_profile, ph, dev)
     train_fwd, train_bwd = ph.run("train", phase_train, ph, dev) or ({}, {})
     dist_fwd, dist_bwd = ph.run("dist", phase_dist, ph, dev) or ({}, {})
+    obs = ph.run("obs", phase_obs, ph, dev) or {}
     lm = ph.run("lm", phase_lm, ph, dev) or {}
     archs = ph.run("archs", phase_archs, ph, dev) or {}
     lmtrain_fwd, lmtrain_bwd = ph.run("lmtrain", phase_lmtrain, ph, dev) or ({}, {})
-    for part in (train_fwd, dist_fwd, lm, archs, lmtrain_fwd):
+    for part in (train_fwd, dist_fwd, obs, lm, archs, lmtrain_fwd):
         for k, v in part.items():
             launches[k] = launches.get(k, 0) + v
     for part in (dist_bwd, lmtrain_bwd):

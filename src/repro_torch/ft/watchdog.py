@@ -118,6 +118,22 @@ class HeartbeatMonitor:
             out[sanitize_name(f"{prefix}age_s_{name}")] = self.age(name)
         return out
 
+    def publish_metrics(self, registry, prefix: str = "heartbeat_") -> set:
+        """Registry view of the scrape surface: ONE labelled age gauge
+        (``heartbeat_age_s{name="serve.dispatch"}``) instead of a metric
+        family per component, plus the flat aggregate gauges.  Returns the
+        legacy name-suffixed keys this publish claims: they stay in the
+        ``metrics()`` dict view, and the caller
+        (``serve.service.collect_metrics``) must not also publish them flat."""
+        m = self.metrics(prefix)
+        gauge = registry.gauge(f"{prefix}age_s", "seconds since a component's last heartbeat", labelnames=("name",))
+        claimed = set()
+        for name in self._last:
+            gauge.labels(name=name).set(self.age(name))
+            claimed.add(sanitize_name(f"{prefix}age_s_{name}"))
+        registry.publish({k: v for k, v in m.items() if k not in claimed})
+        return claimed
+
 
 class PreemptionSignal:
     """File-flag preemption notice (a SIGTERM handler writes it; tests touch

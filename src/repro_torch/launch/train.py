@@ -9,6 +9,9 @@ q = 2, on the final hidden states; ``--decorr-block`` groups it), whose R
 runs the hand-written kernels forward and backward on the card.  A rerun
 with the same ``--ckpt-dir`` resumes from the newest checkpoint.
 ``--pretune`` accepts only ``off`` until the Hopper kernel tuner is ported.
+``--metrics-port`` / ``--alerts`` turn the telemetry on (``launch/obs_args``):
+per-phase histograms, ``train_*`` gauges and the step's device-inclusive
+time, scraped once over HTTP at the end.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from repro_torch import resolve_device
 from repro_torch.configs import get_config
 from repro_torch.core.decorrelation import LMDecorrConfig
 from repro_torch.data.synthetic import LMDataConfig, lm_batch
+from repro_torch.launch.obs_args import add_obs_args, build_train_obs, finish_train_obs
 from repro_torch.decorr.config import DecorrConfig
 from repro_torch.models.common import ArchConfig
 from repro_torch.models.transformer import ParamTree, init_params
@@ -54,6 +58,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     help="only 'off' until the Hopper kernel tuner is ported")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
+    add_obs_args(ap)
     return ap.parse_args(argv)
 
 
@@ -123,8 +128,14 @@ def train(args: argparse.Namespace) -> TrainState:
         print(f"  step {step:5d} loss={m.get('loss', 0):.4f} ce={m.get('ce', 0):.4f} "
               f"decorr={m.get('decorr_aux', 0):.5f} ({time.time() - t0:.1f}s)", flush=True)
 
-    state = run_training(state, step_fn, lm_batch_fn(cfg, data, dev), lcfg, log_fn=log_fn)
+    obs = build_train_obs(args)
+    state = run_training(
+        state, step_fn, lm_batch_fn(cfg, data, dev), lcfg, log_fn=log_fn,
+        registry=obs.registry if obs is not None else None,
+        perf=obs.perf if obs is not None else None,
+    )
     print(f"[train] done at step {state.step} in {time.time() - t0:.1f}s", flush=True)
+    finish_train_obs(args, obs)
     return state
 
 

@@ -15,6 +15,15 @@ batched matmuls, as the reference's are plain einsums (no Pallas kernel).
 With ``cfg.moe_group_size = G`` the capacity is per G-token group, when the
 T tokens split into more than one whole group (``T > G`` and ``T % G == 0``).
 
+Under ``parallel.sharding.data_parallel(axis)`` (the data-parallel LM step)
+each rank routes its block of the batch and the batch statistics are the
+whole batch's, as GSPMD computes them over the reference's global array:
+the router's token and probability fractions are all-reduced over the axis,
+and ungrouped dispatch seats every token at its position in the global
+(k-major, token) order — an exclusive prefix sum of the ranks' per-expert
+claim counts — against the whole batch's capacity.  Grouped dispatch is
+rank-local when a rank's block holds whole groups, and raises otherwise.
+
 Variants of the archs: arctic-480b (128 experts top-2 + a dense residual
 MLP), llama4-scout (16 experts top-1 + an always-on shared expert), jamba
 (16 experts top-2 on every other layer).  ``moe_apply`` returns the
@@ -26,9 +35,12 @@ from __future__ import annotations
 from typing import Dict, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
+from repro_torch.decorr.modes import psum_if
 from repro_torch.models.common import ArchConfig, activation_fn, mlp_apply
+from repro_torch.parallel import sharding as shd
 
 Tensor = torch.Tensor
 
@@ -68,13 +80,33 @@ def _top_k(probs: Tensor, k: int) -> Tuple[Tensor, Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
-def _moe_groups(params: Dict[str, Tensor], xg: Tensor, cfg: ArchConfig) -> Tuple[Tensor, Tensor]:
+def _global_offsets(mask: Tensor, axis: str) -> Tensor:
+    """(k, E) offsets that move this rank's (k-major, token) claim
+    positions to the whole batch's order, the ranks' blocks in rank order:
+    claims of earlier choices on every rank, then of the same choice on
+    earlier ranks.  ``mask``: (1, G, k, E) one-hot claims of this rank."""
+    counts = mask[0].sum(dim=0)  # (k, E)
+    (group,) = shd.axis_groups(axis)
+    every = [torch.empty_like(counts) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(every, counts.contiguous(), group=group)
+    every = torch.stack(every)  # (ranks, k, E)
+    r = shd.axis_index(axis)
+    before = lambda c: torch.cumsum(c, dim=0) - c  # noqa: E731  (exclusive, over choices)
+    return before(every.sum(dim=0)) - before(counts) + every[:r].sum(dim=0)
+
+
+def _moe_groups(params: Dict[str, Tensor], xg: Tensor, cfg: ArchConfig, axis=None,
+                span: bool = False) -> Tuple[Tensor, Tensor]:
     """xg: (n, G, d) -> ((n, G, d), aux): route, seat and run each group's
     tokens with a per-group capacity (one group: the reference's
-    ``_moe_one_group``; more: its ``_moe_grouped``)."""
+    ``_moe_one_group``; more: its ``_moe_grouped``).  ``axis``: the
+    data-parallel axis, over which the aux loss's fractions are taken;
+    ``span``: the one group spans every rank's block (global positions and
+    the whole batch's capacity)."""
     n, g, d = xg.shape
     e, k = cfg.n_experts, cfg.top_k
-    cap = _capacity(g, cfg)
+    ranks = shd.axis_size(axis) if axis is not None else 1
+    cap = _capacity(g * ranks if span else g, cfg)
     cd = cfg.compute_dtype
 
     logits = xg.float() @ params["router"].float()  # (n, G, E)
@@ -87,6 +119,9 @@ def _moe_groups(params: Dict[str, Tensor], xg: Tensor, cfg: ArchConfig) -> Tuple
     mask_flat = mask.transpose(1, 2).reshape(n, k * g, e)
     pos_flat = torch.cumsum(mask_flat, dim=1) - mask_flat
     pos = (pos_flat.reshape(n, k, g, e).transpose(1, 2) * mask).sum(dim=-1)  # (n, G, k)
+    if span and ranks > 1:
+        off = _global_offsets(mask, axis)  # (k, E)
+        pos = pos + off[torch.arange(k, device=xg.device), expert_idx]
     keep = pos < cap
 
     # dispatch: kept (group, token, choice) -> expert buffer (E, n, C, d)
@@ -108,8 +143,9 @@ def _moe_groups(params: Dict[str, Tensor], xg: Tensor, cfg: ArchConfig) -> Tuple
     picked = ye[expert_idx, grp, pos.clamp(max=cap - 1)]  # (n, G, k, d)
     out = (weight[..., None] * picked).sum(dim=2)
 
-    frac_tokens = mask[:, :, 0].float().mean(dim=(0, 1))  # top-1 share per expert
-    frac_probs = probs.mean(dim=(0, 1))
+    tokens = float(n * g * ranks)
+    frac_tokens = psum_if(mask[:, :, 0].float().sum(dim=(0, 1)), axis) / tokens  # top-1 share per expert
+    frac_probs = psum_if(probs.sum(dim=(0, 1)), axis) / tokens
     aux = e * torch.sum(frac_tokens * frac_probs)
     return out, aux
 
@@ -121,10 +157,16 @@ def moe_apply(params: Dict[str, Tensor], x: Tensor, cfg: ArchConfig) -> Tuple[Te
     b, s, d = x.shape
     t = b * s
     g = cfg.moe_group_size
-    if g and t > g and t % g == 0:
-        out, aux = _moe_groups(params, x.reshape(t // g, g, d), cfg)
+    axis = shd.data_parallel_axis()
+    t_all = t * (shd.axis_size(axis) if axis is not None else 1)
+    if g and t_all > g and t_all % g == 0:
+        if t % g:
+            raise ValueError(
+                f"{cfg.name}: grouped MoE dispatch under data parallelism needs each rank's block to hold "
+                f"whole groups: {t} tokens a rank is not a multiple of moe_group_size={g}")
+        out, aux = _moe_groups(params, x.reshape(t // g, g, d), cfg, axis)
     else:
-        out, aux = _moe_groups(params, x.reshape(1, t, d), cfg)
+        out, aux = _moe_groups(params, x.reshape(1, t, d), cfg, axis, span=True)
     out = out.reshape(b, s, d)
     if cfg.dense_residual and "dense" in params:
         out = out + mlp_apply(params["dense"], x, cfg)

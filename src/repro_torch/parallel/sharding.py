@@ -94,6 +94,32 @@ def sharding_context(mesh, rules: Optional[Dict] = None):
             _STATE.rules = prev_rules
 
 
+@contextlib.contextmanager
+def data_parallel(axis: Optional[str]):
+    """Mark the enclosed forward as one rank's block of a data-parallel
+    batch sharded over mesh axis ``axis``: a batch statistic that is not a
+    mean of per-row terms (the MoE router's token fractions and its capacity
+    positions) is then taken over the whole batch, as GSPMD takes it over
+    the reference's global array.  ``None`` marks nothing."""
+    prev = getattr(_STATE, "dp_axis", None)
+    _STATE.dp_axis = axis
+    try:
+        yield
+    finally:
+        _STATE.dp_axis = prev
+
+
+def data_parallel_axis() -> Optional[str]:
+    """The axis ``data_parallel`` installed, or None."""
+    return getattr(_STATE, "dp_axis", None)
+
+
+def axis_index(axis: str) -> int:
+    """This rank's index along mesh axis ``axis`` of the current mesh."""
+    axis_groups(axis)  # raises on an unbound axis
+    return int(current_mesh().get_local_rank(mesh_dim=axis))
+
+
 def _axis_names(mesh) -> Tuple[str, ...]:
     return tuple(mesh.mesh_dim_names or ()) if mesh is not None else ()
 

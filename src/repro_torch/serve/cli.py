@@ -35,9 +35,16 @@ the scrape metrics (port of ``repro/serve/cli.py``).
     PYTHONPATH=src python -m repro_torch.serve.cli --ckpt-dir /tmp/ssl_ckpt \
         --input-dim 256 --backbone 128 --d 256 --requests 64 --device cpu
 
+    # telemetry: self-scrape /metrics on an ephemeral port (every metrics()
+    # key must be in the exposition), the Chrome trace, the exposition text,
+    # the flight recorder and a torch.profiler trace
+    PYTHONPATH=src python -m repro_torch.serve.cli --smoke --device cpu \
+        --metrics-port 0 --trace-out /tmp/trace.json --metrics-out /tmp/metrics.txt \
+        --flight-out /tmp/flight.json --profile-dir /tmp/prof
+
 Like the reference, the LM paths serve ``cfg.reduced()``; ``chip_smoke.py``
-runs the full published width on the card.  The fabric, pre-tuning and
-telemetry belong to later slices of the port.
+runs the full published width on the card.  The fabric and pre-tuning
+belong to later slices of the port.
 """
 
 from __future__ import annotations
@@ -47,6 +54,66 @@ import json
 import sys
 
 import numpy as np
+
+
+def _build_obs(args):
+    """The CLI's telemetry bundle: default serve alert rules unless
+    ``--alerts`` points at a JSON rule list (file path or inline)."""
+    from repro_torch.obs import AlertManager, Obs, default_serve_rules
+
+    alerts = AlertManager.from_config(args.alerts) if args.alerts else AlertManager(default_serve_rules())
+    return Obs(alerts=alerts)
+
+
+def _finish_obs(args, obs, report_metrics) -> bool:
+    """Post-run telemetry outputs: self-scrape the HTTP endpoint
+    (``--metrics-port``; fails unless every ``metrics()`` key survived into
+    the exposition), dump the Chrome trace (``--trace-out``), the exposition
+    text (``--metrics-out``) and the flight recorder (``--flight-out``)."""
+    from repro_torch.obs.registry import sanitize_name
+
+    ok = True
+    exposition = None
+    if args.metrics_port is not None:
+        import urllib.request
+
+        server = obs.start_server(port=args.metrics_port)
+        text = urllib.request.urlopen(f"{server.url}/metrics", timeout=10).read().decode()
+        exposition = text
+        exposed = {line.split("{")[0].split(" ")[0] for line in text.splitlines() if line and not line.startswith("#")}
+        missing = []
+        for k in report_metrics:
+            s = sanitize_name(k)
+            if s in exposed:
+                continue
+            # per-name heartbeat ages live in the labelled family
+            # heartbeat_age_s{name=...}; the name-suffixed keys only in metrics()
+            if s.startswith("heartbeat_age_s_") and "heartbeat_age_s" in exposed:
+                continue
+            missing.append(k)
+        print(f"[obs] scrape {server.url}/metrics: {len(text.splitlines())} lines, "
+              f"{len(exposed)} series, active_alerts={obs.alerts.active()}")
+        if missing:
+            print(f"[obs] MISSING from exposition: {missing[:8]}")
+            ok = False
+        server.stop()
+    top = obs.perf.snapshot(top_k=3)
+    if top:
+        slowest = ", ".join(f"{r['executable']} ({r['calls']}x, {r['total_s']:.3f}s)" for r in top)
+        print(f"[obs] slowest executables: {slowest}")
+    if args.trace_out:
+        obs.tracer.write(args.trace_out)
+        print(f"[obs] trace: {len(obs.tracer)} events -> {args.trace_out}")
+    if args.metrics_out:
+        if exposition is None:
+            exposition = obs.scrape()
+        with open(args.metrics_out, "w") as f:
+            f.write(exposition)
+        print(f"[obs] exposition -> {args.metrics_out}")
+    if args.flight_out:
+        obs.recorder.dump_json(args.flight_out)
+        print(f"[obs] flight recorder: {len(obs.recorder)} events -> {args.flight_out}")
+    return ok
 
 
 def _build(args):
@@ -92,7 +159,14 @@ def _run_embedding(args) -> int:
         f"[serve] device={args.device or 'cuda'} d={args.d} requests={load.n_requests} "
         f"buckets={list(bucket_sizes(policy))} max_wait={policy.max_wait_ms}ms"
     )
-    report = compare_policies(engine_fn, load, policy, probe_fn=probe_fn)
+    obs = _build_obs(args)
+    if args.profile_dir:
+        obs.profiler.start(args.profile_dir)
+    report = compare_policies(engine_fn, load, policy, probe_fn=probe_fn, obs=obs)
+    if args.profile_dir:
+        path = obs.profiler.stop()
+        if path:
+            print(f"[obs] profiler trace -> {path}")
     rows = report["microbatch"].pop("rows")
     for name in ("naive", "microbatch"):
         r = report[name]
@@ -112,13 +186,16 @@ def _run_embedding(args) -> int:
         print(f"[serve] heartbeat stale={m['heartbeat_stale']:.0f} "
               f"missed={m['heartbeat_missed_events']:.0f} "
               f"dispatch_errors={m['dispatch_errors']:.0f}")
+    obs_ok = _finish_obs(args, obs, m)
     healthy = (
         m["dispatch_errors"] == 0
         and m["decorr_probe_steps"] > 0
         and bool(np.all(np.isfinite(rows)))
         and all(np.isfinite(v) for k, v in m.items() if k.startswith("decorr_"))
+        and obs_ok
     )
-    print(f"[serve] healthy={healthy} (no dispatch error, probe fired, finite rows and probes)")
+    print(f"[serve] healthy={healthy} (no dispatch error, probe fired, finite rows and probes"
+          + (", every metric scraped" if args.metrics_port is not None else "") + ")")
     if not healthy:
         return 1
     return 0 if g["microbatch_beats_naive"] or not args.gate else 1
@@ -162,11 +239,18 @@ def _run_lm_continuous(args, cfg, params, device) -> int:
     engine_kw = dict(paged=True, page_size=args.block_size) if args.paged else {}
     load = LMLoadConfig(n_requests=args.requests, seed=args.seed)
     probe_cfg = DecorrConfig(style=args.probe_style, reg="sum", q=2, block_size=args.probe_block)
+    obs = _build_obs(args)
+    if args.profile_dir:
+        obs.profiler.start(args.profile_dir)
     report = compare_lm_policies(
         cfg, params, load, n_slots=args.slots,
         probe_fn=lambda: DecorrProbe(probe_cfg, device=device),
-        record_probe_rows=True, engine_kw=engine_kw, device=device,
+        record_probe_rows=True, engine_kw=engine_kw, device=device, obs=obs,
     )
+    if args.profile_dir:
+        path = obs.profiler.stop()
+        if path:
+            print(f"[obs] profiler trace -> {path}")
     for name in ("whole_request", "continuous"):
         r = report[name]
         print(
@@ -209,6 +293,7 @@ def _run_lm_continuous(args, cfg, params, device) -> int:
     prefix_ok, prefix_fast = _gate_prefix(args, cfg, params, device) if args.prefix_cache else (True, True)
     spec_ok = _gate_speculative(args, cfg, params, device) if args.speculative else True
     sample_ok = _demo_sampling(args, cfg, params, device) if (args.temperature or args.top_k) else True
+    obs_ok = _finish_obs(args, obs, m)
     if args.json:
         print(json.dumps(report, indent=2, sort_keys=True, default=float))
     # fail-closed: a probe that never fired a full window means the oracle
@@ -222,6 +307,7 @@ def _run_lm_continuous(args, cfg, params, device) -> int:
         and prefix_ok
         and spec_ok
         and sample_ok
+        and obs_ok
     )
     print(f"[serve] healthy={healthy} (tokens identical, probe vs oracle < 1e-3, no dispatch error"
           + (", paged == dense and below its bytes" if args.paged else "")
@@ -354,6 +440,16 @@ def main(argv=None) -> int:
                    help="run a sampled batch after the greedy checks (0 = greedy only)")
     p.add_argument("--top-k", type=int, default=None,
                    help="restrict sampled decoding to the k highest logits")
+    # telemetry (repro_torch.obs)
+    p.add_argument("--metrics-port", type=int, default=None,
+                   help="serve /metrics over HTTP after the run and self-scrape it (0 = ephemeral port); "
+                        "unhealthy if any metrics() key is missing from the exposition")
+    p.add_argument("--trace-out", default=None, help="write the Chrome trace_event JSON of the run here")
+    p.add_argument("--metrics-out", default=None, help="write the final Prometheus exposition text here")
+    p.add_argument("--flight-out", default=None, help="write the flight recorder's event ring as JSON here")
+    p.add_argument("--profile-dir", default=None, help="capture a torch.profiler trace of the run into this dir")
+    p.add_argument("--alerts", default=None,
+                   help="alert rules as a JSON file path or inline JSON list (default: the built-in serve rules)")
     args = p.parse_args(argv)
     if args.prefix_cache and not args.paged:
         p.error("--prefix-cache shares KV pages; it requires --paged")

@@ -1,5 +1,5 @@
 """The serving engine: bucketed embedding forward passes (port of
-``ServeEngine`` from ``repro/serve/engine.py``, single device).
+``ServeEngine`` from ``repro/serve/engine.py``).
 
 ``ServeEngine`` wraps the SSL encoder + projector (``repro_torch.train.ssl``)
 behind the bucket ladder of ``repro_torch.serve.buckets``: inputs are
@@ -7,8 +7,19 @@ zero-padded to the request's bucket, the model runs eagerly under
 ``torch.no_grad``, and the padding is sliced off.  Rows are
 independent through the MLP, so padding never leaks into real outputs.
 ``warmup`` runs every bucket once so no request pays a first-call cost.
-``from_checkpoint`` serves what the training loop saved.  The mesh
-(data-parallel) and tp (feature-sharded) forwards belong to later slices.
+``from_checkpoint`` serves what the training loop saved.
+
+Under a ``DeviceMesh`` (``mesh=``) every rank of the mesh calls ``encode``
+with the same rows, as every device of the reference's ``shard_map`` sees
+the same global array: the forward is data-parallel (each rank embeds its
+block of the bucket's rows over ``data_axis``, parameters replicated) and
+the blocks are all-gathered back, so every rank returns the full (n, d) in
+request order.  ``model_axis`` adds the tp forward: the projector's output
+layer is column-sharded over that axis (each rank computes its (n/dp, d/mp)
+feature block), and ``decorr/modes.all_to_all_features`` turns the blocks
+into full-width rows sharded over (data, model).  The last projector layer
+is affine, so the column-sharded forward computes the same products as the
+unsharded one.
 
 ``LMServeEngine`` (whole-request greedy generation) and
 ``ContinuousLMEngine`` (the continuous-batching slot pool, dense or paged
@@ -18,6 +29,8 @@ decoding) are the token-model counterparts.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 from typing import Optional, Set, Tuple
 
 import numpy as np
@@ -25,8 +38,10 @@ import torch
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.checkpoint import latest_step, restore_checkpoint
+from repro_torch.decorr.modes import all_to_all_features
 from repro_torch.kernels.utils import next_multiple
 from repro_torch.models.transformer import init_caches
+from repro_torch.parallel import sharding as shd
 from repro_torch.serve.buckets import BucketPolicy, bucket_for, bucket_sizes
 from repro_torch.serve.paging import PagedKVManager, PrefixPlan
 from repro_torch.serve.slots import SlotPool
@@ -49,6 +64,13 @@ from repro_torch.train.ssl import SSLModel, SSLModelConfig
 Tensor = torch.Tensor
 
 
+def _axis_size(mesh, axis: str) -> int:
+    names = tuple(mesh.mesh_dim_names or ())
+    if axis not in names:
+        raise ValueError(f"mesh axis {axis!r} is not on the mesh (axes {names})")
+    return int(mesh.shape[names.index(axis)])
+
+
 class ServeEngine:
     """Embedding forward over a bounded ladder of batch shapes."""
 
@@ -58,13 +80,58 @@ class ServeEngine:
         model: SSLModel,
         *,
         policy: BucketPolicy = BucketPolicy(),
+        mesh=None,
+        data_axis: str = "data",
+        model_axis: Optional[str] = None,
         device: DeviceLike = None,
     ):
         self.model_cfg = model_cfg
         self.policy = policy.validate()
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.data_axis = data_axis
+        self.model_axis = model_axis
+        if model_axis is not None and mesh is None:
+            raise ValueError("model_axis (tp mode) needs a mesh carrying that axis")
+        self._rows_spec = None
+        if mesh is not None:
+            dp = _axis_size(mesh, data_axis)
+            mp = _axis_size(mesh, model_axis) if model_axis is not None else 1
+            if policy.align % (dp * mp):
+                # tp buckets split over BOTH axes: the all-to-all turns
+                # (n/dp, d/mp) blocks into (n/(dp*mp), d) rows
+                raise ValueError(
+                    f"BucketPolicy.align={policy.align} must be a multiple of the "
+                    f"mesh extent ({dp}x{mp}={dp * mp}) so every bucket shards evenly"
+                )
+            if model_axis is not None:
+                if self.d % mp:
+                    raise ValueError(
+                        f"embedding width d={self.d} must split evenly over the {model_axis!r} axis ({mp} devices)"
+                    )
+                model = self._tp_local(model, mesh, model_axis)
+            self._in_spec = ((data_axis,), None)
+            self._rows_spec = (((data_axis, model_axis) if model_axis is not None else (data_axis,)), None)
         self.model = model.to(self.device).eval()
         self._warm: Set[int] = set()
+        # per-executable timing (repro_torch.obs.ExecTimer); services attach
+        # obs.perf (None keeps encode() asynchronous)
+        self.perf = None
+
+    @staticmethod
+    def _tp_local(model: SSLModel, mesh, model_axis: str) -> SSLModel:
+        """This rank's model for the tp forward: the projector's output
+        layer cut to this rank's block of d / mp rows (an ``nn.Linear``
+        weight is (out, in)), everything else replicated."""
+        last = len(model.projector) - 1
+        state = dict(model.state_dict())
+        for name in (f"projector.{last}.weight", f"projector.{last}.bias"):
+            x = state[name]
+            state[name] = shd.NamedSharding(mesh, ((model_axis,),) + (None,) * (x.dim() - 1)).local(x)
+        widths = tuple(model.cfg.projector_widths[:-1]) + (int(state[f"projector.{last}.bias"].numel()),)
+        local = SSLModel(dataclasses.replace(model.cfg, projector_widths=widths))
+        local.load_state_dict(state)
+        return local
 
     @classmethod
     def from_checkpoint(
@@ -80,7 +147,9 @@ class ServeEngine:
         Training checkpoints a ``TrainState`` whose parameters lie under the
         ``params`` key; a bare parameter tree (``SSLModel.state_dict()``) is
         taken too.  ``step=None`` takes the newest committed step.  ``kw``
-        goes to the constructor (``policy``, ``device``).
+        goes to the constructor (``policy``, ``mesh``, ``model_axis``,
+        ``device``): a checkpoint holds the full tree, so it serves on any
+        mesh.
         """
         if step is None:
             step = latest_step(ckpt_dir)
@@ -101,12 +170,29 @@ class ServeEngine:
         """Embedding width (the projector's output dimension)."""
         return int(self.model_cfg.projector_widths[-1])
 
+    @torch.no_grad()
+    def _forward(self, x: Tensor) -> Tensor:
+        """One bucket's rows -> (b, d): the model, or under a mesh this
+        rank's block, the tp all-to-all and the gather of every block."""
+        if self.mesh is None:
+            return self.model(x)
+        with shd.sharding_context(self.mesh):
+            z = self.model(shd.NamedSharding(self.mesh, self._in_spec).local(x))
+            if self.model_axis is not None:
+                z = all_to_all_features(z.contiguous(), self.model_axis)
+            return shd.NamedSharding(self.mesh, self._rows_spec).gather(z)
+
     def warmup(self) -> Tuple[int, ...]:
-        """Run every bucket once (zeros in), so no request pays a first call."""
+        """Run every bucket once (zeros in), so no request pays a first call
+        (timed as each bucket's first-call gauge when a timer is attached)."""
         for b in bucket_sizes(self.policy):
             x = torch.zeros((b, self.model_cfg.input_dim), dtype=torch.float32, device=self.device)
-            with torch.no_grad():
-                self.model(x)
+            perf = self.perf
+            t0 = perf.start() if perf is not None else 0.0
+            self._forward(x)
+            if perf is not None:
+                perf.block(self.device)
+                perf.record_compile(f"embed_b{b}", perf.elapsed(t0))
             self._warm.add(b)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -118,7 +204,8 @@ class ServeEngine:
 
     def encode(self, x) -> Tensor:
         """(n, input_dim) -> (n, d) on the engine's device: pad to the
-        bucket, run, strip the padding.  Returns without synchronising."""
+        bucket, run, strip the padding.  Returns without synchronising
+        unless a timer is attached (then the time covers the device work)."""
         if not isinstance(x, Tensor):
             x = torch.as_tensor(np.asarray(x, np.float32))
         x = x.to(device=self.device, dtype=torch.float32)
@@ -135,11 +222,19 @@ class ServeEngine:
         if n < b:
             pad = torch.zeros((b - n, x.shape[1]), dtype=x.dtype, device=x.device)
             x = torch.cat([x, pad], dim=0)
-        with torch.no_grad():
-            z = self.model(x)
+        perf = self.perf
+        if perf is not None:
+            if b in self._warm:
+                perf.cache_hit(f"embed_b{b}")
+            else:
+                perf.cache_miss(f"embed_b{b}")
+            t0 = perf.start()
+        z = self._forward(x)
         self._warm.add(b)
+        if perf is not None:
+            perf.block(self.device)
+            perf.observe(f"embed_b{b}", perf.elapsed(t0))
         return z[:n]
-
 
 
 # ---------------------------------------------------------------------------
@@ -373,6 +468,14 @@ class ContinuousLMEngine:
         # one-deep plan memo from can_admit to admit_slot (same tick, same
         # head-of-line request — no allocation happens in between)
         self._plan_stash: Tuple[Optional[int], Optional[PrefixPlan]] = (None, None)
+        # optional flight recorder (repro_torch.obs.FlightRecorder); the
+        # service attaches its own, so page-table churn lands in the same
+        # ring buffer as the scheduler's admit / retire events
+        self.recorder = None
+        # per-executable timing (repro_torch.obs.ExecTimer); the service
+        # attaches obs.perf when telemetry is enabled
+        self.perf = None
+        self._warmed_prefill: set = set()
 
     # -- admission-side shape policy ----------------------------------------
 
@@ -452,13 +555,16 @@ class ContinuousLMEngine:
             buckets = tuple(sorted(set(int(n) for n in prompt_lens or ())) or (1,))
         for length in buckets:
             toks = torch.zeros((1, length), dtype=torch.int32, device=self.device)
-            self._prefill(self.params, self._prefill_template(), toks, 1)
+            with self._first_call(f"prefill_b{length}"):
+                self._prefill(self.params, self._prefill_template(), toks, 1)
+            self._warmed_prefill.add(int(length))
         n = self.pool.n_slots
         zeros = torch.zeros((n,), dtype=torch.int32, device=self.device)
         bt = None
         if self.paged:
             bt = torch.zeros((n, self.pager.blocks_per_slot), dtype=torch.int32, device=self.device)
-        self.step_logits(self.caches, zeros, zeros, bt, self.impl)
+        with self._first_call("decode_step"):
+            self.step_logits(self.caches, zeros, zeros, bt, self.impl)
         if self.paged:
             reset_slot_state_paged(self.caches, 0, np.zeros((self.pager.blocks_per_slot,), np.int32))
         else:
@@ -467,13 +573,36 @@ class ContinuousLMEngine:
             vb = n * (self.spec_cfg.draft_k + 1)
             vzeros = torch.zeros((vb,), dtype=torch.int32, device=self.device)
             vbt = torch.zeros((vb, self.pager.blocks_per_slot), dtype=torch.int32, device=self.device)
-            self.step_logits(self.caches, vzeros, vzeros, vbt, self.impl)
+            with self._first_call("verify_step"):
+                self.step_logits(self.caches, vzeros, vzeros, vbt, self.impl)
         if self.prefill_chunk is not None:
             toks = torch.zeros((1, self.prefill_chunk), dtype=torch.int32, device=self.device)
-            self._chunk_step(self.params, self._chunk_tree, toks, 0, 0)
+            with self._first_call("chunk_prefill"):
+                self._chunk_step(self.params, self._chunk_tree, toks, 0, 0)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return buckets
+
+    @contextlib.contextmanager
+    def _first_call(self, name: str):
+        """Time a warmup call, device work included, as ``name``'s
+        first-call gauge (nothing without a timer)."""
+        perf = self.perf
+        t0 = perf.start() if perf is not None else 0.0
+        yield
+        if perf is not None:
+            perf.block(self.device)
+            perf.record_compile(name, perf.elapsed(t0))
+
+    def _record(self, kind: str, **fields):
+        if self.recorder is not None:
+            self.recorder.record(kind, **fields)
+
+    def _ensure_rows(self, slot_index: int, rows: int):
+        """Grow a slot's pages to ``rows`` rows, recording the allocation."""
+        added = self.pager.ensure_rows(slot_index, rows)
+        if added:
+            self._record("page_alloc", slot=slot_index, pages=len(added), in_use=self.pager.alloc.in_use)
 
     # -- slot mechanics ------------------------------------------------------
 
@@ -509,7 +638,7 @@ class ContinuousLMEngine:
         if not self.paged:
             insert_slot_state(self.caches, one, slot.index)
             return
-        self.pager.ensure_rows(slot.index, slot.request.prompt_len)
+        self._ensure_rows(slot.index, slot.request.prompt_len)
         # shared prefix blocks are masked to the sentinel: the insert never
         # rewrites a read-only shared page
         row = self.pager.scatter_row(slot.index) if self.prefix_cache else self.pager.table_row(slot.index)
@@ -517,7 +646,9 @@ class ContinuousLMEngine:
         if self.prefix_cache:
             # the pages now hold the final prompt KV: intern the full prompt
             # pages for later warm requests (first writer wins)
-            self.pager.donate(slot.index, slot.request.tokens)
+            donated = self.pager.donate(slot.index, slot.request.tokens)
+            if donated:
+                self._record("page_donate", slot=slot.index, pages=donated)
 
     def _first_output(self, logits: Tensor, hidden: Tensor):
         """(first output, hidden row): the token id (a host sync), or under
@@ -536,13 +667,26 @@ class ContinuousLMEngine:
         req = slot.request
         n = req.prompt_len
         length = self._prompt_bucket(n)
+        perf = self.perf
+        if perf is not None:
+            name = f"prefill_b{length}"
+            if int(length) in self._warmed_prefill:
+                perf.cache_hit(name)
+            else:
+                perf.cache_miss(name)
+                self._warmed_prefill.add(int(length))
+            t0 = perf.start()
         padded = np.zeros((1, length), np.int32)
         padded[0, :n] = np.asarray(req.tokens, np.int32)
         logits, hidden, one = self._prefill(
             self.params, self._prefill_template(), torch.as_tensor(padded, device=self.device), n
         )
         self._scatter_insert(slot, one)
-        return self._first_output(logits, hidden)
+        result = self._first_output(logits, hidden)
+        if perf is not None:
+            perf.block(self.device)
+            perf.observe(f"prefill_b{length}", perf.elapsed(t0))
+        return result
 
     @torch.no_grad()
     def advance_prefill(self, slot):
@@ -563,13 +707,18 @@ class ContinuousLMEngine:
                     # copy-on-write of the boundary page BEFORE the template
                     # gather reads it: writes never land on shared pages
                     apply_page_moves(self.caches, *moves)
+                    self._record("page_cow", slot=slot.index, src=int(moves[0][0]), dst=int(moves[1][0]))
                 if slot.prefill_pos > 0:
                     # warm start: seed the work tree with the shared prefix's
                     # KV rows so the chunks attend over them unrecomputed
                     load_template_from_pages(self.caches, self._chunk_tree, self.pager.table_row(slot.index))
+                    self._record("page_share", slot=slot.index, rows=slot.prefill_pos,
+                                 pages=self.pager.alloc.shared_count(slot.index))
             self._chunk_live = slot.index
         if self._chunk_live != slot.index:
             return None  # another prompt owns the work tree this tick
+        perf = self.perf
+        t0 = perf.start() if perf is not None else 0.0
         off = slot.prefill_pos
         take = min(c, n - off)
         padded = np.zeros((1, c), np.int32)
@@ -579,10 +728,17 @@ class ContinuousLMEngine:
         )
         slot.prefill_pos = off + take
         if slot.prefilling:
+            if perf is not None:
+                perf.block(self.device)
+                perf.observe("chunk_prefill", perf.elapsed(t0))
             return None
         self._scatter_insert(slot, tree)
         self._chunk_live = None
-        return self._first_output(logits, hidden)
+        result = self._first_output(logits, hidden)
+        if perf is not None:
+            perf.block(self.device)
+            perf.observe("chunk_prefill", perf.elapsed(t0))
+        return result
 
     def prefilling_slot(self):
         """The still-prefilling slot whose chunk advances this tick: the
@@ -618,6 +774,8 @@ class ContinuousLMEngine:
         still-prefilling lanes are garbage the caller masks by
         ``pool.decoding_indices()``."""
         pool = self.pool
+        perf = self.perf
+        t0 = perf.start() if perf is not None else 0.0
         lens = torch.as_tensor(pool.cache_lens(), device=self.device)
         toks = torch.as_tensor(pool.last_tokens(), device=self.device)
         bt = None
@@ -626,7 +784,7 @@ class ContinuousLMEngine:
             for i in decoding:
                 # lazy page growth for the row this step writes (cannot fail:
                 # admission reserved the worst case)
-                self.pager.ensure_rows(i, pool[i].pos + 1)
+                self._ensure_rows(i, pool[i].pos + 1)
             tables = self.pager.block_tables()
             if self.prefix_cache:
                 # still-prefilling lanes decode at position 0 and write their
@@ -636,7 +794,11 @@ class ContinuousLMEngine:
                 tables[np.setdiff1d(np.arange(pool.n_slots), decoding)] = 0
             bt = torch.as_tensor(tables, device=self.device)
         logits, hidden, self.caches = self.step_logits(self.caches, lens, toks, bt, self.impl)
-        return self._outputs(logits), hidden
+        out = self._outputs(logits)  # a host sync
+        if perf is not None:
+            perf.block(self.device)
+            perf.observe("decode_step", perf.elapsed(t0))
+        return out, hidden
 
     # -- speculative decoding -------------------------------------------------
 
@@ -677,13 +839,15 @@ class ContinuousLMEngine:
                 row = ticket.row
             else:
                 # undrafted slot: plain decode through its real table row
-                self.pager.ensure_rows(slot_index, s.pos + 1)
+                self._ensure_rows(slot_index, s.pos + 1)
                 row = self.pager.table_row(slot_index)
             base = slot_index * width
             for j in range(k_eff + 1):
                 lens[base + j] = s.pos + j
                 toks[base + j] = s.last_token if j == 0 else draft[j - 1]
                 tables[base + j] = row
+        perf = self.perf
+        t0 = perf.start() if perf is not None else 0.0
         try:
             if copies:
                 src, dst = zip(*copies)
@@ -699,6 +863,9 @@ class ContinuousLMEngine:
             for ticket in tickets.values():
                 self.pager.spec_rollback(ticket)
             raise
+        if perf is not None:
+            perf.block(self.device)
+            perf.observe("verify_step", perf.elapsed(t0))
         return out.reshape(n, width), hidden.reshape(n, width, -1), tickets
 
     def spec_commit(self, ticket, n_written: int):
@@ -717,7 +884,10 @@ class ContinuousLMEngine:
         if self._chunk_live == index:
             self._chunk_live = None
         if self.paged:
+            before = self.pager.alloc.in_use
             self.pager.release(index)
+            self._record("page_free", slot=index, abort=True, pages=before - self.pager.alloc.in_use,
+                         in_use=self.pager.alloc.in_use)
 
     @torch.no_grad()
     def release(self, index: int):
@@ -735,7 +905,10 @@ class ContinuousLMEngine:
         # prefixes, donated pages) are masked out of the zeroing
         row = self.pager.reset_row(index) if self.prefix_cache else self.pager.table_row(index)
         reset_slot_state_paged(self.caches, index, row)
+        before = self.pager.alloc.in_use
         self.pager.release(index)
+        self._record("page_free", slot=index, pages=before - self.pager.alloc.in_use, in_use=self.pager.alloc.in_use)
         src, dst = self.pager.plan_compaction()
         if src.size:
+            self._record("page_compact", moves=int((src != dst).sum()))
             apply_page_moves(self.caches, src, dst)

@@ -119,13 +119,15 @@ def compare_policies(
     load: LoadConfig,
     policy: BucketPolicy,
     probe_fn=None,
+    obs=None,
 ) -> Dict[str, Dict[str, float]]:
     """Run naive then micro-batched on fresh engines.  ``engine_fn() ->
     ServeEngine``; ``probe_fn() -> DecorrProbe`` (optional; the
-    micro-batched run feeds it every dispatched batch)."""
+    micro-batched run feeds it every dispatched batch); ``obs`` the
+    micro-batched service's ``repro_torch.obs.Obs`` bundle."""
     naive = run_naive(engine_fn(), load)
     probe = probe_fn() if probe_fn is not None else None
-    service = EmbeddingService(engine_fn(), policy=policy, probe=probe).start()
+    service = EmbeddingService(engine_fn(), policy=policy, probe=probe, obs=obs).start()
     try:
         micro = run_microbatched(service, load)
         metrics = service.metrics()
@@ -235,6 +237,7 @@ def compare_lm_policies(
     record_probe_rows: bool = False,
     engine_kw: Optional[Dict] = None,
     device: DeviceLike = None,
+    obs=None,
 ) -> Dict[str, Dict[str, float]]:
     """Whole-request generate vs continuous batching on one mixed-length
     workload; both must emit IDENTICAL token streams per request (greedy
@@ -255,7 +258,7 @@ def compare_lm_policies(
     max_len = engine.pool.max_len
     whole, whole_outs = run_whole_request(LMServeEngine(arch_cfg, device), params, load, max_len)
     probe = probe_fn() if probe_fn is not None else None
-    service = LMService(engine, probe=probe, record_probe_rows=record_probe_rows)
+    service = LMService(engine, probe=probe, record_probe_rows=record_probe_rows, obs=obs)
     cont, cont_outs = run_continuous(service, load)
     mismatches = sum(1 for a, b in zip(whole_outs, cont_outs) if not np.array_equal(a, b))
     out = {

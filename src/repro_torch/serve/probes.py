@@ -61,6 +61,9 @@ class DecorrProbe:
         self._avg: Dict[str, float] = {}
         self._mean_ema: Optional[np.ndarray] = None
         self._m2_ema: Optional[np.ndarray] = None
+        # per-executable timing (repro_torch.obs.ExecTimer); services attach
+        # obs.perf when telemetry is enabled
+        self.perf = None
 
     def _rows(self, z) -> Tensor:
         if not isinstance(z, Tensor):
@@ -74,6 +77,7 @@ class DecorrProbe:
         z1 = self._rows(z1)
         z2 = None if z2 is None else self._rows(z2)
         perm = self.permutation(self._step, z1.shape[-1])
+        t0 = self.perf.start() if self.perf is not None else 0.0
         vals = probe_metrics(z1, z2, self.cfg, perm, include_off=self._include_off)
         m1 = torch.mean(z1, dim=0)
         m2 = torch.mean(z1 * z1, dim=0)
@@ -83,6 +87,8 @@ class DecorrProbe:
         k = len(keys)
         d = m1.shape[0]
         m1, m2 = packed[k : k + d], packed[k + d :]
+        if self.perf is not None:  # the host copy above is the sync point
+            self.perf.observe("probe_update", self.perf.elapsed(t0))
         batch = {key: float(v) for key, v in zip(keys, packed[:k])}
         a = self.ema
         for key, v in batch.items():
@@ -98,9 +104,12 @@ class DecorrProbe:
         the stream — builds the CUDA kernels before the first request."""
         zero = torch.zeros((self.sample_rows or 8, d), dtype=torch.float32, device=self.device)
         perm = self.permutation(0, d)
+        t0 = self.perf.start() if self.perf is not None else 0.0
         probe_metrics(zero, None, self.cfg, perm, include_off=self._include_off)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        if self.perf is not None:
+            self.perf.record_compile("probe_update", self.perf.elapsed(t0))
 
     def observe(self, z) -> int:
         """Streaming entry point: buffer served rows and fold a probe update

@@ -24,23 +24,39 @@ gradient is complete before the optimizer touches a parameter, so a fault
 raised during the forward or backward pass leaves the state as it was and
 the loop's retry can replay the step.
 
+Over a ``DeviceMesh`` (``mesh=``, or a mesh installed with
+``parallel.sharding.sharding_context``) the step is data-parallel: every
+rank steps on its block of the batch, and the loss is the whole batch's,
+as the reference's GSPMD step computes it over the global array — the CE a
+mean over every rank's tokens, the decorrelation aux loss in the engine's
+``global`` mode over ``data_axis`` (its R_sum / R_off a statistic of all
+rows), the MoE router's fractions and capacity positions over the whole
+batch (``models/moe.py``).  Each rank's backward of that replicated loss
+gives its share of every gradient; a microbatch's shares are all-reduced
+into a replicated f32 accumulator, or, with ``grad_shardings``,
+reduce-scattered into this rank's shard of it (2 (data - 1) / data less
+collective volume a microbatch) and gathered once before the clip and the
+optimizer.  A rank's microbatch i is its block's i-th slice, so the
+global microbatch i is the ranks' i-th slices together.
+
 ``make_compressed_dp_step`` is the explicit data-parallel variant: every
 rank of a mesh steps on its batch slice and the gradients are summed over
 the data axis through a compressed all-reduce (``optim/compression.py``).
-The sharded accumulator (``grad_shardings``) belongs to a later slice of
-the port.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 from typing import Callable, Dict, List, Mapping, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.decorrelation import lm_decorrelation_loss
 from repro_torch.core.permutation import permutation_for_step
+from repro_torch.decorr.modes import psum_if
 from repro_torch.models.common import ArchConfig
 from repro_torch.models.transformer import forward
 from repro_torch.optim import compression as comp
@@ -61,16 +77,26 @@ def cross_entropy(logits: Tensor, labels: Tensor) -> Tensor:
 
 
 def _lm_loss_fn(params, batch: Mapping[str, Tensor], cfg: ArchConfig, perm: Optional[Tensor] = None, *,
-                impl: Optional[str] = None) -> Tuple[Tensor, Dict[str, Tensor]]:
+                impl: Optional[str] = None, axis_name: Optional[str] = None) -> Tuple[Tensor, Dict[str, Tensor]]:
     """(loss, metrics) of one batch: ``tokens`` or a frontend's ``embeds``,
     optional ``positions`` (M-RoPE's (3, B, S)), ``labels``.  ``perm``: the
-    step's feature permutation; ``impl``: the aux regularizer's route."""
+    step's feature permutation; ``impl``: the aux regularizer's route.
+    ``axis_name``: the batch is this rank's block of one sharded over that
+    mesh axis, and the loss is the whole batch's (the same on every rank)."""
     kwargs = {"embeds": batch["embeds"]} if "embeds" in batch else {"tokens": batch["tokens"]}
     if "positions" in batch:
         kwargs["positions"] = batch["positions"]
-    out = forward(params, cfg, **kwargs)
+    dcfg = cfg.decorr
+    if axis_name is not None:
+        dcfg = dataclasses.replace(dcfg, decorr=dataclasses.replace(dcfg.decorr, distributed="global",
+                                                                    axis_name=axis_name))
+    with shd.data_parallel(axis_name):
+        out = forward(params, cfg, **kwargs)
     ce = cross_entropy(out.logits, batch["labels"])
-    decorr, dmetrics = lm_decorrelation_loss(out.hidden, cfg.decorr, perm, impl=impl)
+    if axis_name is not None:
+        # equal blocks: the whole batch's mean is the mean of the ranks' means
+        ce = psum_if(ce, axis_name) / shd.axis_size(axis_name)
+    decorr, dmetrics = lm_decorrelation_loss(out.hidden, dcfg, perm, impl=impl)
     moe_aux = out.aux["moe_aux"] * cfg.router_aux_weight
     loss = ce + decorr + moe_aux
     return loss, {"loss": loss, "ce": ce, "moe_aux": moe_aux, **dmetrics}
@@ -95,6 +121,38 @@ def _grads(loss: Tensor, params: List[Tensor]) -> List[Tensor]:
     return [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
 
 
+def _grad_plan(grad_shardings, params: List[Tensor], data_axis: str, n: int) -> List[Optional[int]]:
+    """Per parameter: the dimension its gradient is reduce-scattered along
+    (the one dimension its spec splits over ``data_axis`` alone, ``n``
+    dividing it), or None for the all-reduce fallback."""
+    specs = list(grad_shardings)
+    if len(specs) != len(params):
+        raise ValueError(f"grad_shardings has {len(specs)} specs for {len(params)} parameters")
+    plan: List[Optional[int]] = []
+    for spec, p in zip(specs, params):
+        spec = tuple(getattr(spec, "spec", spec) or ())
+        dims = [i for i, e in enumerate(spec) if e is not None]
+        names = [(e,) if isinstance(e, str) else tuple(e) for e in spec if e is not None]
+        ok = len(dims) == 1 and names[0] == (data_axis,) and dims[0] < p.dim() and p.shape[dims[0]] % n == 0
+        plan.append(dims[0] if ok else None)
+    return plan
+
+
+def _reduce_scatter(g: Tensor, dim: int, group) -> Tensor:
+    """This rank's block (along ``dim``) of the sum of ``g`` over ``group``."""
+    x = g.movedim(dim, 0).contiguous()
+    out = x.new_empty((x.shape[0] // dist.get_world_size(group),) + tuple(x.shape[1:]))
+    dist.reduce_scatter_tensor(out, x, group=group)
+    return out
+
+
+def _all_gather(shard: Tensor, dim: int, group) -> Tensor:
+    """The full tensor from every rank's block (``_reduce_scatter``'s layout)."""
+    parts = [torch.empty_like(shard) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, shard.contiguous(), group=group)
+    return torch.cat(parts, dim=0).movedim(0, dim)
+
+
 def make_train_step(
     cfg: ArchConfig,
     optimizer: Optimizer,
@@ -105,6 +163,9 @@ def make_train_step(
     perm_fn: Optional[Callable[[int], Tensor]] = None,
     *,
     impl: Optional[str] = None,
+    grad_shardings=None,
+    mesh=None,
+    data_axis: str = "data",
 ):
     """``train_step(state, batch) -> (state, metrics)``, updating ``state``
     in place.
@@ -121,41 +182,41 @@ def make_train_step(
     and the clip and the optimizer take those f32 gradients whatever the
     parameters' dtype, as the reference's do; with one microbatch they keep
     the parameters' dtype, as the reference's ``value_and_grad`` gives them.
+
+    Data-parallel (``mesh``, or an installed ``sharding_context``; see the
+    module docstring): ``batch`` is this rank's block, ``num_microbatches``
+    splits it.  A custom ``loss_fn`` must return the whole batch's loss
+    (replicated over ``data_axis``) itself.  ``grad_shardings``: one spec per
+    parameter of ``state.model.parameters()`` (a spec tuple or a
+    ``NamedSharding``, usually ``("data", None, ...)``, the reference's
+    ``fsdp`` rule); with microbatches (one microbatch is not sharded, as
+    in the reference), each microbatch's gradient is
+    reduce-scattered into this rank's shard of the accumulator along the
+    dimension the spec splits over ``data_axis``.  A spec that does not
+    divide its leaf (or splits over anything else) falls back to the
+    all-reduce for that leaf, counted in ``metrics["grad_shard_fallbacks"]``.
     """
-    loss_fn = loss_fn or functools.partial(_lm_loss_fn, cfg=cfg, impl=impl)
-    dcfg = cfg.decorr.decorr
-    wants_perm = cfg.decorr.enabled and dcfg.permute and dcfg.reg == "sum"
+    wants_perm = cfg.decorr.enabled and cfg.decorr.decorr.permute and cfg.decorr.decorr.reg == "sum"
 
-    def train_step(state: TrainState, batch: Mapping[str, Tensor]) -> Tuple[TrainState, Dict]:
-        if not isinstance(state.opt_state, optimizer.cls):
-            raise TypeError(f"state holds a {type(state.opt_state).__name__}, the step was made for {optimizer.name}")
-        params = list(state.model.parameters())
-        tree = state.model.tree()
-        perm = None
-        if wants_perm:
-            device = params[0].device
-            perm = perm_fn(state.step) if perm_fn is not None else permutation_for_step(
-                state.seed, state.step, cfg.d_model)
-            if device.type == "cuda" and not perm.is_cuda:
-                # a pageable host->device copy would stall the host on the stream
-                perm = perm.pin_memory().to(device, non_blocking=True)
-            perm = perm.to(device)
+    def step_perm(state: TrainState, device) -> Optional[Tensor]:
+        if not wants_perm:
+            return None
+        perm = perm_fn(state.step) if perm_fn is not None else permutation_for_step(
+            state.seed, state.step, cfg.d_model)
+        if device.type == "cuda" and not perm.is_cuda:
+            # a pageable host->device copy would stall the host on the stream
+            perm = perm.pin_memory().to(device, non_blocking=True)
+        return perm.to(device)
 
-        if num_microbatches <= 1:
-            loss, metrics = loss_fn(tree, batch, perm=perm)
-            grads = _grads(loss, params)
-            metrics = {k: v.detach() for k, v in metrics.items()}
-        else:
-            acc, metrics = None, None
-            for mb in _split(batch, num_microbatches):
-                loss, m = loss_fn(tree, mb, perm=perm)
-                g = _grads(loss, params)
-                acc = [x.float() for x in g] if acc is None else [a.add_(x.float()) for a, x in zip(acc, g)]
-                m = {k: v.detach().float() for k, v in m.items()}
-                metrics = m if metrics is None else {k: metrics[k] + m[k] for k in metrics}
-            grads = [a.div_(num_microbatches) for a in acc]
-            metrics = {k: v / num_microbatches for k, v in metrics.items()}
+    def average(metric_list):
+        if len(metric_list) == 1:
+            return dict(metric_list[0])
+        total = metric_list[0]
+        for m in metric_list[1:]:
+            total = {k: total[k] + m[k] for k in total}
+        return {k: v / len(metric_list) for k, v in total.items()}
 
+    def finish(state, grads, metrics):
         if clip_norm is not None:
             metrics["grad_norm"] = clip_by_global_norm_(grads, clip_norm)
         lr = schedule(state.step)
@@ -164,6 +225,70 @@ def make_train_step(
         state.opt_state.step(lr, grads)
         state.step += 1
         return state, metrics
+
+    def microbatches(state, batch, perm, lfn):
+        """(gradients, detached metrics) of each microbatch in turn (f32
+        with microbatches; the parameters' dtype with one)."""
+        params = list(state.model.parameters())
+        tree = state.model.tree()
+        if num_microbatches <= 1:
+            loss, m = lfn(tree, batch, perm=perm)
+            yield _grads(loss, params), {k: v.detach() for k, v in m.items()}
+            return
+        for mb in _split(batch, num_microbatches):
+            loss, m = lfn(tree, mb, perm=perm)
+            yield [x.float() for x in _grads(loss, params)], {k: v.detach().float() for k, v in m.items()}
+
+    single_loss = loss_fn or functools.partial(_lm_loss_fn, cfg=cfg, impl=impl)
+
+    def single_step(state, batch):
+        params = list(state.model.parameters())
+        perm = step_perm(state, params[0].device)
+        acc, metrics = None, []
+        for g, m in microbatches(state, batch, perm, single_loss):
+            acc = g if acc is None else [a.add_(x) for a, x in zip(acc, g)]
+            metrics.append(m)
+        grads = acc if num_microbatches <= 1 else [a.div_(num_microbatches) for a in acc]
+        return finish(state, grads, average(metrics))
+
+    dp_loss = loss_fn or functools.partial(_lm_loss_fn, cfg=cfg, impl=impl, axis_name=data_axis)
+
+    def dp_step(state, batch, dp_mesh):
+        params = list(state.model.parameters())
+        perm = step_perm(state, params[0].device)
+        with shd.sharding_context(dp_mesh) if dp_mesh is not shd.current_mesh() else contextlib.nullcontext():
+            n = shd.axis_size(data_axis)
+            (group,) = shd.axis_groups(data_axis)
+            plan = [None] * len(params)
+            if grad_shardings is not None and num_microbatches > 1:
+                plan = _grad_plan(grad_shardings, params, data_axis, n)
+            acc, metrics = None, []
+            for g, m in microbatches(state, batch, perm, dp_loss):
+                g = [x.float() for x in g]
+                # the all-reduce for the replicated leaves (one flat buffer),
+                # the reduce-scatter for the sharded ones
+                dense = [i for i, d in enumerate(plan) if d is None]
+                summed = dict(zip(dense, comp.psum([g[i] for i in dense], data_axis)))
+                red = [summed[i] if d is None else _reduce_scatter(g[i], d, group) for i, d in enumerate(plan)]
+                acc = red if acc is None else [a.add_(x) for a, x in zip(acc, red)]
+                metrics.append(m)
+            acc = [a.div_(num_microbatches) if num_microbatches > 1 else a for a in acc]
+            grads = [a if d is None else _all_gather(a, d, group) for a, d in zip(acc, plan)]
+        if num_microbatches <= 1:
+            # one microbatch: the parameters' dtype, as the reference's value_and_grad
+            grads = [g.to(p.dtype) for g, p in zip(grads, params)]
+        metrics = average(metrics)
+        if grad_shardings is not None and num_microbatches > 1:
+            metrics["grad_shard_fallbacks"] = float(sum(d is None for d in plan))
+        return finish(state, grads, metrics)
+
+    def train_step(state: TrainState, batch: Mapping[str, Tensor]) -> Tuple[TrainState, Dict]:
+        if not isinstance(state.opt_state, optimizer.cls):
+            raise TypeError(f"state holds a {type(state.opt_state).__name__}, the step was made for {optimizer.name}")
+        dp_mesh = mesh if mesh is not None else shd.current_mesh()
+        if dp_mesh is None:
+            return single_step(state, batch)
+        return dp_step(state, batch, dp_mesh)
 
     return train_step
 

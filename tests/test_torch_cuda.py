@@ -653,3 +653,114 @@ def test_aliased_operands_get_the_sum_of_both_vjps_on_the_card(dev, arm):
     torch.cuda.synchronize()
     want = g1 + g2
     torch.testing.assert_close(got, want, rtol=5e-4, atol=5e-4 * float(want.abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# distributed training and serving at world size 1, telemetry (NCCL)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def nccl_mesh(dev):
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh_for_devices
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        yield make_mesh_for_devices(1, 1)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("mode", ["global", "tp"])
+def test_probe_on_a_one_rank_mesh_equals_local_on_the_card(dev, nccl_mesh, mode):
+    from repro_torch.decorr import DecorrConfig, probe_metrics
+    from repro_torch.kernels.grouped_sumvec import kernel as G
+    from repro_torch.parallel import sharding as shd
+
+    z = _rand(dev, 256, 512)
+    perm = torch.randperm(512, generator=torch.Generator().manual_seed(0)).to(dev)
+    kw = dict(style="vic", reg="sum", q=2, block_size=128)
+    want = probe_metrics(z, None, DecorrConfig(**kw), perm)
+    before = G.pmatmul.launches
+    with shd.sharding_context(nccl_mesh):
+        got = probe_metrics(z, None, DecorrConfig(**kw, distributed=mode, axis_name="data",
+                                                  model_axis="model" if mode == "tp" else None), perm)
+    assert G.pmatmul.launches > before
+    for k in got:
+        torch.testing.assert_close(got[k], want[k], rtol=5e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("model_axis", [None, "model"])
+def test_meshed_serve_engine_equals_unmeshed_on_the_card(dev, nccl_mesh, model_axis):
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.train.ssl import SSLModelConfig, init_ssl_model
+
+    cfg = SSLModelConfig(input_dim=64, backbone_widths=(128,), projector_widths=(128, 256))
+    model = init_ssl_model(cfg, seed=0, device=dev)
+    x = _rand(dev, 40, 64)
+    want = ServeEngine(cfg, model, device=dev).encode(x)
+    got = ServeEngine(cfg, model, mesh=nccl_mesh, model_axis=model_axis, device=dev).encode(x)
+    assert torch.equal(got, want)
+
+
+def test_data_parallel_step_on_a_one_rank_mesh_equals_the_step(dev, nccl_mesh):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.decorrelation import LMDecorrConfig
+    from repro_torch.data.synthetic import LMDataConfig, lm_batch
+    from repro_torch.decorr import DecorrConfig
+    from repro_torch.models import ParamTree, init_params
+    from repro_torch.optim import adamw, warmup_cosine
+    from repro_torch.train import create_train_state, make_train_step
+
+    cfg = dataclasses.replace(get_config("gemma2-2b").reduced(), decorr=LMDecorrConfig(
+        enabled=True, decorr=DecorrConfig(style="vic", reg="sum", q=2, block_size=16), tokens_per_seq=4))
+    data = LMDataConfig(vocab_size=cfg.vocab_size, batch=4, seq_len=16)
+    runs = []
+    for kw in ({}, dict(mesh=nccl_mesh), dict(mesh=nccl_mesh, grad_shardings="fsdp")):
+        state = create_train_state(ParamTree(init_params(cfg, seed=0, device=dev)), adamw())
+        if kw.get("grad_shardings"):
+            kw = dict(kw, grad_shardings=[("data",) + (None,) * (p.dim() - 1) for p in state.model.parameters()])
+        step = make_train_step(cfg, adamw(), warmup_cosine(1e-3, 0, 10), num_microbatches=2, **kw)
+        for s in range(2):
+            state, m = step(state, {k: torch.from_numpy(v).to(dev) for k, v in lm_batch(data, s).items()})
+        runs.append((float(m["loss"]), [p.detach().clone() for p in state.model.parameters()]))
+    for loss, params in runs[1:]:
+        assert loss == pytest.approx(runs[0][0], rel=1e-6)
+        for a, b in zip(params, runs[0][1]):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+def test_prefetcher_copies_on_a_side_stream_and_the_step_waits(dev):
+    from repro_torch.data import LMDataConfig, ShardedPrefetcher, lm_batch, lm_iterator
+
+    cfg = LMDataConfig(vocab_size=1000, batch=64, seq_len=512)
+    it = ShardedPrefetcher(lm_iterator(cfg), depth=3, device=dev)
+    for s in range(4):
+        b = next(it)
+        assert b["tokens"].is_cuda
+        assert torch.equal(b["tokens"].cpu(), torch.from_numpy(lm_batch(cfg, s)["tokens"]))
+    it.close()
+
+
+def test_exec_timer_waits_for_the_device_and_the_profiler_sees_cuda(dev, tmp_path):
+    from repro_torch.obs import ExecTimer, Profiler
+
+    a = _rand(dev, 4096, 4096)
+    t = ExecTimer()
+    t0 = t.start()
+    for _ in range(4):
+        a @ a
+    t.block(dev)
+    t.observe("mm", t.elapsed(t0))
+    (row,) = t.snapshot()
+    assert row["best_s"] > 4 * 2 * 4096**3 / 1e15  # 4 GEMMs cannot finish faster than ~0.5 PFLOP/s
+    p = Profiler(str(tmp_path))
+    assert p.start()
+    a @ a
+    torch.cuda.synchronize()
+    path = p.stop()
+    assert path is not None and '"cat": "kernel"' in open(path).read()

@@ -23,14 +23,20 @@ assert not bad, bad
 """
 
 # the numpy-only serving modules the port keeps its own copies of, the
-# model families and arch configs of the LM serving path, and the modules of
-# the LM training path
+# model families and arch configs of the LM serving path, the modules of
+# the LM training path, and those of distributed training / serving and
+# telemetry
 COPIES = ("repro_torch.data.synthetic", "repro_torch.core.decorrelation", "repro_torch.core.whitening",
           "repro_torch.train.step", "repro_torch.launch.train",
           "repro_torch.serve.sampling", "repro_torch.serve.spec", "repro_torch.serve.paging.radix",
           "repro_torch.serve.paging.allocator", "repro_torch.serve.slots",
           "repro_torch.models.moe", "repro_torch.models.ssm", "repro_torch.configs.jamba_v01_52b",
-          "repro_torch.configs.rwkv6_3b", "repro_torch.configs.musicgen_large", "repro_torch.configs.qwen2_vl_2b")
+          "repro_torch.configs.rwkv6_3b", "repro_torch.configs.musicgen_large", "repro_torch.configs.qwen2_vl_2b",
+          # distributed training and serving, telemetry
+          "repro_torch.data.pipeline", "repro_torch.ft.elastic", "repro_torch.obs", "repro_torch.obs.registry",
+          "repro_torch.obs.recorder", "repro_torch.obs.tracing", "repro_torch.obs.alerts", "repro_torch.obs.http",
+          "repro_torch.obs.profiling", "repro_torch.obs.perf", "repro_torch.obs.health", "repro_torch.obs.context",
+          "repro_torch.launch.obs_args")
 
 SMOKE = r"""
 import importlib.util, sys

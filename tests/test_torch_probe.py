@@ -52,7 +52,31 @@ def test_config_fields_match_reference():
 
 
 @pytest.mark.parametrize("mode", ["tp", "global"])
-def test_distributed_modes_are_not_ported_yet(mode):
-    cfg = DecorrConfig(distributed=mode, axis_name="data", model_axis="model")
-    with pytest.raises(NotImplementedError):
-        probe_metrics(torch.zeros(8, 16), None, cfg)
+def test_distributed_modes_on_a_one_rank_mesh_equal_local(mode):
+    """A group of one in this process: ``probe_metrics`` in ``global`` /
+    ``tp`` on a 1 x 1 mesh gives ``local``'s values (``tp`` without r_off,
+    which the reference leaves out of that mode).  More ranks:
+    ``tests/test_torch_distributed_serve.py``."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh_for_devices
+    from repro_torch.parallel import sharding as shd
+
+    rng = np.random.default_rng(7)
+    z1 = torch.from_numpy((rng.standard_normal((N, D)) * 1.5 + 0.3).astype(np.float32))
+    z2 = z1 + 0.5 * torch.from_numpy(rng.standard_normal((N, D)).astype(np.float32))
+    perm = torch.from_numpy(rng.permutation(D))
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        with shd.sharding_context(make_mesh_for_devices(1, 1)):
+            for style, block in (("bt", 8), ("vic", None)):
+                kw = dict(style=style, reg="sum", q=2, block_size=block)
+                want = probe_metrics(z1, z2, DecorrConfig(**kw), perm)
+                got = probe_metrics(z1, z2, DecorrConfig(**kw, distributed=mode, axis_name="data",
+                                                         model_axis="model" if mode == "tp" else None), perm)
+                keys = set(want) - ({"r_off", "r_off_norm"} if mode == "tp" else set())
+                assert set(got) == keys
+                for k in keys:
+                    np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=1e-6, atol=1e-7, err_msg=k)
+    finally:
+        dist.destroy_process_group()

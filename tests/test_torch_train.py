@@ -312,11 +312,30 @@ def test_preemption_checkpoints_and_exits(tmp_path):
     assert state.step == 1 and latest_step(str(tmp_path / "ck")) == 1
 
 
-def test_telemetry_hooks_are_refused_not_ignored():
+def test_telemetry_hooks_publish():
+    """Each hook of the loop publishes: the registry's step counter, phase
+    histograms, ``train_`` gauges and parameter norm; the perf timer's
+    ``train_step`` row; the health monitor's ``train_decorr_*`` gauges,
+    probed on the model's embeddings at each log interval."""
+    from repro_torch.obs import DecorrHealthMonitor, ExecTimer, MetricsRegistry
+
     step_fn, batch_fn, fresh = _setup()
-    for hook in ("registry", "monitor", "perf"):
-        with pytest.raises(NotImplementedError, match="observability"):
-            run_training(fresh(), step_fn, batch_fn, LoopConfig(total_steps=1), **{hook: object()})
+    reg = MetricsRegistry()
+    perf = ExecTimer(reg)
+    monitor = DecorrHealthMonitor(lambda model, batch: model(batch["view1"]), ema=0.0, device="cpu")
+    state = run_training(fresh(), step_fn, batch_fn, LoopConfig(total_steps=4, log_interval=2),
+                         registry=reg, monitor=monitor, perf=perf)
+    assert reg.value("train_steps_total") == 4.0
+    assert reg.get("train_step_seconds").count == 4 and reg.get("train_batch_seconds").count == 4
+    assert reg.get("train_publish_seconds").count == 2
+    assert np.isfinite(reg.value("train_bt_loss"))
+    norm = float(torch.sqrt(sum(torch.sum(p.detach() ** 2) for p in state.model.parameters())))
+    assert reg.value("train_param_norm") == pytest.approx(norm, rel=1e-5)
+    (row,) = perf.snapshot()
+    assert row["executable"] == "train_step" and row["calls"] == 4
+    assert monitor.updates == 2 and reg.value("train_decorr_step") == 4.0
+    assert reg.value("train_decorr_updates") == 2.0
+    assert reg.value("train_decorr_relaxation_gap_ema") is not None  # d <= 4096: r_off is computed
 
 
 def test_straggler_watchdog_flags_outliers():

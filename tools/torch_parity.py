@@ -9,11 +9,31 @@ one markdown row per comparison: max absolute and max relative difference.
 Run from the repo root:
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tools/torch_parity.py
+
+``--only dist_serve,obs`` prints the rows of the named sections alone (the
+section functions' names without ``_rows``; the base rows run only
+without it).
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+
+def _row(module, what, got, want):
+    """(module, what, max abs diff, max rel diff) of two arrays or nested
+    lists of arrays (tensors taken to numpy)."""
+    import torch
+
+    def flat(x):
+        if isinstance(x, (tuple, list)):
+            return np.concatenate([flat(v) for v in x])
+        return np.asarray(x.numpy() if isinstance(x, torch.Tensor) else x, np.float64).ravel()
+
+    g, w = flat(got), flat(want)
+    err = np.abs(g - w)
+    rel = err / np.maximum(np.abs(w), 1e-30)
+    return module, what, float(err.max()), float(rel.max())
 
 
 def _rows():
@@ -47,16 +67,7 @@ def _rows():
     J = lambda *xs: [jnp.asarray(x) for x in xs]
     T = lambda *xs: [torch.from_numpy(x) for x in xs]
 
-    def flat(x):
-        if isinstance(x, (tuple, list)):
-            return np.concatenate([flat(v) for v in x])
-        return np.asarray(x.numpy() if isinstance(x, torch.Tensor) else x, np.float64).ravel()
-
-    def row(module, what, got, want):
-        g, w = flat(got), flat(want)
-        err = np.abs(g - w)
-        rel = err / np.maximum(np.abs(w), 1e-30)
-        return module, what, float(err.max()), float(rel.max())
+    row = _row
 
     out = []
     a = [arr(40, 33), arr(40, 33), arr(33, 130), arr(33, 130)]
@@ -112,6 +123,8 @@ def _rows():
     out.extend(_arch_rows(row))
     out.extend(_lm_train_rows(row))
     out.extend(_dist_rows(row))
+    out.extend(_dist_serve_rows(row))
+    out.extend(_obs_rows(row))
     return out
 
 
@@ -870,10 +883,124 @@ def _dist_rows(row):
     return out
 
 
-def main() -> None:
+def _dist_serve_rows(row):
+    """Slice 4b: the jobs of ``tests/test_torch_distributed_serve.py`` (the
+    port on 4 gloo ranks, (4, 1) and (2, 2) meshes; the reference on 4 fake
+    XLA devices and on one device) — the meshed ``ServeEngine``,
+    ``probe_metrics`` in ``global`` / ``tp`` against the reference's
+    ``shard_map``, the data-parallel LM step against the one-device step on
+    the whole batch — and ``tests/test_torch_pipeline_elastic.py``'s
+    four-rank prefetch and re-mesh."""
+    import os
+    import sys
+    import tempfile
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tests"))
+    import test_torch_distributed_serve as tds
+    import test_torch_pipeline_elastic as tpe
+
+    from repro.data import LMDataConfig, lm_batch
+
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = tds.run_jobs(tmp)
+        four = tpe.run_job(tmp)
+    ref, out = runs["ref"], []
+    out.append(row("serve/engine ServeEngine(mesh=)", "dp (4, 1), 24 rows of d 64 on every rank vs the reference's "
+                   "meshed engine", runs["a"]["serve"], ref["serve/dp"]))
+    out.append(row("serve/engine ServeEngine(mesh=, model_axis=)", "tp (2, 2), the same rows vs the reference's",
+                   runs["b"]["serve"], ref["serve/tp"]))
+    for job, mode, cases in (("a", "global", tds.CASES["probe_global"]), ("b", "tp", tds.CASES["probe_tp"])):
+        keys = [k for style, b, v in cases for k in ref if k.startswith(f"probe/{mode}/{style}/b{b}/v{v}/")]
+        out.append(row("decorr/probe probe_metrics", f"{mode}, {len(cases)} cases (bt / vic, b, 1 / 2 views; n 32, d 32): "
+                       "every output vs the reference under shard_map", [runs[job][k] for k in keys], [ref[k] for k in keys]))
+    for arch, cap, arms in tds.CASES["steps"]:
+        key = f"step/{arch}@{cap}"
+        for arm in arms:
+            names = [k.split("/")[-1] for k in runs["a"] if k.startswith(f"{key}/{arm}/param/")]
+            got_m = __import__("json").loads(str(runs["a"][f"{key}/{arm}/metrics"]))
+            want_m = __import__("json").loads(str(ref[f"{key}/metrics"]))
+            mk = ("loss", "ce", "moe_aux", "decorr_aux", "decorr_reg", "grad_norm")
+            tag = f"{arch} reduced{'' if cap is None else f' capacity {cap}'}, 4 ranks, 2 microbatches, " + \
+                  ("grad_shardings" if arm else "all-reduce")
+            out.append(row("train/step make_train_step(mesh=)", f"{tag}: 2 AdamW steps' loss terms vs one device",
+                           [m[k] for m in got_m for k in mk], [m[k] for m in want_m for k in mk]))
+            out.append(row("train/step make_train_step(mesh=)", f"{tag}: parameters after 2 steps",
+                           [runs["a"][f"{key}/{arm}/param/{n}"] for n in names], [ref[f"{key}/param/{n}"] for n in names]))
+    cfg = LMDataConfig(vocab_size=101, batch=8, seq_len=6)
+    out.append(row("data/pipeline ShardedPrefetcher", "4 ranks, (4, 1): each rank's block of 3 batches vs the reference's "
+                   "lm_batch rows", [four[f"r{r}/pf/{s}"] for r in range(4) for s in range(3)],
+                   [lm_batch(cfg, s)["tokens"][2 * r:2 * r + 2] for r in range(4) for s in range(3)]))
+    full = tpe._state()
+    blocks, want = [], []
+    for r in range(4):
+        di, mi = four[f"r{r}/coords"]
+        blocks += [four[f"r{r}/restored/w"], four[f"r{r}/restored/odd"], four[f"r{r}/restored/cols"]]
+        want += [full["w"][4 * di:4 * di + 4], full["odd"], full["cols"][:, 4 * mi:4 * mi + 4]]
+    out.append(row("ft/elastic elastic_restore", "saved under (4, 1), restored under (2, 2): every rank's blocks "
+                   "(an indivisible leaf replicated)", blocks, want))
+    return out
+
+
+def _obs_rows(row):
+    """Slice 6a: the same operations on ``repro.obs`` and
+    ``repro_torch.obs`` (``tests/test_torch_obs.py``): the exposition, the
+    Chrome trace on a stepped clock, the alert events and the flight dump
+    compared as strings (1 where they differ), and the health monitor's
+    gauges on one batch."""
+    import itertools
+    import os
+    import sys
+    import time
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tests"))
+    import test_torch_obs as tob
+
+    import repro.obs as ref_obs
+    import repro_torch.obs as port_obs
+
+    real = time.perf_counter
+    out = []
+    try:
+        def clock():
+            ticks = itertools.count()
+            time.perf_counter = lambda: 1000.0 + 1.5e-3 * next(ticks)
+
+        clock()
+        port_trace = tob._trace_ops(port_obs)
+        clock()
+        ref_trace = tob._trace_ops(ref_obs)
+    finally:
+        time.perf_counter = real
+    for what, got, want in (("registry exposition + as_dict text", tob._registry_ops(port_obs), tob._registry_ops(ref_obs)),
+                            ("tracing Chrome trace JSON + metrics", port_trace, ref_trace),
+                            ("alerts events, published exposition, active set", tob._alert_ops(port_obs),
+                             tob._alert_ops(ref_obs)),
+                            ("recorder dump, counts, metrics", tob._flight_ops(port_obs), tob._flight_ops(ref_obs))):
+        out.append(row("obs", f"{what}: string mismatches", [float(got != want)], [0.0]))
+    rng = np.random.default_rng(4)
+    z = (rng.standard_normal((48, 16)) + 0.4 * rng.standard_normal((48, 1))).astype(np.float32)
+    got = port_obs.DecorrHealthMonitor(ema=0.0, device="cpu").observe(z)
+    want = ref_obs.DecorrHealthMonitor(ema=0.0).observe(z)
+    # R_sum and the gap depend on the permutation (JAX's threefry stream, not reproducible in torch)
+    keys = sorted(k for k in want if "r_sum" not in k and "relaxation_gap" not in k)
+    out.append(row("obs/health DecorrHealthMonitor", f"(48, 16), ema 0: {len(keys)} gauges (R_off, moments, collapse)",
+                   [got[k] for k in keys], [want[k] for k in keys]))
+    return out
+
+
+SECTIONS = {"dist_serve": _dist_serve_rows, "obs": _obs_rows}
+
+
+def main(argv=None) -> None:
+    import argparse
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--only", default=None, help="comma-separated sections: " + ", ".join(SECTIONS))
+    args = ap.parse_args(argv)
+    rows = _rows() if args.only is None else [r for name in args.only.split(",") for r in SECTIONS[name](_row)]
     print("| port module | compared on | max abs diff | max rel diff |")
     print("|---|---|---|---|")
-    for module, what, err, rel in _rows():
+    for module, what, err, rel in rows:
         print(f"| `{module}` | {what} | {err:.3g} | {rel:.3g} |")
 
 
