@@ -158,6 +158,33 @@ Phases (any failed check exits non-zero and prints no result):
      slot's 5 lanes on one table row), and at the full head geometry of
      every other attention arch (``arch ...`` labels: 8 slots, page 16,
      lengths up to 2048, f32 and bf16; n_rep 1 to 12, hd 64 to 192).
+  5b. fabric — the serving fabric over gemma2-2b at full width and depth,
+     f32 (``init_params(seed=0)``, the weights shared read-only by every
+     replica), the reference gate's load (12 requests, prompts 4 / 8 / 14,
+     8 / 16 new tokens), 4 slots a replica, page 16: (a) a 2-replica
+     fabric on a fake clock, r0 killed after 3 ticks, against a 1-replica
+     fabric on the kernel route: tokens bit for bit, requeued > 0, one
+     death, paged_attention launched; (b) the 1-replica kernel route
+     against its plain route under the gap rule; (c) ``compare_fabric``:
+     threaded 1 vs 2 replicas (3 repeats), 0 route mismatches, tok/s and
+     ``scaling_x`` printed, not gated (one card, one default stream);
+     (d) an ssl-paper ``EmbeddingService`` beside each replica's LM
+     service, 8 requests of 4 x 3072 rows, one a dispatch: each embedding
+     bit for bit one ``ServeEngine``'s; (e) ``python -m
+     repro_torch.launch.serve --arch gemma2-2b --batch 4`` exits 0;
+     (f) ``obs.catalog.generate`` on the card equals it on the CPU.
+  5c. tune — the tuner in a temporary cache directory under ``build/``:
+     (a) ``tune.cli --measure --arch ssl-paper --shape 256x8192`` (each
+     plan's analytic and measured picks, every candidate's fwd + bwd ms on
+     the kernel route, each tile kernel's one launch); (b) the
+     regularizer's loss and input gradient under each measured four-step
+     plan within 5e-4 relative of the default plan's; (c) after
+     ``clear_memory_cache`` ``best_config`` returns the disk entry and a
+     second tune times nothing; (d) the page candidates at the LM pool's
+     shape, f32 and bf16, beside ``auto_page_size``; (e)
+     ``warmup_tune_cache(64, 2304, ...)`` measured and ``launch/train
+     --pretune analytic`` at ``--reduced``.  The memo is cleared after, so
+     later phases run the default plans.
   6. archs — the nine other LM archs of ``repro_torch.configs`` (random
      weights, seed 0; ``ARCH_RUNS``), every one at full width:
      codeqwen1.5-7b, qwen2-vl-2b, rwkv6-3b and musicgen-large at full
@@ -287,6 +314,18 @@ DRAFT_K = 4
 # (h) one prompt past attn_chunk_threshold (8192), a multiple of the 2048-row
 # chunk, through the long-prompt (flash-style) prefill; then decode 8 tokens
 LONG_PREFILL, LONG_PREFILL_NEW = 10240, 8
+# phase fabric: the reference gate's load (serve/cli.py _gate_fabric) on
+# gemma2-2b at full width and depth, f32, 4 slots a replica, page LM_PAGE
+FABRIC_LOAD = dict(n_requests=12, prompt_lens=(4, 8, 14), new_tokens=(8, 16), seed=SEED)
+FABRIC_SLOTS = 4
+FABRIC_REPEATS = 3
+# (d): ssl-paper embedding requests riding along (rows each, input_dim 3072)
+FABRIC_EMBED, FABRIC_EMBED_ROWS = 8, 4
+# (e): the serve launcher at its defaults, full width, on the card
+LAUNCH_SERVE_ARGS = ("--arch", "gemma2-2b", "--batch", "4")
+# phase tune: the measured plans' loss and input gradient vs the default plan's
+TUNE_TOL = 5e-4
+TUNE_SHAPES = ("256x8192",)
 
 # [lmtrain]: LM training with the paper's aux loss, the reference launcher's
 # defaults (AdamW, warmup_cosine(1e-3, ...), clip 1.0, lm_batch data) at f32.
@@ -2267,10 +2306,12 @@ class _LogitLog:
     tick or verify.  Lane j of a verify predicts token len(emitted) + j; a
     rejected lane's token is logged again by the tick that emits it.  Runs
     with ``impl="plain"`` (a checker's re-runs on a cloned pool) are not
-    logged."""
+    logged, unless ``log_plain`` (an engine that runs the plain route
+    itself)."""
 
-    def __init__(self, engine):
+    def __init__(self, engine, log_plain=False):
         self.engine = engine
+        self.log_plain = log_plain
         self.rows = {}
         self.req_index = {}
         self.cur = None
@@ -2293,7 +2334,7 @@ class _LogitLog:
 
     def step(self, caches, lens, toks, block_tables, impl=None):
         out = self._step(caches, lens, toks, block_tables, impl)
-        if impl != "plain":
+        if impl != "plain" or self.log_plain:
             pool = self.engine.pool
             width = lens.shape[0] // pool.n_slots
             live = block_tables.any(dim=1).tolist()
@@ -2882,6 +2923,371 @@ def _lm_obs(ph: Phase, cfg, params, dev, smi):
 
 
 # ---------------------------------------------------------------------------
+# phase fabric: the serving fabric over full-size gemma2-2b replicas
+# ---------------------------------------------------------------------------
+
+
+def _smi():
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60).stdout.strip()
+
+
+def _fabric_drive(fab, stream, log=None):
+    """Submit ``stream`` to a synchronous fabric and drain it; returns the
+    outputs in submit order."""
+    futs = [fab.submit_lm(t, m) for t, m in stream]
+    if log is not None:
+        log.req_index = {id(t.inner): i for i, t in enumerate(fab._inflight.values())}
+    fab.drain()
+    return [f.result(timeout=60) for f in futs]
+
+
+def _fabric_checked(ph, cfg, params, dev, load):
+    """(a) the 2-replica failover run against the 1-replica kernel route,
+    (b) the 1-replica kernel route against its plain route (the gap rule).
+    Returns the kernel route's outputs and the runs' launches."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.obs import Obs
+    from repro_torch.serve.fabric import FabricConfig
+    from repro_torch.serve.loadgen import make_lm_fabric
+
+    kw = dict(n_slots=FABRIC_SLOTS, page_size=LM_PAGE, device=dev)
+    stream = load.lm.request_stream(cfg.vocab_size)
+    kernels.reset_launch_counts()
+    one, _ = make_lm_fabric(cfg, params, FabricConfig(replicas=1, heartbeat_timeout_s=5.0), load, **kw)
+    k_log = _LogitLog(one.replicas[0].lm.engine)
+    t0 = time.perf_counter()
+    k_outs = _fabric_drive(one, stream, k_log)
+    one_s = time.perf_counter() - t0
+    t = {"now": 0.0}
+    obs = Obs()
+    fab, _ = make_lm_fabric(cfg, params, FabricConfig(replicas=2, heartbeat_timeout_s=5.0), load, obs=obs,
+                            clock=lambda: t["now"], **kw)
+    futs = [fab.submit_lm(tok, m) for tok, m in stream]
+    for _ in range(3):  # both replicas admit + decode a few ticks
+        fab.step()
+    fab.kill("r0")
+    t["now"] += 10.0  # the heartbeat goes stale; the next step drains r0
+    fab.drain()
+    f_outs = [f.result(timeout=60) for f in futs]
+    counts = kernels.launch_counts()
+    bad = [i for i, (a, b) in enumerate(zip(k_outs, f_outs)) if not np.array_equal(a, b)]
+    rec = obs.recorder.counts()
+    ph.check(not bad, f"[fabric] (a) failover tokens differ from the 1-replica run's in requests {bad}")
+    ph.check(fab.requeued_total > 0 and fab.dead_total == 1,
+             f"[fabric] (a) requeued={fab.requeued_total} dead={fab.dead_total}")
+    ph.check(counts["paged_attention"] > 0, "[fabric] (a) paged_attention never launched")
+    ph.check(rec.get("requeue") == rec.get("requeue_done") == fab.requeued_total and rec.get("replica_dead") == 1,
+             f"[fabric] (a) flight events {rec}")
+    print(f"[fabric] (a) 2 replicas x {FABRIC_SLOTS} slots, r0 killed after 3 ticks: "
+          f"{len(stream) - len(bad)}/{len(stream)} requests' tokens == the 1-replica kernel route bit for bit "
+          f"({sum(len(o) for o in f_outs)} tokens); requeued={fab.requeued_total} dead={fab.dead_total} "
+          f"flight {rec}; launches {_nonzero(counts)}; 1-replica wall {one_s:.3f}s", flush=True)
+
+    plain, _ = make_lm_fabric(cfg, params, FabricConfig(replicas=1, heartbeat_timeout_s=5.0), load,
+                              engine_kw=dict(impl="plain"), **kw)
+    p_log = _LogitLog(plain.replicas[0].lm.engine, log_plain=True)
+    kernels.reset_launch_counts()
+    p_outs = _fabric_drive(plain, stream, p_log)
+    ph.check(kernels.launch_counts()["paged_attention"] == 0, "[fabric] (b) the plain route launched paged_attention")
+    diff, differ = _gap_rule(ph, "[fabric] (b)", p_outs, k_outs, p_log, k_log)
+    print(f"[fabric] (b) 1-replica kernel route vs plain route: logit diff {diff:.4g}, {len(stream) - differ}/"
+          f"{len(stream)} requests' tokens identical, the rest under the gap rule", flush=True)
+    return k_outs, counts
+
+
+def _fabric_threaded(ph, cfg, params, dev, load, smi):
+    """(c) ``compare_fabric``: threaded 1 vs 2 replicas (3 repeats), then the
+    failover leg; returns its launches."""
+    from repro_torch import kernels
+    from repro_torch.serve.loadgen import compare_fabric
+
+    kernels.reset_launch_counts()
+    rep = compare_fabric(cfg, params, load, replicas=2, n_slots=FABRIC_SLOTS, page_size=LM_PAGE,
+                         repeats=FABRIC_REPEATS, device=dev)
+    counts = kernels.launch_counts()
+    g = rep["gate"]
+    ph.check(g["token_mismatches"] == 0, f"[fabric] (c) {g['token_mismatches']:.0f} route token mismatches")
+    ph.check(g["requeue_token_mismatches"] == 0 and g["requeued"] > 0, f"[fabric] (c) failover leg {g}")
+    ph.check(counts["paged_attention"] > 0, "[fabric] (c) paged_attention never launched")
+    s, m = rep["single"], rep["multi"]
+    print(f"[fabric] (c) threaded, best of {FABRIC_REPEATS}: 1 replica {s['tok_per_s']:.1f} tok/s "
+          f"(p50 {s['p50_ms']:.1f} ms, p99 {s['p99_ms']:.1f} ms) | 2 replicas {m['tok_per_s']:.1f} tok/s "
+          f"(p50 {m['p50_ms']:.1f} ms, p99 {m['p99_ms']:.1f} ms) | scaling_x={g['scaling_x']:.3f} (reported, "
+          f"not gated: one card, one default stream) | route token mismatches {g['token_mismatches']:.0f}, "
+          f"failover requeued {g['requeued']:.0f} mismatches {g['requeue_token_mismatches']:.0f} | {smi}", flush=True)
+    return counts
+
+
+def _fabric_mixed(ph, cfg, params, dev, load, k_outs):
+    """(d) an ssl-paper embedding service beside the LM service on each
+    replica: one request a dispatch (``max_batch`` = its rows), so each
+    embedding must equal one ``ServeEngine``'s encode bit for bit."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.obs import Obs
+    from repro_torch.serve.buckets import BucketPolicy
+    from repro_torch.serve.engine import ContinuousLMEngine, ServeEngine
+    from repro_torch.serve.fabric import FabricConfig, ServeFabric
+    from repro_torch.serve.loadgen import run_fabric
+    from repro_torch.serve.service import EmbeddingService, LMService
+    from repro_torch.train.ssl import init_ssl_model
+
+    model_cfg, _ = _paper()
+    model = init_ssl_model(model_cfg, seed=SEED)
+    policy = BucketPolicy(max_batch=FABRIC_EMBED_ROWS)
+    mixed = dataclasses.replace(load, n_embed=FABRIC_EMBED, embed_rows=FABRIC_EMBED_ROWS,
+                                input_dim=model_cfg.input_dim)
+    max_len = -(-max(load.lm.max_request_len + 8, 32) // LM_PAGE) * LM_PAGE
+    fab = ServeFabric(
+        FabricConfig(replicas=2, heartbeat_timeout_s=5.0),
+        lm_factory=lambda name: LMService(ContinuousLMEngine(
+            cfg, params, n_slots=FABRIC_SLOTS, max_len=max_len, max_prompt_len=max(load.lm.prompt_lens), paged=True,
+            page_size=LM_PAGE, device=dev), obs=Obs()),
+        embed_factory=lambda name: EmbeddingService(ServeEngine(model_cfg, model, policy=policy, device=dev),
+                                                    obs=Obs()),
+    )
+    kernels.reset_launch_counts()
+    _, lm_outs, em_outs = run_fabric(fab, mixed)
+    counts = kernels.launch_counts()
+    engine = ServeEngine(model_cfg, model, policy=policy, device=dev)
+    bad = [i for i, x in enumerate(mixed.embed_stream())
+           if not np.array_equal(em_outs[i], engine.encode(x).cpu().numpy())]
+    lm_bad = [i for i, (a, b) in enumerate(zip(lm_outs, k_outs)) if not np.array_equal(a, b)]
+    ph.check(not bad, f"[fabric] (d) embeddings differ from ServeEngine.encode in requests {bad}")
+    ph.check(not lm_bad, f"[fabric] (d) LM tokens differ from the 1-replica run's in requests {lm_bad}")
+    print(f"[fabric] (d) mixed: {FABRIC_EMBED} ssl-paper embedding requests of {FABRIC_EMBED_ROWS} x "
+          f"{model_cfg.input_dim} beside the {len(lm_outs)} LM requests on 2 replicas: embeddings == one ServeEngine's "
+          f"bit for bit in {FABRIC_EMBED - len(bad)}/{FABRIC_EMBED}, LM tokens == the 1-replica run's in "
+          f"{len(lm_outs) - len(lm_bad)}/{len(lm_outs)}; launches {_nonzero(counts)}", flush=True)
+    return counts
+
+
+def phase_fabric(ph: Phase, dev):
+    """The serving fabric on gemma2-2b at full width and depth, f32 (the LM
+    phase's weights, ``init_params(seed=0)``, shared read-only by every
+    replica): (a)-(d) above, (e) ``python -m repro_torch.launch.serve``,
+    (f) the metrics catalog on the card == on the CPU.  Returns the
+    launches of (a)-(d)."""
+    import gc
+
+    import torch
+
+    from repro_torch.obs import catalog
+    from repro_torch.serve.loadgen import FabricLoadConfig, LMLoadConfig
+
+    smi = _smi()
+    cfg, params = _lm_model(dev, torch.float32)
+    load = FabricLoadConfig(lm=LMLoadConfig(**FABRIC_LOAD))
+    print(f"[fabric] {cfg.name} f32 {cfg.n_layers} layers d={cfg.d_model}: {load.lm.n_requests} requests, prompts "
+          f"{load.lm.prompt_lens}, new tokens {load.lm.new_tokens}, {FABRIC_SLOTS} slots a replica, page {LM_PAGE}",
+          flush=True)
+    totals = {}
+    k_outs, counts = _fabric_checked(ph, cfg, params, dev, load)
+    for part in (counts, _fabric_threaded(ph, cfg, params, dev, load, smi),
+                 _fabric_mixed(ph, cfg, params, dev, load, k_outs)):
+        for k, v in part.items():
+            totals[k] = totals.get(k, 0) + v
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    run = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", *LAUNCH_SERVE_ARGS],
+                         env=env, capture_output=True, text=True, timeout=600)
+    ph.check(run.returncode == 0, f"[fabric] (e) launch.serve exit {run.returncode}: {run.stderr[-2000:]}")
+    print(f"[fabric] (e) python -m repro_torch.launch.serve {' '.join(LAUNCH_SERVE_ARGS)}: exit {run.returncode} in "
+          f"{time.perf_counter() - t0:.1f}s | " + " | ".join(run.stdout.strip().splitlines()[-2:]), flush=True)
+
+    t0 = time.perf_counter()
+    on_card, on_cpu = catalog.generate(device=dev), catalog.generate(device="cpu")
+    ph.check(on_card == on_cpu, "[fabric] (f) the metrics catalog differs between cuda and cpu")
+    rows = sum(1 for line in on_card.splitlines() if line.startswith("| `"))
+    print(f"[fabric] (f) obs.catalog.generate: cuda == cpu: {on_card == on_cpu} ({rows} table rows) in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    return totals
+
+
+# ---------------------------------------------------------------------------
+# phase tune: the Hopper tuner's measured tier on the card
+# ---------------------------------------------------------------------------
+
+
+def _tune_cli(ph, dev, smi):
+    """(a) ``tune.cli --measure --arch ssl-paper --shape 256x8192``: every
+    TuneResult of the run, with each plan's analytic pick beside its
+    measured one and every candidate's fwd + bwd ms."""
+    from repro_torch.tune import cli, dispatch, tuner
+
+    results, real = [], tuner.tune
+
+    def keep(*a, **k):
+        results.append(real(*a, **k))
+        return results[-1]
+
+    tuner.tune = keep
+    t0 = time.perf_counter()
+    try:
+        rc = cli.main(["--measure", "--arch", "ssl-paper", *sum((["--shape", s] for s in TUNE_SHAPES), []),
+                       "--device", str(dev)])
+    finally:
+        tuner.tune = real
+    ph.check(rc == 0, f"[tune] (a) tune.cli exit {rc}")
+    print(f"[tune] (a) tune.cli --measure --arch ssl-paper --shape {' '.join(TUNE_SHAPES)}: {len(results)} tuned "
+          f"shapes in {time.perf_counter() - t0:.1f}s | {smi}", flush=True)
+    for res in results:
+        if res.kernel in ("sumvec_fft_plan", "grouped_block_plan"):
+            analytic = dispatch._analytic_search(res.kernel, res.shape)
+            cands = "; ".join(f"{c.config} {c.time_us / 1e3:.4f}" for c in res.candidates)
+            print(f"[tune] (a) {res.kernel} {res.shape}: analytic pick {analytic}, measured pick {res.best}, default "
+                  f"{res.default} | fwd + bwd ms by candidate: {cands}", flush=True)
+        else:
+            t = res.candidates[0].time_us
+            ph.check(res.best == res.default and len(res.candidates) == 1, f"[tune] (a) {res.kernel}: {res.best}")
+            print(f"[tune] (a) {res.kernel} {res.shape}: kept default {res.best}, one launch "
+                  f"{t / 1e3:.4f} ms", flush=True)
+    return [r for r in results if r.kernel == "sumvec_fft_plan"]
+
+
+def _tune_same_loss(ph, dev, plans):
+    """(b) the regularizer's loss and input gradient under each measured plan
+    against the default plan's (5e-4 relative)."""
+    import torch
+
+    from repro_torch import tune
+    from repro_torch.core import regularizers as regs
+
+    for res in plans:
+        (d,) = res.shape
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        z1, z2 = (torch.randn(256, d, device=dev, generator=gen).requires_grad_() for _ in range(2))
+
+        def run(cfg):
+            with tune.override("sumvec_fft_plan", **cfg):
+                loss = regs.r_sum(z1, z2, q=2, scale=256.0, impl="kernel")
+            return loss.detach(), torch.autograd.grad(loss, (z1,))[0]
+
+        (a, ga), (b, gb) = run(res.best), run(res.default)
+        loss_rel, grad_rel = _max_rel([float(a)], [float(b)]), _grad_rel([ga], [gb])
+        ph.check(loss_rel <= TUNE_TOL and grad_rel <= TUNE_TOL,
+                 f"[tune] (b) d={d}: plan {res.best} vs {res.default}: loss rel {loss_rel:.3g} grad rel {grad_rel:.3g}")
+        print(f"[tune] (b) d={d}: measured plan {res.best} vs default {res.default}: loss rel err {loss_rel:.3g}, "
+              f"input grad rel err {grad_rel:.3g} (limit {TUNE_TOL})", flush=True)
+
+
+def _tune_cached(ph, dev, plans):
+    """(c) after ``clear_memory_cache`` the disk entry answers
+    ``best_config``, and a second tune times nothing."""
+    from repro_torch import tune
+    from repro_torch.tune import cache, cost
+
+    tune.clear_memory_cache()
+    timed, real = [], cost.measured_time_us
+    cost.measured_time_us = lambda *a, **k: timed.append(1) or real(*a, **k)
+    try:
+        for res in plans:
+            entry = cache.lookup("sumvec_fft_plan", res.shape, "float32", cache.backend_key(dev))
+            got = tune.best_config("sumvec_fft_plan", res.shape)
+            again = tune.tune("sumvec_fft_plan", res.shape, mode="measure", device=dev)
+            ph.check(entry is not None and got == entry["config"] == res.best and again.cached,
+                     f"[tune] (c) d={res.shape[0]}: disk {entry}, best_config {got}, cached {again.cached}")
+    finally:
+        cost.measured_time_us = real
+    ph.check(not timed, f"[tune] (c) the second tune timed {len(timed)} candidates")
+    print(f"[tune] (c) after clear_memory_cache: best_config == the disk entry ({cache.backend_key(dev)}.json) for "
+          f"{len(plans)} plans; a second tune timed {len(timed)} candidates", flush=True)
+
+
+def _tune_pages(ph, dev, smi):
+    """(d) the page candidates at the LM pool's shape (f32 and bf16 pages),
+    one paged_attention launch each, beside ``auto_page_size``."""
+    import torch
+
+    from repro_torch import tune
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.paged_attention.ops import PAGE_PREFER, auto_page_size
+    from repro_torch.tune import dispatch
+    from repro_torch.serve.loadgen import LMLoadConfig
+
+    cfg = get_config("gemma2-2b")
+    load = LMLoadConfig()
+    max_len = -(-max(load.max_request_len + 8, 32) // LM_PAGE) * LM_PAGE
+    shape = (LM_SLOTS, max_len, cfg.n_kv_heads, cfg.hd)
+    before = auto_page_size(*shape)
+    analytic = dispatch._analytic_search("paged_attention", shape)
+    for dtype in (torch.float32, torch.bfloat16):
+        res = tune.tune("paged_attention", shape, dtype, mode="measure", persist=False, max_candidates=0,
+                        guard_default=False, device=dev)
+        ms = {c.config["page"]: c.time_us / 1e3 for c in res.candidates}
+        ph.check(all(t > 0 for t in ms.values()), f"[tune] (d) page times {ms}")
+        small = {p: round(t, 5) for p, t in sorted(ms.items()) if p <= PAGE_PREFER}
+        print(f"[tune] (d) paged_attention pool {shape} {str(dtype).replace('torch.', '')}: ms by page up to "
+              f"PAGE_PREFER={PAGE_PREFER}: {small}; larger pages {({p: round(t, 5) for p, t in sorted(ms.items()) if p > PAGE_PREFER})}"
+              f" | measured pick {res.best['page']}, analytic pick {analytic['page']}, default {res.default['page']}; "
+              f"auto_page_size {before} (the analytic pick capped at PAGE_PREFER) | {smi}", flush=True)
+    tune.clear_memory_cache()
+
+
+def _tune_warmup(ph, dev):
+    """(e) ``warmup_tune_cache`` measured at the LM aux loss's shape, and the
+    LM launcher's ``--pretune analytic`` at ``--reduced``."""
+    from repro_torch.decorr import DecorrConfig, warmup_tune_cache
+    from repro_torch.launch import train as launch
+
+    t0 = time.perf_counter()
+    res = warmup_tune_cache(LMTRAIN_N, 2304, DecorrConfig(style="vic", reg="sum", q=2), mode="measure", device=dev)
+    ph.check(len(res) > 0 and all(r.best for r in res), "[tune] (e) warmup_tune_cache")
+    moved = [f"{r.kernel} {r.best}" for r in res if r.best != r.default]
+    print(f"[tune] (e) warmup_tune_cache({LMTRAIN_N}, 2304, vic R_sum q=2, measure): {len(res)} shapes in "
+          f"{time.perf_counter() - t0:.1f}s; moved from the default: {moved or 'none'}", flush=True)
+    t0 = time.perf_counter()
+    state = launch.train(launch.parse_args(["--arch", "gemma2-2b", "--reduced", "--steps", "2", "--decorr",
+                                            "--pretune", "analytic", "--device", str(dev)]))
+    ph.check(state.step == 2, f"[tune] (e) launch.train stopped at step {state.step}")
+    print(f"[tune] (e) launch/train --reduced --decorr --pretune analytic: 2 steps in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+
+
+def phase_tune(ph: Phase, dev):
+    """The tuner on the card, in a temporary cache directory (under
+    ``build/``, removed after): (a)-(e) above.  Every measured candidate
+    runs the kernel route, so its launches count; the memo is cleared at the
+    end so later phases run the default plans.  Returns the launches."""
+    import shutil
+    import tempfile
+
+    from repro_torch import kernels, tune
+
+    smi = _smi()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    cache_dir = tempfile.mkdtemp(prefix="tune_cache_", dir=os.path.join(ROOT, "build"))
+    old = os.environ.get("REPRO_TUNE_CACHE")
+    os.environ["REPRO_TUNE_CACHE"] = cache_dir
+    tune.clear_memory_cache()
+    kernels.reset_launch_counts()
+    try:
+        plans = _tune_cli(ph, dev, smi)
+        _tune_same_loss(ph, dev, plans)
+        _tune_cached(ph, dev, plans)
+        _tune_pages(ph, dev, smi)
+        _tune_warmup(ph, dev)
+        return kernels.launch_counts()
+    finally:
+        tune.clear_memory_cache()
+        if old is None:
+            os.environ.pop("REPRO_TUNE_CACHE", None)
+        else:
+            os.environ["REPRO_TUNE_CACHE"] = old
+        shutil.rmtree(cache_dir, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
 # phase 6: the other nine LM archs
 # ---------------------------------------------------------------------------
 
@@ -3430,9 +3836,11 @@ def main() -> int:
     dist_fwd, dist_bwd = ph.run("dist", phase_dist, ph, dev) or ({}, {})
     obs = ph.run("obs", phase_obs, ph, dev) or {}
     lm = ph.run("lm", phase_lm, ph, dev) or {}
+    fabric = ph.run("fabric", phase_fabric, ph, dev) or {}
+    tuned = ph.run("tune", phase_tune, ph, dev) or {}
     archs = ph.run("archs", phase_archs, ph, dev) or {}
     lmtrain_fwd, lmtrain_bwd = ph.run("lmtrain", phase_lmtrain, ph, dev) or ({}, {})
-    for part in (train_fwd, dist_fwd, obs, lm, archs, lmtrain_fwd):
+    for part in (train_fwd, dist_fwd, obs, lm, fabric, tuned, archs, lmtrain_fwd):
         for k, v in part.items():
             launches[k] = launches.get(k, 0) + v
     for part in (dist_bwd, lmtrain_bwd):

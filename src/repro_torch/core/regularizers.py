@@ -6,9 +6,11 @@ Eq. (13) with block size b.  For q = 2 the sums of squares are taken in the
 frequency domain (Parseval); q = 1 needs the inverse transform.
 
 Route choice (``impl``):
-  * ``None``     — from the tensor's device: a CUDA tensor takes the kernel
-                   pipelines (``kernels/sumvec_fft``, ``kernels/grouped_sumvec``),
-                   a CPU tensor the plain ``torch.fft`` route;
+  * ``None``     — ``repro_torch.tune.best_impl(op, device)``: from the
+                   tensor's device, a CUDA tensor takes the kernel pipelines
+                   (``kernels/sumvec_fft``, ``kernels/grouped_sumvec``), a
+                   CPU tensor the plain ``torch.fft`` route, unless an
+                   ``override(op, impl=...)`` pins one;
   * ``"kernel"`` — the kernel pipelines (on a CPU tensor each kernel runs its
                    plain version; the tests use this);
   * ``"plain"``  — the ``torch.fft`` route on any device (the smoke's
@@ -24,6 +26,7 @@ import torch
 from repro_torch.core import sumvec as sv
 from repro_torch.kernels.grouped_sumvec import ops as gops
 from repro_torch.kernels.sumvec_fft import ops as fops
+from repro_torch.tune import dispatch as tune_dispatch
 
 Tensor = torch.Tensor
 IMPLS = ("kernel", "plain")
@@ -42,11 +45,11 @@ def cross_correlation_matrix(z1: Tensor, z2: Tensor, scale: Optional[float] = No
     return c / (n if scale is None else scale)
 
 
-def _resolve_impl(z: Tensor, q: int, impl: Optional[str]) -> str:
+def _resolve_impl(op: str, z: Tensor, q: int, impl: Optional[str]) -> str:
     if q not in (1, 2):
         raise ValueError(f"q must be 1 or 2, got {q!r}")
     if impl is None:
-        return "kernel" if z.is_cuda else "plain"
+        impl = tune_dispatch.best_impl(op, z.device)
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
     return impl
@@ -74,7 +77,7 @@ def r_sum(
     """
     d = z1.shape[-1]
     s = 1.0 if scale is None else float(scale)
-    if _resolve_impl(z1, q, impl) == "kernel":
+    if _resolve_impl("r_sum", z1, q, impl) == "kernel":
         return fops.r_sum_fourstep(z1, z2, q=q, scale=s)
     if q == 2:
         # Parseval path — no inverse FFT
@@ -100,7 +103,7 @@ def r_sum_grouped(
     """
     b = int(block_size)
     s = 1.0 if scale is None else float(scale)
-    impl = _resolve_impl(z1, q, impl)
+    impl = _resolve_impl("r_sum_grouped", z1, q, impl)
     # b > d means "pad d up to b" here (matching the matrix oracle), but the
     # kernel pipeline clamps b to d — the degenerate case takes the plain
     # route on every device so the loss never depends on the hardware.

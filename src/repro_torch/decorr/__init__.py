@@ -14,6 +14,7 @@ from repro_torch.decorr.engine import (
     vicreg,
 )
 from repro_torch.decorr.probe import probe_metrics
+from repro_torch.decorr.warmup import mesh_parallelism, shard_local_shape, warmup_tune_cache
 
 __all__ = [
     "DecorrConfig",
@@ -21,9 +22,12 @@ __all__ = [
     "barlow_twins",
     "center",
     "effective_mode",
+    "mesh_parallelism",
     "probe_metrics",
     "regularizer",
+    "shard_local_shape",
     "standardize",
     "variance_hinge",
     "vicreg",
+    "warmup_tune_cache",
 ]

@@ -192,7 +192,9 @@ def grouped_reg_from_freq(g: Tensor, b: int, q: int) -> Tensor:
 
 def _grouped_route(z: Tensor, impl: Optional[str]) -> str:
     if impl is None:
-        return "kernel" if z.is_cuda else "plain"
+        from repro_torch.tune.dispatch import best_impl
+
+        impl = best_impl("r_sum_grouped", z.device)
     if impl not in regs.IMPLS:
         raise ValueError(f"impl must be one of {regs.IMPLS}, got {impl!r}")
     return impl

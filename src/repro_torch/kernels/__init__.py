@@ -11,12 +11,16 @@ Every kernel wrapper carries two counters:
 ``launch_counts`` / ``backward_launch_counts`` read them and
 ``reset_launch_counts`` clears both, so a run can show that the path, and
 its gradient, went through the kernels (``chip_smoke.py`` clears them just
-before driving each path).
+before driving each path).  One module lock guards every update, so
+threads launching at once (the serving fabric's replicas) lose no count.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Dict
+
+_COUNT_LOCK = threading.Lock()
 
 
 def _wrappers():
@@ -48,16 +52,18 @@ def backward_launch_counts() -> Dict[str, int]:
 
 def reset_launch_counts() -> None:
     """Set every kernel's launch counters to 0."""
-    for fn in _wrappers().values():
-        fn.launches = 0
-        fn.launches_bwd = 0
+    with _COUNT_LOCK:
+        for fn in _wrappers().values():
+            fn.launches = 0
+            fn.launches_bwd = 0
 
 
 def count_launch(fn, bwd_owner=None) -> None:
     """Add one launch of ``fn``'s kernel; ``bwd_owner`` (a wrapper, set on a
     backward pass) also gets it under ``launches_bwd``, as does ``fn``."""
-    fn.launches += 1
-    if bwd_owner is not None:
-        fn.launches_bwd += 1
-        if bwd_owner is not fn:
-            bwd_owner.launches_bwd += 1
+    with _COUNT_LOCK:
+        fn.launches += 1
+        if bwd_owner is not None:
+            fn.launches_bwd += 1
+            if bwd_owner is not fn:
+                bwd_owner.launches_bwd += 1

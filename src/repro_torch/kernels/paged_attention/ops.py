@@ -1,9 +1,10 @@
-"""The plain PyTorch version of the paged-attention kernel (port of
-``paged_decode_jnp`` in ``repro/kernels/paged_attention/ops.py``).
+"""Page-size dispatch and the plain PyTorch version of the paged-attention
+kernel (port of ``auto_page_size`` and ``paged_decode_jnp`` in
+``repro/kernels/paged_attention/ops.py``).
 
-The page size is a property of the pool's physical layout, chosen where the
-pool is built (``ContinuousLMEngine(page_size=...)``, default 16); the
-reference's tuned ``auto_page_size`` arrives with the port's tuner.
+The page size is a property of the pool's physical layout, chosen once
+where the pool is built: ``ContinuousLMEngine(page_size=None)`` asks
+``auto_page_size``, which asks ``repro_torch.tune`` for the pool's shape.
 """
 
 from __future__ import annotations
@@ -11,8 +12,30 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.paged_attention import ref as R
+from repro_torch.tune import space as tune_space
+from repro_torch.tune.dispatch import best_config
 
 Tensor = torch.Tensor
+
+# Kernel time alone prefers the largest page (fewest block-table reads, the
+# least padding where it divides the context), but every admitted request
+# strands on average half a page of dead rows — the fragmentation paging
+# exists to remove.  ``auto_page_size`` therefore caps the tuned pick (the
+# reference's cap); callers with measured workloads pass their own page.
+PAGE_PREFER = 32
+
+
+def auto_page_size(n_slots: int, max_len: int, n_kv_heads: int, head_dim: int, prefer: int = PAGE_PREFER) -> int:
+    """Tuned default page size for a (slots, max_len, kv, hd) pool: the
+    ``repro_torch.tune`` winner (override > memo > disk cache > analytic),
+    clamped to the largest legal candidate <= ``prefer``."""
+    shape = (n_slots, max_len, n_kv_heads, head_dim)
+    page = int(best_config("paged_attention", shape)["page"])
+    if page <= prefer:
+        return page
+    legal = [c["page"] for c in tune_space.candidates("paged_attention", shape)]
+    capped = [p for p in legal if p <= prefer]
+    return max(capped) if capped else min(legal)
 
 
 def _expand_heads(pages: Tensor, n_rep: int) -> Tensor:

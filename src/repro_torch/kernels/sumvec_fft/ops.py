@@ -15,8 +15,9 @@ layout; for q = 2 the regularizer needs only full-spectrum sums (Parseval),
 which are layout-invariant, so nothing is unscrambled.  For q = 1 (and for
 padded plans) an inverse four-step yields the time-domain summary vector.
 
-Plans (``fft_plan``) are the reference's analytic pick: exact balanced
-factors where they exist, else a padded length dp >= 2d - 1 whose linear
+Plans (``fft_plan``) come from ``repro_torch.tune``: without an override or
+a tuned cache entry, the reference's analytic pick — exact balanced factors
+where they exist, else a padded length dp >= 2d - 1 whose linear
 correlation folds back exactly onto the d circular lags
 (``_fold_linear_to_circular``).
 """
@@ -32,7 +33,7 @@ import torch
 
 from repro_torch.kernels.sumvec_fft import kernel as K
 from repro_torch.kernels.utils import full_dft_adjoint, full_dft_matrices, pad_axis
-from repro_torch.tune.cost import best_sumvec_fft_plan
+from repro_torch.tune.dispatch import best_config
 
 Tensor = torch.Tensor
 
@@ -66,10 +67,12 @@ class FFTPlan:
             )
 
 
-@functools.lru_cache(maxsize=256)
 def fft_plan(d: int) -> FFTPlan:
-    """The plan for length d: the reference's analytic (flops-first) pick."""
-    cfg = best_sumvec_fft_plan(d)
+    """The tuned plan for length d: ``best_config("sumvec_fft_plan", (d,))``
+    (override > memo > disk cache > the reference's analytic pick), asked
+    at every call so an override or a newly tuned entry reaches the next
+    one."""
+    cfg = best_config("sumvec_fft_plan", (d,))
     return FFTPlan(d=d, dp=cfg["dp"], d1=cfg["d1"], d2=cfg["d2"])
 
 

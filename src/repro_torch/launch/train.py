@@ -8,7 +8,10 @@ absent.  ``--decorr`` turns on the paper's aux loss (VICReg-style R_sum,
 q = 2, on the final hidden states; ``--decorr-block`` groups it), whose R
 runs the hand-written kernels forward and backward on the card.  A rerun
 with the same ``--ckpt-dir`` resumes from the newest checkpoint.
-``--pretune`` accepts only ``off`` until the Hopper kernel tuner is ported.
+With ``--decorr``, ``--pretune`` (default ``analytic``; ``dry``, ``measure``
+on ``--device``, or ``off``) warms the ``repro_torch.tune`` choices of the
+aux loss's shapes (batch * tokens_per_seq rows of width d_model) before the
+first step (``decorr.warmup_tune_cache``).
 ``--metrics-port`` / ``--alerts`` turn the telemetry on (``launch/obs_args``):
 per-phase histograms, ``train_*`` gauges and the step's device-inclusive
 time, scraped once over HTTP at the end.
@@ -54,8 +57,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--ckpt-interval", type=int, default=50)
     ap.add_argument("--decorr", action="store_true", help="enable the paper's aux loss")
     ap.add_argument("--decorr-block", type=int, default=None)
-    ap.add_argument("--pretune", default="off", choices=["off", "analytic", "dry", "measure"],
-                    help="only 'off' until the Hopper kernel tuner is ported")
+    ap.add_argument("--pretune", default="analytic", choices=["off", "analytic", "dry", "measure"],
+                    help="warm the repro_torch.tune choices of the aux loss's shapes before the first step")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     add_obs_args(ap)
@@ -84,11 +87,6 @@ def lm_batch_fn(cfg: ArchConfig, data: LMDataConfig, device) -> Callable[[int], 
 def train(args: argparse.Namespace) -> TrainState:
     """Build the arch, its AdamW state and step; run (resuming from
     ``--ckpt-dir``); returns the final state."""
-    if args.pretune != "off":
-        raise NotImplementedError(
-            f"--pretune {args.pretune} needs the Hopper kernel tuner (ROADMAP queue 1, item 7), "
-            "which is not ported yet; pass --pretune off"
-        )
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
@@ -104,6 +102,16 @@ def train(args: argparse.Namespace) -> TrainState:
         )
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(f"[train] arch={cfg.name} params~{cfg.param_count() / 1e6:.1f}M device={name}", flush=True)
+    if args.decorr and args.pretune != "off":
+        from repro_torch.decorr import warmup_tune_cache
+
+        # the aux-loss statistic has batch * tokens_per_seq rows of width
+        # d_model: pre-tune those shapes so no search lands in the first step
+        t_tune = time.time()
+        n_jobs = len(warmup_tune_cache(args.batch * cfg.decorr.tokens_per_seq, cfg.d_model, cfg.decorr.decorr,
+                                       mode=args.pretune, device=dev))
+        print(f"[train] pre-tuned {n_jobs} decorr kernel shapes ({args.pretune}, {time.time() - t_tune:.1f}s)",
+              flush=True)
     model = ParamTree(init_params(cfg, seed=args.seed, device=dev))
     opt = adamw()
     sched = warmup_cosine(args.lr, max(args.steps // 10, 1), args.steps)

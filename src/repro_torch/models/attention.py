@@ -236,13 +236,18 @@ def _decode_attention(q, cache_k, cache_v, cache_len, cfg: ArchConfig, spec: Blo
 
 
 def use_kernel(x: Tensor, impl: Optional[str]) -> bool:
-    """Route of the paged attention: the CUDA kernel for a CUDA tensor, the
-    gather + ``_decode_attention`` route for a CPU tensor.  ``impl="plain"``
+    """Route of the paged attention: ``best_impl("paged_attention")``, the
+    CUDA kernel for a CUDA tensor and the gather + ``_decode_attention``
+    route for a CPU tensor unless an override pins one.  ``impl="plain"``
     forces the gather route (on-card comparison); ``impl="kernel"`` forces
     the kernel wrapper (on the CPU it runs the kernel's plain version)."""
     if impl not in (None, "kernel", "plain"):
         raise ValueError(f"impl must be None, 'kernel' or 'plain', got {impl!r}")
-    return impl == "kernel" or (impl is None and x.is_cuda)
+    if impl is None:
+        from repro_torch.tune.dispatch import best_impl
+
+        impl = best_impl("paged_attention", x.device)
+    return impl == "kernel"
 
 
 def _paged_decode(q, k, v, cache, cache_len, block_tables, cfg: ArchConfig, spec: BlockSpec, impl=None):
@@ -256,8 +261,8 @@ def _paged_decode(q, k, v, cache, cache_len, block_tables, cfg: ArchConfig, spec
     is bit-identical to the dense path — rows past ``cache_len`` differ only
     in masked positions whose probability mass is exactly 0.  On a CUDA
     tensor the block-table kernel (``kernels/paged_attention``) attends
-    instead and never materializes the gather — the switch the reference
-    makes with ``best_impl("paged_attention")``.
+    instead and never materializes the gather (``best_impl``, as in the
+    reference).
     """
     b, _, h, hd = q.shape
     kp, vp = cache["k_pages"], cache["v_pages"]

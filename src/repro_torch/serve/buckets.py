@@ -66,3 +66,8 @@ def bucket_for(n: int, policy: BucketPolicy) -> int:
         if b >= n:
             return b
     return bucket_sizes(policy)[-1]
+
+
+def bucket_shapes(policy: BucketPolicy, d: int) -> List[Tuple[int, int]]:
+    """(bucket, d) pairs — the pre-tune / warmup job list for one width."""
+    return [(b, d) for b in bucket_sizes(policy)]

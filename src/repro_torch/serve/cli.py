@@ -30,6 +30,16 @@ the scrape metrics (port of ``repro/serve/cli.py``).
     PYTHONPATH=src python -m repro_torch.serve.cli --smoke --lm-arch gemma2-2b \
         --continuous --paged --block-size 16 --speculative --draft-k 4 --device cpu
 
+    # + the fabric failover gate: a 2-replica fabric on a fake clock, r0
+    # killed after 3 ticks; requeued requests == a 1-replica run, bit for bit
+    PYTHONPATH=src python -m repro_torch.serve.cli --smoke --lm-arch gemma2-2b \
+        --continuous --paged --fabric --replicas 2 --device cpu
+
+    # warm the repro_torch.tune choices of the serve buckets' probe shapes
+    # first (forward only: the job list python -m repro_torch.tune.cli --serve
+    # persists offline)
+    PYTHONPATH=src python -m repro_torch.serve.cli --smoke --pretune analytic --device cpu
+
     # serve what a training run saved (here the training CLI's --tiny model)
     PYTHONPATH=src python -m repro_torch.train.cli --tiny --steps 6 --ckpt-dir /tmp/ssl_ckpt --device cpu
     PYTHONPATH=src python -m repro_torch.serve.cli --ckpt-dir /tmp/ssl_ckpt \
@@ -43,8 +53,8 @@ the scrape metrics (port of ``repro/serve/cli.py``).
         --flight-out /tmp/flight.json --profile-dir /tmp/prof
 
 Like the reference, the LM paths serve ``cfg.reduced()``; ``chip_smoke.py``
-runs the full published width on the card.  The fabric and pre-tuning
-belong to later slices of the port.
+runs the full published width on the card.  Without ``--block-size`` the
+continuous engine's page is ``auto_page_size``'s pick for its pool.
 """
 
 from __future__ import annotations
@@ -144,11 +154,30 @@ def _build(args):
     return policy, engine_fn, lambda: DecorrProbe(probe_cfg, device=device)
 
 
+def _pretune(args, policy) -> None:
+    """Warm the tuned choices of every serve bucket's probe shapes (forward
+    only: the probes never differentiate)."""
+    from repro_torch import tune
+    from repro_torch.serve.buckets import bucket_sizes
+    from repro_torch.tune.cli import jobs_for
+
+    n_jobs = 0
+    for b in bucket_sizes(policy):
+        _, jobs = jobs_for(b, args.d, block_size=args.probe_block, forward_only=True, mode=args.pretune,
+                           persist=False, device=args.device)
+        n_jobs += 1 + len(jobs)
+        for kernel, shape in jobs:
+            tune.tune(kernel, shape, mode=args.pretune, persist=False, device=args.device)
+    print(f"[serve] pre-tuned {n_jobs} forward bucket shapes ({args.pretune})")
+
+
 def _run_embedding(args) -> int:
     from repro_torch.serve.buckets import bucket_sizes
     from repro_torch.serve.loadgen import LoadConfig, compare_policies
 
     policy, engine_fn, probe_fn = _build(args)
+    if args.pretune != "off":
+        _pretune(args, policy)
     load = LoadConfig(
         n_requests=args.requests,
         input_dim=args.input_dim,
@@ -292,6 +321,7 @@ def _run_lm_continuous(args, cfg, params, device) -> int:
         report["paged_vs_dense"] = rep
     prefix_ok, prefix_fast = _gate_prefix(args, cfg, params, device) if args.prefix_cache else (True, True)
     spec_ok = _gate_speculative(args, cfg, params, device) if args.speculative else True
+    fabric_ok = _gate_fabric(args, cfg, params, device) if args.fabric else True
     sample_ok = _demo_sampling(args, cfg, params, device) if (args.temperature or args.top_k) else True
     obs_ok = _finish_obs(args, obs, m)
     if args.json:
@@ -306,6 +336,7 @@ def _run_lm_continuous(args, cfg, params, device) -> int:
         and paged_ok
         and prefix_ok
         and spec_ok
+        and fabric_ok
         and sample_ok
         and obs_ok
     )
@@ -313,6 +344,7 @@ def _run_lm_continuous(args, cfg, params, device) -> int:
           + (", paged == dense and below its bytes" if args.paged else "")
           + (", warm prefix == unshared with fewer peak pages and hits" if args.prefix_cache else "")
           + (", speculative == plain with > 1 token a verify lane" if args.speculative else "")
+          + (", failover tokens == 1 replica with requeues and one death" if args.fabric else "")
           + (", sampled tokens reproducible" if args.temperature or args.top_k else "") + ")")
     if not healthy:
         return 1
@@ -360,6 +392,54 @@ def _gate_speculative(args, cfg, params, device) -> bool:
     return g["token_mismatches"] == 0 and g["tokens_per_lane"] > 1
 
 
+def _gate_fabric(args, cfg, params, device) -> bool:
+    """Kill-one-replica failover on a synchronous N-replica fabric (a fake
+    clock: nothing sleeps).  Every request — those stranded on the killed
+    replica and requeued included — must emit the exact greedy tokens of a
+    1-replica run, and the kill must strand work (``requeued > 0``, one
+    death).  On failure the fabric's and every replica's flight recorder are
+    dumped to ``flightrec_fabric.json`` / ``flightrec_replica_<name>.json``."""
+    from repro_torch.obs import Obs
+    from repro_torch.serve.fabric import FabricConfig
+    from repro_torch.serve.loadgen import FabricLoadConfig, LMLoadConfig, make_lm_fabric
+
+    load = FabricLoadConfig(lm=LMLoadConfig(n_requests=min(args.requests, 12), prompt_lens=(4, 8, 14),
+                                            new_tokens=(8, 16), seed=args.seed))
+    kw = dict(n_slots=args.slots, page_size=args.block_size or 16, device=device)
+
+    def submit_all(fab):
+        return [fab.submit_lm(tok, mn) for tok, mn in load.lm.request_stream(cfg.vocab_size)]
+
+    oracle_fab, _ = make_lm_fabric(cfg, params, FabricConfig(replicas=1, heartbeat_timeout_s=5.0), load, **kw)
+    ofuts = submit_all(oracle_fab)
+    oracle_fab.drain()
+    oracle = [f.result(timeout=60) for f in ofuts]
+
+    t = {"now": 0.0}
+    fab_obs = Obs()
+    fab, _ = make_lm_fabric(cfg, params, FabricConfig(replicas=args.replicas, heartbeat_timeout_s=5.0), load,
+                            obs=fab_obs, clock=lambda: t["now"], **kw)
+    futs = submit_all(fab)
+    for _ in range(3):  # let every replica admit + decode a few ticks
+        fab.step()
+    fab.kill("r0")
+    t["now"] += 10.0  # the heartbeat goes stale; the next step drains r0
+    fab.drain()
+    outs = [f.result(timeout=60) for f in futs]
+    mismatches = sum(1 for a, b in zip(oracle, outs) if not np.array_equal(a, b))
+    counts = fab_obs.recorder.counts()
+    print(f"[serve] fabric: replicas={args.replicas} requeued={fab.requeued_total} dead={fab.dead_total} "
+          f"routes={counts.get('route', 0)} (requeue token mismatches: {mismatches})")
+    ok = mismatches == 0 and fab.requeued_total > 0 and fab.dead_total == 1
+    if not ok:
+        fab_obs.recorder.dump_json("flightrec_fabric.json")
+        for r in fab.replicas:
+            if r.lm is not None:
+                r.lm.obs.recorder.dump_json(f"flightrec_replica_{r.name}.json")
+        print("[serve] fabric gate FAILED; flight dumps -> flightrec_fabric.json, flightrec_replica_*.json")
+    return ok
+
+
 def _demo_sampling(args, cfg, params, device) -> bool:
     """A short sampled batch through the pool (per-request temperature /
     top-k / seed), run twice: the tokens must reproduce."""
@@ -401,6 +481,8 @@ def main(argv=None) -> int:
                    help="open-loop arrival rate (default: closed-loop burst)")
     p.add_argument("--probe-style", default="vic", choices=["bt", "vic"])
     p.add_argument("--probe-block", type=int, default=None)
+    p.add_argument("--pretune", default="off", choices=["off", "analytic", "dry", "measure"],
+                   help="warm the repro_torch.tune choices of the serve buckets' probe shapes first")
     p.add_argument("--gate", action="store_true",
                    help="also exit 1 unless micro-batched throughput beats naive (LM: "
                         "continuous batching beats whole-request generate); every run "
@@ -424,7 +506,8 @@ def main(argv=None) -> int:
                    help="with --continuous: paged (block-table) KV cache; also holds it "
                         "against the dense pool (tokens, peak cache bytes)")
     p.add_argument("--block-size", type=int, default=None,
-                   help="KV page size in tokens (default 16)")
+                   help="KV page size in tokens (default: auto_page_size's pick for the pool; the paged, "
+                        "prefix, speculative and fabric comparisons take 16)")
     p.add_argument("--prefill-chunk", type=int, default=None,
                    help="with --paged: also serve the mix with long prompts prefilled N tokens "
                         "a tick (tokens reported against the dense pool)")
@@ -436,6 +519,10 @@ def main(argv=None) -> int:
                         "decoding (identical tokens, > 1 token a verify lane)")
     p.add_argument("--draft-k", type=int, default=4,
                    help="speculative draft tokens proposed per verify tick")
+    p.add_argument("--fabric", action="store_true",
+                   help="with --continuous: also gate the replica-router failover path (kill one replica "
+                        "mid-decode on a fake clock; requeued requests must emit a 1-replica run's tokens)")
+    p.add_argument("--replicas", type=int, default=2, help="fabric size for --fabric")
     p.add_argument("--temperature", type=float, default=0.0,
                    help="run a sampled batch after the greedy checks (0 = greedy only)")
     p.add_argument("--top-k", type=int, default=None,
@@ -451,6 +538,8 @@ def main(argv=None) -> int:
     p.add_argument("--alerts", default=None,
                    help="alert rules as a JSON file path or inline JSON list (default: the built-in serve rules)")
     args = p.parse_args(argv)
+    if args.fabric and not (args.lm_arch and args.continuous):
+        p.error("--fabric routes continuous LM replicas; it requires --lm-arch and --continuous")
     if args.prefix_cache and not args.paged:
         p.error("--prefix-cache shares KV pages; it requires --paged")
     if args.speculative and not args.paged:

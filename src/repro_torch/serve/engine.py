@@ -39,6 +39,7 @@ import torch
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.checkpoint import latest_step, restore_checkpoint
 from repro_torch.decorr.modes import all_to_all_features
+from repro_torch.kernels.paged_attention.ops import auto_page_size
 from repro_torch.kernels.utils import next_multiple
 from repro_torch.models.transformer import init_caches
 from repro_torch.parallel import sharding as shd
@@ -265,13 +266,6 @@ class LMServeEngine:
         return greedy_generate(params, self.cfg, prompt_tokens, max_new_tokens, max_len=max_len, steps=self.steps)
 
 
-# page size of the paged pool when the caller names none: the reference
-# CLI's --block-size fallback.  The reference's engine asks its TPU tuner
-# (``auto_page_size``), whose pick is tuned for the TPU kernel's tiles; the
-# port keeps 16 until a tuner for the Hopper kernel picks the page
-DEFAULT_PAGE = 16
-
-
 class ContinuousLMEngine:
     """Continuous-batching LM engine over a fixed pool of decode slots (port
     of ``ContinuousLMEngine``).
@@ -297,6 +291,7 @@ class ContinuousLMEngine:
         OOM-safely, decode writes and reads through the tables — on a CUDA
         pool with the hand-written paged-attention kernel — and retirement
         zeroes the slot's pages, returns them and compacts the pool.
+        ``page_size=None`` takes ``auto_page_size`` for the pool's shape.
         ``max_len`` is rounded up to a page multiple so NB * page equals the
         dense extent: the plain (gather) route is then bit-identical to the
         dense engine.
@@ -397,9 +392,8 @@ class ContinuousLMEngine:
                                        ngram_min=int(spec_ngram_min))
         self.pager = None
         if self.paged:
-            # page 16 when none is named (the reference asks its TPU tuner;
-            # the port keeps the reference CLI's fallback until a Hopper rule)
-            page = int(page_size or DEFAULT_PAGE)
+            # the tuned page of this pool's shape when none is named
+            page = int(page_size or auto_page_size(n_slots, max_len, arch_cfg.n_kv_heads, arch_cfg.hd))
             if page < 1:
                 raise ValueError(f"page_size must be >= 1, got {page}")
             max_len = next_multiple(max_len, page)

@@ -17,7 +17,10 @@ service, dense and paged (with chunked prefill), and holds their tokens
 against each other; ``compare_speculative`` holds speculative decoding
 against plain paged decoding, and ``compare_prefix_sharing`` the prefix
 radix cache against unshared paging on a shared-prefix fan-out workload
-(``SharedPrefixLoadConfig``).
+(``SharedPrefixLoadConfig``).  The fabric helpers (``FabricLoadConfig``,
+``make_lm_fabric``, ``run_fabric``, ``compare_fabric``, ``tp_oracle_err``)
+drive ``serve.fabric``: replica scaling, failover on a fake clock and the
+tp forward against the unmeshed engine.
 """
 
 from __future__ import annotations
@@ -557,3 +560,214 @@ def lm_probe_oracle_err(service) -> Optional[float]:
     return max(
         abs(got[f"decorr_{k}"] - float(v)) / max(abs(float(v)), 1e-6) for k, v in oracle.items()
     )
+
+
+# ---------------------------------------------------------------------------
+# Fabric: replica scaling, deterministic failover, tp-forward oracle
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class FabricLoadConfig:
+    """Mixed fabric workload: the LM request ladder routed across replicas
+    plus an embedding side-channel (both numpy-seeded, so the streams equal
+    the reference's).  The LM stream is what the scaling and failover checks
+    measure; the embedding stream rides along to exercise per-kind routing."""
+
+    lm: LMLoadConfig = LMLoadConfig(n_requests=16, prompt_lens=(4, 8, 14), new_tokens=(8, 16))
+    n_embed: int = 0
+    embed_rows: int = 4
+    input_dim: int = 24
+    seed: int = 0
+
+    def embed_stream(self) -> List[np.ndarray]:
+        """Deterministic embedding request list (empty when n_embed=0)."""
+        rng = np.random.default_rng(self.seed + 1)
+        return [rng.standard_normal((self.embed_rows, self.input_dim)).astype(np.float32) for _ in range(self.n_embed)]
+
+
+def make_lm_fabric(
+    arch_cfg,
+    params,
+    fabric_cfg,
+    load: FabricLoadConfig,
+    *,
+    n_slots: int = 4,
+    max_len: Optional[int] = None,
+    page_size: int = 16,
+    embed_cfg=None,
+    embed_model=None,
+    obs=None,
+    clock=None,
+    engine_kw: Optional[Dict] = None,
+    device: DeviceLike = None,
+):
+    """Stand up a ``ServeFabric`` whose every replica runs a FRESH paged
+    continuous engine (and, when ``embed_cfg`` is given, a fresh embedding
+    service over ``embed_model``) on ``device`` (``cuda`` unless ``"cpu"``
+    is passed), all sharing the read-only ``params``.  Returns ``(fabric,
+    max_len)`` — the pinned cache extent a bit-identity oracle must decode at."""
+    from repro_torch.obs import Obs
+    from repro_torch.serve.engine import ContinuousLMEngine
+    from repro_torch.serve.fabric import ServeFabric
+    from repro_torch.serve.service import LMService
+
+    lm_load = load.lm
+    max_len = int(max_len or max(lm_load.max_request_len + 8, 32))
+    max_len = -(-max_len // page_size) * page_size
+
+    def lm_factory(name):
+        engine = ContinuousLMEngine(
+            arch_cfg, params, n_slots=n_slots, max_len=max_len, max_prompt_len=max(lm_load.prompt_lens),
+            paged=True, page_size=page_size, device=device, **(engine_kw or {}),
+        )
+        return LMService(engine, obs=Obs())
+
+    embed_factory = None
+    if embed_cfg is not None:
+        def embed_factory(name):
+            return EmbeddingService(ServeEngine(embed_cfg, embed_model, device=device), obs=Obs())
+
+    fabric = ServeFabric(fabric_cfg, lm_factory=lm_factory, embed_factory=embed_factory, obs=obs,
+                         clock=clock or time.monotonic)
+    return fabric, max_len
+
+
+def run_fabric(fabric, load: FabricLoadConfig, *, timeout_s: float = 300.0):
+    """Drive one closed-loop burst through the fabric (threaded when
+    ``fabric.start()`` was called, synchronous ticking otherwise).  Returns
+    ``(summary, lm_outs, embed_outs)`` — outputs in submit order, so two runs
+    over the same load compare stream for stream."""
+    lm_svc = next(r.lm for r in fabric.replicas if r.lm is not None)
+    stream = load.lm.request_stream(lm_svc.engine.cfg.vocab_size)
+    lm_futs, em_futs = [], []
+    t_run = time.perf_counter()
+    for tokens, max_new in stream:
+        lm_futs.append(fabric.submit_lm(tokens, max_new))
+    for x in load.embed_stream():
+        em_futs.append(fabric.submit_embed(x))
+    fabric.drain(timeout_s=timeout_s)
+    lm_outs = [f.result(timeout=timeout_s) for f in lm_futs]
+    em_outs = [_host(f.result(timeout=timeout_s)) for f in em_futs]
+    wall = time.perf_counter() - t_run
+    n_tok = sum(len(o) for o in lm_outs)
+    summary = _lm_summary([f.latency_s for f in lm_futs], n_tok, wall)
+    return summary, lm_outs, em_outs
+
+
+def _host(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+def compare_fabric(
+    arch_cfg,
+    params,
+    load: FabricLoadConfig,
+    *,
+    replicas: int = 2,
+    n_slots: int = 4,
+    page_size: int = 16,
+    embed_cfg=None,
+    embed_model=None,
+    heartbeat_timeout_s: float = 5.0,
+    repeats: int = 3,
+    obs=None,
+    device: DeviceLike = None,
+) -> Dict[str, Dict[str, float]]:
+    """Three-leg fabric comparison on one deterministic workload:
+
+      * ``single`` / ``multi`` — threaded 1-replica vs N-replica fabrics,
+        interleaved best-of-``repeats``; route-independent token identity
+        (``token_mismatches``) and the tok/s ratio ``scaling_x``;
+      * ``failover`` — a synchronous 2-replica fabric on a FAKE clock: one
+        replica is killed mid-decode, the clock jumps past the heartbeat
+        timeout, and every requeued request must still emit the exact
+        single-replica token stream (``requeue_token_mismatches == 0``).
+    """
+    from repro_torch.serve.fabric import FabricConfig
+
+    def build(n, clock=None, fab_obs=None):
+        return make_lm_fabric(
+            arch_cfg, params, FabricConfig(replicas=n, heartbeat_timeout_s=heartbeat_timeout_s), load,
+            n_slots=n_slots, page_size=page_size, embed_cfg=embed_cfg, embed_model=embed_model,
+            obs=fab_obs, clock=clock, device=device,
+        )
+
+    prompt_lens = [int(t.shape[0]) for t, _ in load.lm.request_stream(arch_cfg.vocab_size)]
+    single_fab, _ = build(1)
+    multi_fab, _ = build(replicas, fab_obs=obs)
+    for fab in (single_fab, multi_fab):
+        fab.warmup(prompt_lens=prompt_lens).start()
+    # interleaved best-of-N: wall clock is noisy and drifts over a run —
+    # alternating passes samples both fabrics under like conditions, and the
+    # token streams are deterministic on every pass
+    single = multi = single_outs = multi_outs = single_em = multi_em = None
+    try:
+        for _ in range(max(1, repeats)):
+            s, s_outs, s_em = run_fabric(single_fab, load)
+            if single is None or s["tok_per_s"] > single["tok_per_s"]:
+                single, single_outs, single_em = s, s_outs, s_em
+            m, m_outs, m_em = run_fabric(multi_fab, load)
+            if multi is None or m["tok_per_s"] > multi["tok_per_s"]:
+                multi, multi_outs, multi_em = m, m_outs, m_em
+    finally:
+        single_fab.stop()
+        multi_fab.stop()
+    route_mismatches = sum(1 for a, b in zip(single_outs, multi_outs) if not np.array_equal(a, b))
+    embed_err = 0.0
+    for a, b in zip(single_em, multi_em):
+        embed_err = max(embed_err, float(np.max(np.abs(a - b))))
+
+    # failover leg: synchronous ticking on a fake clock so the kill is
+    # mid-decode by construction and detection never sleeps
+    t = {"now": 0.0}
+    fail_fab, _ = build(2, clock=lambda: t["now"])
+    fail_fab.warmup(prompt_lens=prompt_lens)
+    stream = load.lm.request_stream(arch_cfg.vocab_size)
+    futs = [fail_fab.submit_lm(tok, mn) for tok, mn in stream]
+    for _ in range(3):  # let both replicas admit + decode a few ticks
+        fail_fab.step()
+    fail_fab.kill("r0")
+    t["now"] += heartbeat_timeout_s * 2
+    fail_fab.drain()
+    fail_outs = [f.result(timeout=0) for f in futs]
+    requeue_mismatches = sum(1 for a, b in zip(single_outs, fail_outs) if not np.array_equal(a, b))
+    degraded = _lm_summary([f.latency_s for f in futs], sum(len(o) for o in fail_outs), 1.0)
+
+    return {
+        "single": single,
+        "multi": multi,
+        "failover": {
+            "requeued": float(fail_fab.requeued_total),
+            "replicas_dead": float(fail_fab.dead_total),
+            "degraded_p99_ms": degraded["p99_ms"],
+        },
+        "fabric_metrics": multi_fab.metrics(),
+        "gate": {
+            "replicas": float(replicas),
+            "scaling_x": multi["tok_per_s"] / max(single["tok_per_s"], 1e-9),
+            "token_mismatches": float(route_mismatches),
+            "embed_max_abs_err": embed_err,
+            "requeue_token_mismatches": float(requeue_mismatches),
+            "requeued": float(fail_fab.requeued_total),
+        },
+    }
+
+
+def tp_oracle_err(model_cfg, model, *, tp: int = 2, n: int = 24, seed: int = 0, offset: int = 0,
+                  device: DeviceLike = None) -> Optional[float]:
+    """Max relative error between the feature-sharded tp forward
+    (``ServeEngine(mesh=, model_axis="model")`` over the ``(1, tp)`` replica
+    mesh of ranks ``[offset, offset + tp)``, ``make_replica_mesh``) and the
+    unmeshed engine on one deterministic batch.  Every rank of the process
+    group must call it (building the mesh is collective); a rank outside
+    the mesh returns None."""
+    from repro_torch.serve.fabric import make_replica_mesh
+
+    mesh = make_replica_mesh(tp=tp, offset=offset)
+    if mesh is None or mesh.get_coordinate() is None:
+        return None
+    x = np.random.default_rng(seed).standard_normal((n, model_cfg.input_dim)).astype(np.float32)
+    ref = _host(ServeEngine(model_cfg, model, device=device).encode(x))
+    got = _host(ServeEngine(model_cfg, model, mesh=mesh, model_axis="model", device=device).encode(x))
+    return float(np.max(np.abs(got - ref)) / (np.max(np.abs(ref)) + 1e-12))

@@ -649,6 +649,11 @@ class LMService(_ObsAPI):
             return None
         return len(self._pending) + len(pool.active())
 
+    def outstanding(self) -> int:
+        """Requests queued, deferred or holding a slot — the load signal the
+        fabric router reads at dispatch time."""
+        return self.batcher.depth() + len(self._pending) + len(self.engine.pool.active())
+
     def drain(self, max_steps: int = 1_000_000) -> int:
         """Tick until the queue and the pool are empty; returns ticks run."""
         ran = 0

@@ -16,8 +16,10 @@ process group: torchrun's world (gloo for ``--device cpu``, NCCL on
 ``cuda:LOCAL_RANK``), or a group of one without torchrun's environment.
 Only rank 0 logs and writes checkpoints; a checkpoint holds the full tree
 (the ``tp`` output layer gathered), the tree an unsharded run writes, and a
-rerun on the same layout resumes from it.  ``--pretune`` belongs to a later
-slice of the port and raises.
+rerun on the same layout resumes from it.  ``--pretune`` (default
+``analytic``; ``dry``, ``measure`` on the run's device, or ``off``) warms the
+``repro_torch.tune`` choices of the shard-local regularizer shapes before
+the first step (``decorr.warmup_tune_cache``).
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ import torch.distributed as dist
 from repro_torch import resolve_device
 from repro_torch.core.losses import normalized_bt_regularizer
 from repro_torch.data.synthetic import SSLDataConfig, ssl_batch
+from repro_torch.decorr import warmup_tune_cache
 from repro_torch.decorr.config import DecorrConfig
 from repro_torch.launch.mesh import make_mesh_for_devices
 from repro_torch.optim.optimizers import lars, warmup_cosine
@@ -66,8 +69,8 @@ def _args(argv: Optional[Sequence[str]]) -> argparse.Namespace:
                     help="run the sharded step on every rank of the process group in this decorr "
                          "engine mode (default: the single-device step)")
     ap.add_argument("--model-parallel", type=int, default=1, help="model-axis size for --distributed tp")
-    ap.add_argument("--pretune", default=None, choices=["off", "analytic", "dry", "measure"],
-                    help="not ported yet (the tuning slice)")
+    ap.add_argument("--pretune", default="analytic", choices=["off", "analytic", "dry", "measure"],
+                    help="warm the repro_torch.tune choices of the shard-local regularizer shapes first")
     return ap.parse_args(argv)
 
 
@@ -88,10 +91,6 @@ def _init_process_group(dev: torch.device) -> bool:
 def main(argv: Optional[Sequence[str]] = None) -> int:
     """Train, log, checkpoint; print Eq. 16 at the end.  Returns 0."""
     args = _args(argv)
-    if args.pretune not in (None, "off"):
-        raise NotImplementedError(
-            "--pretune needs the tuning slice of the port (the Hopper kernel tuner), which is not ported yet"
-        )
     dev = resolve_device(args.device)
     if args.distributed is None:
         return _train(args, dev, None)
@@ -142,6 +141,15 @@ def _train(args: argparse.Namespace, dev: torch.device, mesh) -> int:
         say(f"[ssl_pretrain] mesh={dict(zip(mesh.mesh_dim_names, mesh.shape))} mode={args.distributed}", flush=True)
         state = create_sharded_ssl_state(model, opt, ssl_param_specs(model_cfg, loss_cfg, mesh), mesh)
         step_fn, _ = make_sharded_ssl_train_step(model_cfg, loss_cfg, opt, sched, mesh)
+
+    if args.pretune != "off":
+        # warm the tuned choices for the SHARD-LOCAL shapes, so no search
+        # lands inside the first step
+        t_tune = time.time()
+        n_jobs = len(warmup_tune_cache(data.batch, model_cfg.projector_widths[-1], loss_cfg, mesh=mesh,
+                                       mode=args.pretune, device=dev))
+        say(f"[ssl_pretrain] pre-tuned {n_jobs} kernel shapes ({args.pretune}, {time.time() - t_tune:.1f}s)",
+            flush=True)
 
     def batch_fn(step):
         v1, v2 = ssl_batch(data, step)

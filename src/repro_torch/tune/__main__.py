@@ -1,0 +1,8 @@
+"""``python -m repro_torch.tune`` == ``python -m repro_torch.tune.cli``."""
+
+import sys
+
+from repro_torch.tune.cli import main
+
+if __name__ == "__main__":
+    sys.exit(main())

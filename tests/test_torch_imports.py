@@ -24,8 +24,8 @@ assert not bad, bad
 
 # the numpy-only serving modules the port keeps its own copies of, the
 # model families and arch configs of the LM serving path, the modules of
-# the LM training path, and those of distributed training / serving and
-# telemetry
+# the LM training path, those of distributed training / serving and
+# telemetry, and the fabric and the tuner
 COPIES = ("repro_torch.data.synthetic", "repro_torch.core.decorrelation", "repro_torch.core.whitening",
           "repro_torch.train.step", "repro_torch.launch.train",
           "repro_torch.serve.sampling", "repro_torch.serve.spec", "repro_torch.serve.paging.radix",
@@ -36,7 +36,12 @@ COPIES = ("repro_torch.data.synthetic", "repro_torch.core.decorrelation", "repro
           "repro_torch.data.pipeline", "repro_torch.ft.elastic", "repro_torch.obs", "repro_torch.obs.registry",
           "repro_torch.obs.recorder", "repro_torch.obs.tracing", "repro_torch.obs.alerts", "repro_torch.obs.http",
           "repro_torch.obs.profiling", "repro_torch.obs.perf", "repro_torch.obs.health", "repro_torch.obs.context",
-          "repro_torch.launch.obs_args")
+          "repro_torch.launch.obs_args",
+          # the serving fabric, the serve launcher, the catalog and the tuner
+          "repro_torch.serve.fabric", "repro_torch.serve.fabric.router", "repro_torch.serve.fabric.failover",
+          "repro_torch.serve.fabric.replica", "repro_torch.launch.serve", "repro_torch.obs.catalog",
+          "repro_torch.tune.cache", "repro_torch.tune.dispatch", "repro_torch.tune.tuner", "repro_torch.tune.cli",
+          "repro_torch.tune.__main__", "repro_torch.decorr.warmup")
 
 SMOKE = r"""
 import importlib.util, sys

@@ -10,8 +10,9 @@
   two microbatches, a dense arch and an MoE arch) within 5e-4 of the
   reference's.
 * The launcher at ``--reduced --steps 4 --decorr --device cpu``: resuming
-  from a checkpoint equals an uninterrupted run; ``--pretune`` other than
-  ``off`` raises; without ``--device cpu`` and no card, it raises.
+  from a checkpoint equals an uninterrupted run; ``--pretune analytic |
+  dry | measure`` warms the aux loss's tuned choices; without ``--device
+  cpu`` and no card, it raises.
 * The aux loss lowers the hidden-state Eq. 16 metric (the twin of
   ``tests/test_system.py``'s framework-feature test).
 * ``core/whitening`` and ``ServeEngine.from_checkpoint`` against the
@@ -20,6 +21,7 @@
 
 import dataclasses
 import functools
+import re
 
 import numpy as np
 import pytest
@@ -366,10 +368,37 @@ def test_launcher_resume_equals_an_uninterrupted_run(tmp_path, capsys):
     assert "decorr=" in out and "done at step 4" in out
 
 
+@pytest.fixture
+def fresh_tune_memo():
+    """An empty tuning memo before and after: a measured pick must not
+    reach the other tests of this process."""
+    from repro_torch.tune import dispatch
+
+    dispatch.clear_memory_cache()
+    yield
+    dispatch.clear_memory_cache()
+
+
 @pytest.mark.parametrize("mode", ["analytic", "dry", "measure"])
-def test_launcher_pretune_raises_and_names_the_tuner(mode):
-    with pytest.raises(NotImplementedError, match="item 7"):
-        launch.train(launch.parse_args(ARGS + ["--pretune", mode]))
+def test_launcher_pretune_warms_the_aux_shapes(mode, tmp_path, monkeypatch, capsys, fresh_tune_memo):
+    """``--pretune`` warms the aux loss's tuned choices (batch *
+    tokens_per_seq rows of width d_model, the reference's shapes) before
+    the first step: afterwards ``best_config`` answers from the memo, and
+    with the cache in a temp directory nothing lands on disk."""
+    from repro_torch.tune import dispatch
+
+    monkeypatch.setenv("REPRO_TUNE_CACHE", str(tmp_path))
+    state = launch.train(launch.parse_args(ARGS + ["--steps", "1", "--pretune", mode]))
+    assert state.step == 1
+    out = capsys.readouterr().out
+    jobs = int(re.search(r"pre-tuned (\d+) decorr kernel shapes \(" + mode, out).group(1))
+    # the measured picks may change the derived shapes; the analytic and dry ones are fixed
+    assert jobs == 14 if mode != "measure" else jobs > 0
+    searches = []
+    monkeypatch.setattr(dispatch, "_analytic_search", lambda *a: searches.append(a))
+    d = get_config("gemma2-2b").reduced().d_model
+    assert dispatch.best_config("sumvec_fft_plan", (d,)) and searches == []
+    assert list(tmp_path.iterdir()) == []
 
 
 def test_launcher_without_a_card_raises(monkeypatch):

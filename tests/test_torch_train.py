@@ -13,6 +13,7 @@
 """
 
 import functools
+import re
 import os
 
 import numpy as np
@@ -380,9 +381,36 @@ def test_cli_tiny_on_cpu_trains_checkpoints_and_reports_eq16(tmp_path, capsys):
     assert latest_step(str(tmp_path)) == 6
 
 
-@pytest.mark.parametrize("flag", [["--pretune", "measure"], ["--pretune", "analytic"]])
-def test_cli_refuses_later_slices(flag):
-    from repro_torch.train import cli
+@pytest.fixture
+def fresh_tune_memo():
+    """An empty tuning memo before and after: a measured pick must not
+    reach the other tests of this process."""
+    from repro_torch.tune import dispatch
 
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        cli.main(["--tiny", "--device", "cpu", *flag])
+    dispatch.clear_memory_cache()
+    yield
+    dispatch.clear_memory_cache()
+
+
+@pytest.mark.parametrize("mode", ["analytic", "dry", "measure"])
+def test_cli_pretune_warms_the_tuned_choices(mode, tmp_path, monkeypatch, capsys, fresh_tune_memo):
+    """``--pretune`` warms the regularizer's tuned choices before the first
+    step: afterwards ``best_config`` answers from the memo (no search), and
+    with the cache in a temp directory nothing lands on disk (the launcher
+    warms, the offline tuner persists)."""
+    from repro_torch.train import cli
+    from repro_torch.tune import dispatch, is_legal
+
+    monkeypatch.setenv("REPRO_TUNE_CACHE", str(tmp_path))
+    assert cli.main(["--tiny", "--device", "cpu", "--steps", "2", "--pretune", mode]) == 0
+    out = capsys.readouterr().out
+    jobs = int(re.search(r"pre-tuned (\d+) kernel shapes \(" + mode, out).group(1))
+    # the measured picks may change the derived shapes; the analytic and dry ones are fixed
+    assert jobs == 13 if mode != "measure" else jobs > 0
+    assert "final step=2" in out
+    searches = []
+    monkeypatch.setattr(dispatch, "_analytic_search", lambda *a: searches.append(a))
+    plan = dispatch.best_config("sumvec_fft_plan", (256,))
+    assert searches == [] and is_legal("sumvec_fft_plan", (256,), plan)
+    assert mode == "measure" or plan == {"dp": 256, "d1": 16, "d2": 16}  # a measured pick may differ
+    assert list(tmp_path.iterdir()) == []

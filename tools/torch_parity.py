@@ -10,9 +10,9 @@ Run from the repo root:
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tools/torch_parity.py
 
-``--only dist_serve,obs`` prints the rows of the named sections alone (the
-section functions' names without ``_rows``; the base rows run only
-without it).
+``--only dist_serve,obs,fabric,tune`` prints the rows of the named sections
+alone (the section functions' names without ``_rows``; the base rows run
+only without it).
 """
 
 from __future__ import annotations
@@ -988,7 +988,130 @@ def _obs_rows(row):
     return out
 
 
-SECTIONS = {"dist_serve": _dist_serve_rows, "obs": _obs_rows}
+def _fabric_rows(row):
+    """Slice 5b: the serving fabric on reduced gemma2-2b (the reference's
+    weights, ``tests/test_torch_fabric.py``'s runs): affinity keys and
+    router scores on seeded inputs, the failover run's tokens and flight
+    counts and the mixed run's embeddings and tokens, port vs reference."""
+    import os
+    import sys
+
+    import jax
+    import torch
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tests"))
+    import test_torch_fabric as tf
+
+    from repro.configs import get_config as ref_config
+    from repro.models import init_params as ref_init
+    from repro.obs import Obs as RefObs
+    from repro.serve import EmbeddingService as RefEmbeddingService
+    from repro.serve import ServeEngine as RefServeEngine
+    from repro.serve.fabric import FabricConfig as RefFabricConfig
+    from repro.serve.fabric import Router as RefRouter
+    from repro.serve.fabric import ServeFabric as RefServeFabric
+    from repro.serve.fabric import prefix_key as ref_prefix_key
+    from repro.train.ssl import init_ssl_params
+    from repro_torch.configs import get_config
+    from repro_torch.models import params_from_jax
+    from repro_torch.obs import Obs
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.fabric import FabricConfig, Router, ServeFabric, prefix_key
+    from repro_torch.serve.service import EmbeddingService
+    from repro_torch.train.ssl import params_from_jax as ssl_params_from_jax
+
+    torch.set_num_threads(1)
+    out = []
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, 256000, int(rng.integers(1, 40))).astype(np.int32) for _ in range(100)]
+    out.append(row("serve/fabric/router", "prefix_key, 100 seeded prompts x k in (1, 4, 16)",
+                   [float(prefix_key(t, k)) for t in prompts for k in (1, 4, 16)],
+                   [float(ref_prefix_key(t, k)) for t in prompts for k in (1, 4, 16)]))
+    snaps = [{"slots_total": float(rng.integers(0, 16)), "slots_occupancy": float(rng.random()),
+              "queue_depth": float(rng.integers(0, 64)), "serve_ttft_seconds_p99": float(rng.random() * 0.2)}
+             for _ in range(100)]
+    for policy in ("least_occupancy", "weighted_ttft"):
+        out.append(row("serve/fabric/router", f"Router.score, {policy}, 100 seeded snapshots",
+                       [Router(policy).score(s) for s in snaps], [RefRouter(policy).score(s) for s in snaps]))
+
+    rcfg = ref_config("gemma2-2b").reduced()
+    rparams = ref_init(jax.random.PRNGKey(0), rcfg)
+    cfg = get_config("gemma2-2b").reduced()
+    gemma = (cfg, params_from_jax(cfg, jax.tree.map(np.asarray, rparams), device="cpu"), rcfg, rparams)
+    prompts = tf._prompts(cfg.vocab_size)
+    obs, ref_obs = Obs(), RefObs()
+    mine, fab = tf._failover_run(ServeFabric, FabricConfig, tf._lm_factory(gemma), obs, prompts)
+    theirs, ref_fab = tf._failover_run(RefServeFabric, RefFabricConfig, tf._ref_lm_factory(gemma), ref_obs, prompts)
+    out.append(row("serve/fabric ServeFabric", f"failover: 6 requests x 6 tokens, 2 replicas, r0 killed "
+                   f"({fab.requeued_total} requeued), tokens", [t.astype(np.float64) for t in mine],
+                   [t.astype(np.float64) for t in theirs]))
+    names = sorted(ref_obs.recorder.counts())
+    out.append(row("serve/fabric ServeFabric", f"failover: flight counts {', '.join(names)}",
+                   [float(obs.recorder.counts().get(n, 0)) for n in names],
+                   [float(ref_obs.recorder.counts()[n]) for n in names]))
+
+    tree = jax.tree.map(np.asarray, init_ssl_params(jax.random.PRNGKey(1), tf.REF_MODEL))
+    model = ssl_params_from_jax(tree, tf.MODEL, device="cpu")
+    x = np.random.default_rng(3).standard_normal((4, 24)).astype(np.float32)
+    res = []
+    for fab_cls, cfg_cls, lm, embed in (
+        (ServeFabric, FabricConfig, tf._lm_factory(gemma),
+         lambda name: EmbeddingService(ServeEngine(tf.MODEL, model, device="cpu"), obs=Obs())),
+        (RefServeFabric, RefFabricConfig, tf._ref_lm_factory(gemma),
+         lambda name: RefEmbeddingService(RefServeEngine(tf.REF_MODEL, jax.tree.map(jax.numpy.asarray, tree)),
+                                          obs=RefObs())),
+    ):
+        f = fab_cls(cfg_cls(replicas=2, heartbeat_timeout_s=5.0), lm_factory=lm, embed_factory=embed)
+        ef, lf = f.submit_embed(x), f.submit_lm(prompts[0], 3)
+        f.drain()
+        e = ef.result(timeout=60)
+        res.append((np.asarray(e.numpy() if torch.is_tensor(e) else e), np.asarray(lf.result(timeout=60))))
+    out.append(row("serve/fabric ServeFabric", "mixed: (4, 24) embedding request, 2 replicas", res[0][0], res[1][0]))
+    out.append(row("serve/fabric ServeFabric", "mixed: the LM request's 3 tokens", res[0][1].astype(np.float64),
+                   res[1][1].astype(np.float64)))
+    return out
+
+
+def _tune_rows(row):
+    """Slice 6b: the tuner's analytic choices against ``repro.tune``'s
+    (``tests/test_torch_tune.py``): the four-step plans, the pinned-b job
+    lists, ``auto_page_size`` and the tp warm-up's shapes."""
+    from repro import tune as ref_tune
+    from repro.decorr import DecorrConfig as RefDecorrConfig
+    from repro.decorr import warmup_tune_cache as ref_warmup
+    from repro.kernels.paged_attention.ops import auto_page_size as ref_auto
+    from repro.tune.cli import jobs_for as ref_jobs_for
+    from repro_torch import tune
+    from repro_torch.decorr import DecorrConfig, warmup_tune_cache
+    from repro_torch.kernels.paged_attention.ops import auto_page_size
+    from repro_torch.tune.cli import jobs_for
+
+    out = []
+    ds = (2048, 8192, 2039, 2304, 5120)
+    pick = lambda fn, d: [float(fn("sumvec_fft_plan", (d,))[k]) for k in ("dp", "d1", "d2")]  # noqa: E731
+    out.append(row("tune/dispatch best_config", "sumvec_fft_plan (dp, d1, d2) at d = 2048, 8192, 2039, 2304, 5120",
+                   [pick(tune.best_config, d) for d in ds], [pick(ref_tune.best_config, d) for d in ds]))
+    for n, d in ((256, 2048), (256, 8192), (64, 2304)):
+        mine = jobs_for(n, d, block_size=128, mode="analytic", persist=False)[1]
+        theirs = ref_jobs_for(n, d, block_size=128, mode="analytic", persist=False)[1]
+        same = [k for k, _ in mine] == [k for k, _ in theirs]
+        out.append(row("tune/cli jobs_for", f"({n}, {d}), b = 128: {len(theirs)} jobs' kernels and shapes",
+                       [float(not same)] + [float(v) for _, s in mine for v in s],
+                       [0.0] + [float(v) for _, s in theirs for v in s]))
+    pools = ((8, 48, 2, 16), (8, 4352, 4, 256), (8, 2048, 8, 128), (40, 4352, 4, 256))
+    out.append(row("kernels/paged_attention auto_page_size", "4 pools (slots, max_len, kv, hd)",
+                   [float(auto_page_size(*p)) for p in pools], [float(ref_auto(*p)) for p in pools]))
+    mine = warmup_tune_cache(256, 2048, DecorrConfig(distributed="tp", block_size=128), data_parallel=2,
+                             model_parallel=2)
+    theirs = ref_warmup(256, 2048, RefDecorrConfig(distributed="tp", block_size=128), data_parallel=2,
+                        model_parallel=2)
+    out.append(row("decorr/warmup warmup_tune_cache", "tp on a (2, 2) mesh: rows of the xcorr job, plan",
+                   [float(mine[1].shape[0])] + [float(v) for v in mine[0].best.values()],
+                   [float(theirs[1].shape[0])] + [float(v) for v in theirs[0].best.values()]))
+    return out
+
+
+SECTIONS = {"dist_serve": _dist_serve_rows, "obs": _obs_rows, "fabric": _fabric_rows, "tune": _tune_rows}
 
 
 def main(argv=None) -> None:
