@@ -3804,6 +3804,330 @@ def phase_lmtrain(ph: Phase, dev):
     torch.cuda.reset_peak_memory_stats()
     return fwd_total, bwd_total
 
+# ---------------------------------------------------------------------------
+# phase launch: the op-level analyzer (launch/hlo_cost) and the roofline join
+# ---------------------------------------------------------------------------
+
+LAUNCH_TRAIN_STEPS = 3
+LAUNCH_AUX = "r_sum q=2 b=128"
+LAUNCH_DISAGREE_MIN = 0.95  # best measured / analytic bound: below it the analyzer overcounts
+LAUNCH_PEAK_TOL = 0.15
+LAUNCH_LM_MAX_PROMPT, LAUNCH_LM_MAX_LEN = 512, 1024
+LAUNCH_TIMED_CALLS = 3
+LAUNCH_CELLS = (("gemma2-2b", "train_4k"), ("gemma2-2b", "prefill_32k"), ("gemma2-2b", "decode_32k"),
+                ("rwkv6-3b", "long_500k"))
+# (e) and (f) in a process of their own: the dry run makes a fake process
+# group of 256 ranks, which must not meet this process's groups
+_LAUNCH_DRYRUN = r"""
+import json, sys
+from repro_torch.launch import dryrun, perf
+for arch, shape in json.loads(sys.argv[1]):
+    print("DRYRUN " + json.dumps(dryrun.run_cell(arch, shape, False)), flush=True)
+recs = {v: perf.build_and_analyze("gemma2-2b", "train_4k", perf.VARIANTS[v]) for v in ("baseline", "decorr_sum")}
+print("PERF " + json.dumps(recs), flush=True)
+"""
+
+
+def _launch_dryrun_start():
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    return subprocess.Popen([sys.executable, "-c", _LAUNCH_DRYRUN, json.dumps(LAUNCH_CELLS)], cwd=ROOT, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def _launch_model_flops(name, train_tokens, n_active, engines):
+    """6 N tokens for the train step, 2 N tokens for a serving executable,
+    None where no model's tokens are counted (the probe)."""
+    if name == "train_step":
+        return 6.0 * n_active * train_tokens
+    for prefix, tokens in engines:
+        if name.startswith(prefix):
+            return 2.0 * tokens(name)
+    return None
+
+
+def _launch_rows(ph, tag, perf, expected, smi, model_flops):
+    """Gate (a): every expected executable attached and measured, best
+    measured time / bound >= LAUNCH_DISAGREE_MIN; print each row."""
+    rows = {r["executable"]: r for r in perf.snapshot()}
+    ph.check(perf.analyzed == len(expected), f"[launch] {tag}: {perf.analyzed} executables attached, "
+                                             f"expected {len(expected)}: {sorted(expected)}")
+    for name in sorted(expected):
+        r = rows.get(name)
+        if r is None or "bound_s" not in r:
+            ph.check(False, f"[launch] {tag}: {name} has no measured row with an analysis")
+            continue
+        ph.check(r["disagreement"] >= LAUNCH_DISAGREE_MIN,
+                 f"[launch] {tag}: {name} best measured / bound = {r['disagreement']:.3g} < {LAUNCH_DISAGREE_MIN}")
+        mf = model_flops(name)
+        print(f"[launch] (a) {tag} {name}: calls {r['calls']} best_ms={r['best_s'] * 1e3:.4f} "
+              f"bound_ms={r['bound_s'] * 1e3:.5f} dominant={r['dominant']} utilization={r['roofline_utilization']:.4g} "
+              f"disagreement={r['disagreement']:.4g} flops={r['flops']:.6g} hbm_bytes={r['hbm_bytes']:.6g} "
+              + (f"model_flops={mf:.6g} flops/model_flops={r['flops'] / mf:.4g}" if mf else "model_flops=-")
+              + f" | {smi}", flush=True)
+
+
+def _launch_time(perf, name, dev, fn):
+    """LAUNCH_TIMED_CALLS calls of an executable, each observed by the timer
+    (device work included)."""
+    for _ in range(LAUNCH_TIMED_CALLS):
+        t0 = perf.start()
+        fn()
+        perf.block(dev)
+        perf.observe(name, perf.elapsed(t0))
+
+
+def _launch_train(ph, dev, smi):
+    """(a) launch/train's path (telemetry on, the step attached by
+    attach_train_step) for LAUNCH_TRAIN_STEPS steps on gemma2-2b f32 with the
+    b = 128 aux; (b) the analyzer's launches of one step against the
+    counters of one real step; (c) its peak against the allocator's."""
+    import argparse
+
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.data import LMDataConfig
+    from repro_torch.launch import hlo_cost
+    from repro_torch.launch.obs_args import attach_train_step, build_train_obs
+    from repro_torch.launch.train import lm_batch_fn
+    from repro_torch.train.loop import LoopConfig, run_training
+
+    cfg = _lmtrain_cfg("gemma2-2b", None, LMTRAIN_ARMS[LAUNCH_AUX][0])
+    batch_fn = lm_batch_fn(cfg, LMDataConfig(cfg.vocab_size, batch=LMTRAIN_BATCH, seq_len=LMTRAIN_SEQ, seed=SEED), dev)
+    _free()
+    state, step = _lmtrain_state(cfg, dev, None)
+    obs = build_train_obs(argparse.Namespace(metrics_port=None, alerts=True))
+    ph.check(attach_train_step(obs, step, state, batch_fn(0)), "[launch] (a) attach_train_step returned False")
+    state = run_training(state, step, batch_fn, LoopConfig(total_steps=LAUNCH_TRAIN_STEPS, log_interval=1),
+                         registry=obs.registry, perf=obs.perf)
+    n_active = cfg.active_param_count()
+    _launch_rows(ph, "train", obs.perf, {"train_step"}, smi,
+                 lambda name: _launch_model_flops(name, LMTRAIN_BATCH * LMTRAIN_SEQ, n_active, ()))
+
+    batch = batch_fn(LAUNCH_TRAIN_STEPS)
+    analysis = hlo_cost.analyze(step, state, batch)
+    _free()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    kernels.reset_launch_counts()
+    state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    counts = _nonzero(kernels.launch_counts())
+    peak_raw = torch.cuda.max_memory_allocated()
+    ph.check(analysis.kernel_launches == counts,
+             f"[launch] (b) train step: analyzer launches {analysis.kernel_launches} != counters {counts}")
+    # the step's own high-water mark over what was allocated before it, plus its arguments
+    real = peak_raw - before + analysis.argument_bytes
+    rel = analysis.peak_bytes / real - 1.0
+    ph.check(abs(rel) <= LAUNCH_PEAK_TOL, f"[launch] (c) analyzer peak {analysis.peak_bytes} vs allocator {real}: "
+                                          f"{rel:+.3g} outside {LAUNCH_PEAK_TOL}")
+    print(f"[launch] (b) train step (aux {LAUNCH_AUX}): analyzer launches {analysis.kernel_launches} | counters of "
+          f"one real step {counts}", flush=True)
+    print(f"[launch] (c) train step peak: analyzer argument_bytes={analysis.argument_bytes} temp_bytes="
+          f"{analysis.temp_bytes} peak={analysis.peak_bytes} | allocator max_memory_allocated={peak_raw} "
+          f"allocated before={before} -> step peak {real} | rel {rel:+.4g} | flops={analysis.flops:.6g} "
+          f"hbm_bytes={analysis.hbm_bytes:.6g} | {smi}", flush=True)
+    launches = dict(counts)
+    del state, step, obs
+    _free()
+    return cfg, batch_fn, launches
+
+
+def _launch_remat(ph, dev, cfg, batch_fn, smi):
+    """(d) the step's loss and gradients with remat on and off (5e-4
+    relative, every leaf), the gradient pass's peak and the median step ms
+    of each."""
+    import dataclasses
+    import statistics
+
+    import torch
+
+    from repro_torch.core.permutation import permutation_for_step
+    from repro_torch.models import ParamTree, init_params
+    from repro_torch.train.step import _lm_loss_fn
+
+    batch = batch_fn(0)
+    perm = permutation_for_step(SEED, 0, cfg.d_model).to(dev)
+    out = {}
+    for remat in (True, False):
+        c = dataclasses.replace(cfg, remat=remat)
+        _free()
+        model = ParamTree(init_params(c, seed=SEED, device=dev))
+        params = list(model.parameters())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        loss, metrics = _lm_loss_fn(model.tree(), batch, c, perm)
+        grads = torch.autograd.grad(loss, params)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        kept = torch.cuda.memory_allocated() - base  # at least the gradients: else something was freed
+        print(f"[launch] (d) remat={remat}: allocated before the pass {base} | peak over it {peak} | still held "
+              f"after it {kept} (its gradients {sum(g.numel() * g.element_size() for g in grads)})", flush=True)
+        loss = float(loss.detach())
+        # nothing of this pass may outlive it: a later pass's baseline would
+        # count it and then see it freed
+        del model, params, metrics
+        _free()
+        state, step = _lmtrain_state(c, dev, None)
+        _, ms = _lmtrain_steps(state, step, [batch_fn(i) for i in range(LAUNCH_TRAIN_STEPS)])
+        del state, step
+        _free()
+        out[remat] = (loss, grads, peak, statistics.median(ms))
+    (l_on, g_on, p_on, ms_on), (l_off, g_off, p_off, ms_off) = out[True], out[False]
+    loss_rel = abs(l_on - l_off) / abs(l_off)
+    grad_rel = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30) for a, b in zip(g_on, g_off))
+    ph.check(loss_rel <= LOSS_TOL, f"[launch] (d) remat loss rel {loss_rel:.3g} > {LOSS_TOL}")
+    ph.check(grad_rel <= LOSS_TOL, f"[launch] (d) remat gradient rel {grad_rel:.3g} > {LOSS_TOL}")
+    ph.check(p_on < p_off, f"[launch] (d) remat peak {p_on} not below no-remat {p_off}")
+    print(f"[launch] (d) remat on / off: loss rel {loss_rel:.3g}, worst leaf gradient rel {grad_rel:.3g} | "
+          f"gradient pass peak over the weights {p_on / 2**30:.3f} / {p_off / 2**30:.3f} GiB | median step ms "
+          f"{ms_on:.3f} / {ms_off:.3f} (f32, {cfg.n_layers} layers, batch {LMTRAIN_BATCH} x {LMTRAIN_SEQ}, "
+          f"aux {LAUNCH_AUX}) | {smi}", flush=True)
+    del out, g_on, g_off
+    _free()
+
+
+def _launch_serving(ph, dev, smi):
+    """(a) the phase-5 engine (bf16; paged, speculative, chunked) and the
+    ssl-paper embedding service with its probe, warmed with a timer, each
+    executable timed LAUNCH_TIMED_CALLS times; (b) the analyzer's launches
+    of one decode tick against the counters of one real tick."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.decorr.config import DecorrConfig
+    from repro_torch.launch import hlo_cost
+    from repro_torch.obs.perf import ExecTimer
+    from repro_torch.serve.engine import ContinuousLMEngine, ServeEngine
+    from repro_torch.serve.probes import DecorrProbe
+    from repro_torch.serve.buckets import bucket_sizes
+    from repro_torch.train.ssl import init_ssl_model
+
+    cfg, params = _lm_model(dev, torch.bfloat16)
+    eng = ContinuousLMEngine(cfg, params, n_slots=LM_SLOTS, max_len=LAUNCH_LM_MAX_LEN,
+                             max_prompt_len=LAUNCH_LM_MAX_PROMPT, paged=True, page_size=LM_PAGE,
+                             prefill_chunk=CHUNK_PREFILL, speculative=True, draft_k=DRAFT_K, device=dev)
+    eng.perf = perf = ExecTimer()
+    buckets = eng.warmup()
+    n = eng.pool.n_slots
+    nb = eng.pager.blocks_per_slot
+    zeros = torch.zeros((n,), dtype=torch.int32, device=dev)
+    bt = torch.zeros((n, nb), dtype=torch.int32, device=dev)
+    vb = n * (DRAFT_K + 1)
+    vzeros = torch.zeros((vb,), dtype=torch.int32, device=dev)
+    vbt = torch.zeros((vb, nb), dtype=torch.int32, device=dev)
+
+    analysis = hlo_cost.analyze(eng._decode, eng.params, eng.caches, zeros, zeros[:, None], block_tables=bt,
+                                impl=eng.impl)
+    kernels.reset_launch_counts()
+    eng.step_logits(eng.caches, zeros, zeros, bt, eng.impl)
+    torch.cuda.synchronize()
+    counts = _nonzero(kernels.launch_counts())
+    ph.check(analysis.kernel_launches == counts,
+             f"[launch] (b) decode tick: analyzer launches {analysis.kernel_launches} != counters {counts}")
+    print(f"[launch] (b) decode tick: analyzer launches {analysis.kernel_launches} | counters of one real tick "
+          f"{counts}", flush=True)
+    launches = dict(counts)
+
+    for length in buckets:
+        toks = torch.zeros((1, length), dtype=torch.int32, device=dev)
+        _launch_time(perf, f"prefill_b{length}", dev, lambda: eng._prefill(eng.params, eng._prefill_template(), toks, 1))
+    kernels.reset_launch_counts()
+    _launch_time(perf, "decode_step", dev, lambda: eng.step_logits(eng.caches, zeros, zeros, bt, eng.impl))
+    _launch_time(perf, "verify_step", dev, lambda: eng.step_logits(eng.caches, vzeros, vzeros, vbt, eng.impl))
+    for k, v in kernels.launch_counts().items():
+        launches[k] = launches.get(k, 0) + v
+    ctoks = torch.zeros((1, CHUNK_PREFILL), dtype=torch.int32, device=dev)
+    _launch_time(perf, "chunk_prefill", dev, lambda: eng._chunk_step(eng.params, eng._chunk_tree, ctoks, 0, 0))
+    expected = {f"prefill_b{b}" for b in buckets} | {"decode_step", "verify_step", "chunk_prefill"}
+    n_active = cfg.active_param_count()
+    per_exec = (("prefill_b", lambda name: n_active * int(name[len("prefill_b"):])),
+                ("decode_step", lambda name: n_active * n), ("verify_step", lambda name: n_active * vb),
+                ("chunk_prefill", lambda name: n_active * CHUNK_PREFILL))
+    _launch_rows(ph, "lm bf16", perf, expected, smi, lambda name: _launch_model_flops(name, 0, 0, per_exec))
+    del eng, params
+    _free()
+
+    model_cfg, policy = _paper()
+    engine = ServeEngine(model_cfg, init_ssl_model(model_cfg, seed=SEED), policy=policy, device=dev)
+    engine.perf = sperf = ExecTimer()
+    probe = DecorrProbe(DecorrConfig(style="vic", reg="sum", q=2, block_size=128), perm_seed=SEED, device=dev)
+    probe.perf = sperf
+    engine.warmup()
+    probe.warmup(model_cfg.projector_widths[-1])
+    sizes = bucket_sizes(policy)
+    kernels.reset_launch_counts()
+    for b in sizes:
+        x = torch.randn((b, model_cfg.input_dim), device=dev)
+        for _ in range(LAUNCH_TIMED_CALLS):
+            engine.encode(x)
+    z = engine.encode(torch.randn((probe.sample_rows or 8, model_cfg.input_dim), device=dev))
+    for _ in range(LAUNCH_TIMED_CALLS):
+        probe.update(z)
+    for k, v in kernels.launch_counts().items():
+        launches[k] = launches.get(k, 0) + v
+    n_params = sum(p.numel() for p in engine.model.parameters())
+    _launch_rows(ph, "ssl-paper serve", sperf, {f"embed_b{b}" for b in sizes} | {"probe_update"}, smi,
+                 lambda name: 2.0 * n_params * int(name[len("embed_b"):]) if name.startswith("embed_b") else None)
+    del engine, probe
+    _free()
+    return launches
+
+
+def _launch_dryrun_finish(ph, proc, smi):
+    """(e) the dry-run cells and (f) the perf variants, from the subprocess."""
+    try:
+        out, _ = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, _ = proc.communicate()
+        ph.check(False, "[launch] (e) the dry-run process ran past 600 s")
+    ph.check(proc.returncode == 0, f"[launch] (e) the dry-run process exited {proc.returncode}: {out[-3000:]}")
+    cells = [json.loads(ln[len("DRYRUN "):]) for ln in out.splitlines() if ln.startswith("DRYRUN ")]
+    ph.check(len(cells) == len(LAUNCH_CELLS), f"[launch] (e) {len(cells)} dry-run records of {len(LAUNCH_CELLS)}")
+    for rec in cells:
+        tag = f"{rec['arch']} {rec['shape']} {rec['mesh']}"
+        ph.check(rec["status"] == "ok", f"[launch] (e) {tag}: {rec['status']} {rec.get('error')}")
+        if rec["status"] != "ok":
+            print(rec.get("traceback", ""), flush=True)
+            continue
+        roof = {k: (f"{v:.4g}" if isinstance(v, float) else v) for k, v in rec["roofline"].items()}
+        print(f"[launch] (e) {tag}: memory {rec['memory']} reference_argument_bytes {rec['reference_argument_bytes']} "
+              f"fits_80gb {rec['fits_80gb']} | collectives { {k: f'{v:.4g}' for k, v in rec['collectives'].items()} } "
+              f"| roofline {roof} | flops {rec['flops']:.6g} model_flops/device {rec['model_flops_per_device']:.6g} "
+              f"| kernels {rec['kernel_launches']} | analysis {rec['compile_s']} s", flush=True)
+    perf_line = [ln for ln in out.splitlines() if ln.startswith("PERF ")]
+    ph.check(len(perf_line) == 1, "[launch] (f) no perf record")
+    if perf_line:
+        recs = json.loads(perf_line[0][len("PERF "):])
+        base, dec = recs["baseline"], recs["decorr_sum"]
+        ph.check(dec["flops"] > base["flops"], "[launch] (f) decorr_sum does not add FLOPs to the baseline")
+        print(f"[launch] (f) gemma2-2b train_4k baseline vs decorr_sum: flops {base['flops']:.8g} -> "
+              f"{dec['flops']:.8g} (+{dec['flops'] - base['flops']:.6g}, {dec['flops'] / base['flops'] - 1:.3g}) | "
+              f"bound_s {base['roofline']['bound_s']:.6g} -> {dec['roofline']['bound_s']:.6g} "
+              f"({dec['roofline']['bound_s'] / base['roofline']['bound_s'] - 1:+.3g}) | kernels "
+              f"{dec['kernel_launches']} | {smi}", flush=True)
+
+
+def phase_launch(ph: Phase, dev):
+    """The launch analysis tools and the roofline join; returns the kernels'
+    launches of the real calls it made."""
+    smi = _smi()
+    proc = _launch_dryrun_start()
+    launches = {}
+    try:
+        cfg, batch_fn, counts = _launch_train(ph, dev, smi)
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        _launch_remat(ph, dev, cfg, batch_fn, smi)
+        for k, v in _launch_serving(ph, dev, smi).items():
+            launches[k] = launches.get(k, 0) + v
+    finally:
+        _launch_dryrun_finish(ph, proc, smi)
+    return launches
+
 
 # ---------------------------------------------------------------------------
 
@@ -3840,7 +4164,8 @@ def main() -> int:
     tuned = ph.run("tune", phase_tune, ph, dev) or {}
     archs = ph.run("archs", phase_archs, ph, dev) or {}
     lmtrain_fwd, lmtrain_bwd = ph.run("lmtrain", phase_lmtrain, ph, dev) or ({}, {})
-    for part in (train_fwd, dist_fwd, obs, lm, fabric, tuned, archs, lmtrain_fwd):
+    launch = ph.run("launch", phase_launch, ph, dev) or {}
+    for part in (train_fwd, dist_fwd, obs, lm, fabric, tuned, archs, lmtrain_fwd, launch):
         for k, v in part.items():
             launches[k] = launches.get(k, 0) + v
     for part in (dist_bwd, lmtrain_bwd):

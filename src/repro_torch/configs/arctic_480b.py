@@ -4,6 +4,8 @@ with a DENSE residual MLP in parallel on every layer.
 
 Port of ``repro/configs/arctic_480b.py``: the same fields, torch dtypes."""
 
+import torch
+
 from repro_torch.models.common import ArchConfig, BlockSpec
 
 
@@ -25,5 +27,6 @@ def config() -> ArchConfig:
         dense_residual=True,
         moe_group_size=4096,  # dispatch per 4096-token group: O(T*G), not O(T^2)
         tie_embeddings=False,
+        optimizer_moment_dtype=torch.bfloat16,
         source="hf:Snowflake/snowflake-arctic-base; hf",
     )

@@ -5,6 +5,8 @@ layer (odd positions).
 
 Port of ``repro/configs/jamba_v01_52b.py``: the same fields, torch dtypes."""
 
+import torch
+
 from repro_torch.models.common import ArchConfig, BlockSpec
 
 
@@ -34,5 +36,7 @@ def config() -> ArchConfig:
         ssm_expand=2,
         moe_group_size=4096,
         tie_embeddings=False,
+        ssm_unroll=8,
+        optimizer_moment_dtype=torch.bfloat16,
         source="arXiv:2403.19887; hf",
     )

@@ -4,6 +4,8 @@ top-1 MoE with an always-on shared expert; early-fusion frontend stubbed (token 
 
 Port of ``repro/configs/llama4_scout.py``: the same fields, torch dtypes."""
 
+import torch
+
 from repro_torch.models.common import ArchConfig, BlockSpec
 
 
@@ -26,5 +28,6 @@ def config() -> ArchConfig:
         moe_group_size=4096,
         rope_theta=5e5,
         tie_embeddings=False,
+        optimizer_moment_dtype=torch.bfloat16,
         source="hf:meta-llama/Llama-4-Scout-17B-16E; unverified",
     )

@@ -3,6 +3,8 @@ kv=8) d_ff=73728 vocab=256000 — squared-ReLU MLP (no gate).
 
 Port of ``repro/configs/nemotron4_340b.py``: the same fields, torch dtypes."""
 
+import torch
+
 from repro_torch.models.common import ArchConfig, BlockSpec
 
 
@@ -21,5 +23,6 @@ def config() -> ArchConfig:
         activation="squared_relu",
         rope_theta=10000.0,
         tie_embeddings=False,
+        optimizer_moment_dtype=torch.bfloat16,
         source="arXiv:2402.16819; unverified",
     )

@@ -10,6 +10,12 @@ flags, so an edited source never loads a stale library.
 
 Target: ``sm_90a`` (Hopper).  Nothing here runs at import time: the CPU-only
 tests import every module, and only a launch on a CUDA tensor builds.
+
+A launch whose operands are fake (``FakeTensor``: the op-level cost
+analyzer ``launch/hlo_cost.analyze`` runs a path on fake copies) builds and
+calls nothing: it reports (family, name, the tensor operands, the scalar
+operands) to the analysis that owns the operands' fake mode and returns
+False.  A real launch reports to an analysis open on its thread, if any.
 """
 
 from __future__ import annotations
@@ -21,9 +27,11 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Callable, Dict, Tuple
 
 import torch
+
+from repro_torch.kernels.utils import is_fake
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -40,6 +48,24 @@ NVCC_FLAGS = (
 _lock = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _FNS: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
+# open analyses: keyed by id(fake mode) for fake launches (a backward pass
+# runs on autograd's threads) and by thread id for real ones
+_RECORDERS: Dict[Tuple[str, int], Callable] = {}
+
+
+def add_recorder(fake_mode, record: Callable) -> Callable[[], None]:
+    """Report every launch on ``fake_mode``'s tensors, and every real
+    launch of this thread, to ``record(family, name, args)`` until the
+    returned function is called."""
+    keys = (("mode", id(fake_mode)), ("thread", threading.get_ident()))
+    for key in keys:
+        _RECORDERS[key] = record
+
+    def remove() -> None:
+        for key in keys:
+            _RECORDERS.pop(key, None)
+
+    return remove
 
 
 def _nvcc() -> str:
@@ -126,15 +152,27 @@ def _function(family: str, name: str, args) -> "ctypes._CFuncPtr":
     return fn
 
 
-def launch(family: str, name: str, device: torch.device, *args) -> None:
+def launch(family: str, name: str, device: torch.device, *args) -> bool:
     """Call ``<family>_<name>`` on ``device``'s current stream and raise if
-    the launch failed.  ``args``: CUDA tensors (passed by data pointer),
-    None (a NULL pointer), Python ints (C ints) or floats (C floats), in the
-    C signature's order; the stream is appended.  Does not synchronise.
+    the launch failed; True when it launched.  ``args``: CUDA tensors
+    (passed by data pointer), None (a NULL pointer), Python ints (C ints) or
+    floats (C floats), in the C signature's order; the stream is appended.
+    Does not synchronise.  Fake operands launch nothing and return False
+    (see the module note); the wrappers count a launch only on True.
 
     The common case — ``device`` is already the current device — costs one
     raw stream lookup and the ctypes call: no device guard is entered and no
     ``torch.cuda.Stream`` object is built."""
+    if is_fake(*args):
+        mode = next(a.fake_mode for a in args if is_fake(a))
+        record = _RECORDERS.get(("mode", id(mode)))
+        if record is not None:
+            record(family, name, args)
+        return False
+    if _RECORDERS:
+        record = _RECORDERS.get(("thread", threading.get_ident()))
+        if record is not None:
+            record(family, name, args)
     fn = _function(family, name, args)
     conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     current = torch.cuda.current_device()
@@ -146,6 +184,7 @@ def launch(family: str, name: str, device: torch.device, *args) -> None:
         with torch.cuda.device(index):
             code = fn(*conv, stream)
     _check_status(family, code, name)
+    return True
 
 
 def _check_status(family: str, code: int, kernel: str) -> None:

@@ -54,8 +54,8 @@ def _pmatmul_launch(a: Tensor, b: Tensor, *, bwd_owner=None) -> Tensor:
     check_operand("pmatmul b", b, (k, n))
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
     if m and n:
-        build.launch(FAMILY, "pmatmul", a.device, a, b, out, m, k, n)
-        count_launch(pmatmul, bwd_owner)
+        if build.launch(FAMILY, "pmatmul", a.device, a, b, out, m, k, n):
+            count_launch(pmatmul, bwd_owner)
     return out
 
 
@@ -109,8 +109,8 @@ def _freq_outer_launch(a: Tensor, b: Tensor, *, bwd_owner=None) -> Tensor:
     check_operand("freq_outer b", b, (f, k, nb))
     out = torch.empty((f, n, nb), dtype=torch.float32, device=a.device)
     if f and n and nb:
-        build.launch(FAMILY, "freq_outer", a.device, a, b, out, f, k, n, nb)
-        count_launch(freq_outer, bwd_owner)
+        if build.launch(FAMILY, "freq_outer", a.device, a, b, out, f, k, n, nb):
+            count_launch(freq_outer, bwd_owner)
     return out
 
 
@@ -163,8 +163,8 @@ def _freq_mat_launch(a: Tensor, m: Tensor, *, bwd_owner=None) -> Tensor:
     check_operand("freq_mat m", m, (f, n, n2))
     out = torch.empty((f, k, n2), dtype=torch.float32, device=a.device)
     if f and k and n2:
-        build.launch(FAMILY, "freq_mat", a.device, a, m, out, f, k, n, n2)
-        count_launch(freq_mat, bwd_owner)
+        if build.launch(FAMILY, "freq_mat", a.device, a, m, out, f, k, n, n2):
+            count_launch(freq_mat, bwd_owner)
     return out
 
 

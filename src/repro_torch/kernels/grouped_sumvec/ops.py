@@ -15,7 +15,6 @@ Complexity: O(n d b) for the DFT + O(n (d/b)^2 b) for the pairwise stage.
 
 from __future__ import annotations
 
-import functools
 from typing import Optional, Tuple
 
 import torch
@@ -23,7 +22,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.sumvec import rfft_parseval_weights
 from repro_torch.kernels.grouped_sumvec import kernel as K
-from repro_torch.kernels.utils import dft_matrices, irfft_basis
+from repro_torch.kernels.utils import dft_matrices, irfft_basis, tensor_cache
 from repro_torch.tune.space import grouped_block_size_candidates
 
 Tensor = torch.Tensor
@@ -49,18 +48,18 @@ def _blockify(z: Tensor, b: int) -> Tensor:
     return z.reshape(n, -1, b)
 
 
-@functools.lru_cache(maxsize=32)
+@tensor_cache(maxsize=32)
 def _dft_basis(b: int, device=None) -> Tensor:
     cr, ci = dft_matrices(b, device)
     return torch.cat([cr, ci], dim=1).contiguous()  # (b, 2 nf), read-only
 
 
-@functools.lru_cache(maxsize=32)
+@tensor_cache(maxsize=32)
 def _dft_basis_t(b: int, device=None) -> Tensor:
     return _dft_basis(b, device).T.contiguous()  # (2 nf, b), for the vjp
 
 
-@functools.lru_cache(maxsize=32)
+@tensor_cache(maxsize=32)
 def _synthesis_t(b: int, device=None) -> Tuple[Tensor, Tensor]:
     br, bi = irfft_basis(b, device)
     return br.T.contiguous(), bi.T.contiguous()  # (b, nf) each, for the vjp

@@ -22,7 +22,7 @@ import torch
 
 from repro_torch.kernels import build, count_launch
 from repro_torch.kernels.paged_attention.ops import paged_decode_plain
-from repro_torch.kernels.utils import route
+from repro_torch.kernels.utils import is_fake, route
 
 Tensor = torch.Tensor
 FAMILY = "paged_attention"
@@ -92,7 +92,7 @@ def paged_decode_attention(
     _check("v_pages", v_pages, (p_total, page, kv, hd), (k_pages.dtype,))
     _check("block_tables", block_tables, (b, nb), (torch.int32,))
     _check("lens", lens, (b,), (torch.int32,))
-    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+    if not is_fake(k_pages) and (k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16):
         raise ValueError("paged_attention: page pools must start on a 16-byte boundary (the kernel's vector loads)")
     out = torch.empty((b, h, hd), dtype=torch.float32, device=q.device)
     if b:
@@ -102,12 +102,12 @@ def paged_decode_attention(
         # (B, KV, S, n_rep, 2) running max and normaliser
         part = torch.empty((b * kv * splits * n_rep * (hd + 2),), dtype=torch.float32, device=q.device) \
             if splits > 1 else None
-        build.launch(
+        if build.launch(
             FAMILY, "decode", q.device, q, k_pages, v_pages, block_tables, lens, out, part,
             b, kv, n_rep, hd, page, nb, splits, float(scale), float(softcap or 0.0), window,
             PAGE_DTYPES[k_pages.dtype],
-        )
-        count_launch(paged_decode_attention)
+        ):
+            count_launch(paged_decode_attention)
     return out
 
 

@@ -67,8 +67,8 @@ def _cmatmul_launch(ar, ai, br, bi, *, real_out: bool = False, bwd_owner=None):
     cr = torch.empty((m, n), dtype=torch.float32, device=ar.device)
     ci = None if real_out else torch.empty_like(cr)
     if m and n:
-        build.launch(FAMILY, "cmatmul", ar.device, ar, ai, br, bi, cr, ci, m, k, n)
-        count_launch(cmatmul, bwd_owner)
+        if build.launch(FAMILY, "cmatmul", ar.device, ar, ai, br, bi, cr, ci, m, k, n):
+            count_launch(cmatmul, bwd_owner)
     return cr, ci
 
 
@@ -148,8 +148,8 @@ def _ctwiddle_launch(xr, xi, wr, wi, *, bwd_owner=None) -> Pair:
     yr = torch.empty_like(xr)
     yi = torch.empty_like(xi)
     if n and d:
-        build.launch(FAMILY, "ctwiddle", xr.device, xr, xi, wr, wi, yr, yi, n, d)
-        count_launch(ctwiddle, bwd_owner)
+        if build.launch(FAMILY, "ctwiddle", xr.device, xr, xi, wr, wi, yr, yi, n, d):
+            count_launch(ctwiddle, bwd_owner)
     return yr, yi
 
 

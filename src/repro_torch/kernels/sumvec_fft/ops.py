@@ -25,14 +25,13 @@ correlation folds back exactly onto the d circular lags
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.kernels.sumvec_fft import kernel as K
-from repro_torch.kernels.utils import full_dft_adjoint, full_dft_matrices, pad_axis
+from repro_torch.kernels.utils import full_dft_adjoint, full_dft_matrices, pad_axis, tensor_cache
 from repro_torch.tune.dispatch import best_config
 
 Tensor = torch.Tensor
@@ -76,7 +75,7 @@ def fft_plan(d: int) -> FFTPlan:
     return FFTPlan(d=d, dp=cfg["dp"], d1=cfg["d1"], d2=cfg["d2"])
 
 
-@functools.lru_cache(maxsize=64)
+@tensor_cache(maxsize=64)
 def _twiddle(d1: int, d2: int, sign: int, device=None) -> Tuple[Tensor, Tensor]:
     """W_d^{sign * t2 * k1} flattened to (d2 * d1,) in [t2, k1] order
     (a read-only constant shared by every caller)."""
@@ -88,7 +87,7 @@ def _twiddle(d1: int, d2: int, sign: int, device=None) -> Tuple[Tensor, Tensor]:
     return as_t(np.cos(ang)), as_t(np.sin(ang))
 
 
-@functools.lru_cache(maxsize=64)
+@tensor_cache(maxsize=64)
 def _twiddle_conj(d1: int, d2: int, sign: int, device=None) -> Tuple[Tensor, Tensor]:
     """conj of ``_twiddle(d1, d2, sign, device)``: the ctwiddle vjp's plane."""
     wr, wi = _twiddle(d1, d2, sign, device)

@@ -7,6 +7,12 @@ four-step plan and the grouped block split) remains.  The bases are built in
 float64 numpy and rounded once to float32, exactly as the reference builds
 them, so the two agree to the last bit; their conjugate transposes (for the
 vjps) are cached beside them.
+
+``is_fake`` says whether an operand is a ``FakeTensor`` (the op-level cost
+analyzer, ``launch/hlo_cost``, runs the path on fake copies): a wrapper then
+reports its launch and launches nothing.  The bases' caches are bypassed
+while a fake mode is active, so a constant built for an analysis never
+reaches a real call, nor a real one an analysis.
 """
 
 from __future__ import annotations
@@ -17,8 +23,35 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import FakeTensor
 
 Tensor = torch.Tensor
+
+
+def is_fake(*xs) -> bool:
+    """True when any operand is a ``FakeTensor`` (shapes and dtypes only,
+    no memory behind it)."""
+    return any(isinstance(x, FakeTensor) for x in xs)
+
+
+def tensor_cache(maxsize: int):
+    """``functools.lru_cache`` for builders of constant tensors, bypassed
+    while a ``FakeTensorMode`` is active (a fake constant is built afresh
+    and never cached)."""
+
+    def wrap(fn):
+        cached = functools.lru_cache(maxsize=maxsize)(fn)
+
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            if torch._C._get_dispatch_mode(torch._C._TorchDispatchModeKey.FAKE) is not None:
+                return fn(*args, **kwargs)
+            return cached(*args, **kwargs)
+
+        call.cache_clear = cached.cache_clear
+        return call
+
+    return wrap
 
 
 def next_multiple(x: int, m: int) -> int:
@@ -43,7 +76,7 @@ def _as_tensor(a: np.ndarray, device) -> Tensor:
 
 # The bases below are constants of (d, device): each is built once and shared
 # by every caller, which must treat it as read-only.
-@functools.lru_cache(maxsize=64)
+@tensor_cache(maxsize=64)
 def dft_matrices(d: int, device=None) -> Tuple[Tensor, Tensor]:
     """Real/imag rfft basis: F[f] = sum_t z[t] * (Cr[t,f] + i Ci[t,f]).
 
@@ -57,7 +90,7 @@ def dft_matrices(d: int, device=None) -> Tuple[Tensor, Tensor]:
     return _as_tensor(np.cos(ang), device), _as_tensor(-np.sin(ang), device)
 
 
-@functools.lru_cache(maxsize=64)
+@tensor_cache(maxsize=64)
 def full_dft_matrices(d: int, sign: int = -1, device=None) -> Tuple[Tensor, Tensor]:
     """Full complex DFT basis W[t, f] = exp(sign * 2 pi i t f / d) as (re, im)."""
     t = np.arange(d)[:, None]
@@ -66,7 +99,7 @@ def full_dft_matrices(d: int, sign: int = -1, device=None) -> Tuple[Tensor, Tens
     return _as_tensor(np.cos(ang), device), _as_tensor(np.sin(ang), device)
 
 
-@functools.lru_cache(maxsize=64)
+@tensor_cache(maxsize=64)
 def full_dft_adjoint(d: int, sign: int = -1, device=None) -> Tuple[Tensor, Tensor]:
     """W^H of ``full_dft_matrices(d, sign, device)`` as contiguous (re, im)
     planes (Wr^T, -Wi^T): the operand of the cmatmul vjp's dA = g @ W^H."""
@@ -74,7 +107,7 @@ def full_dft_adjoint(d: int, sign: int = -1, device=None) -> Tuple[Tensor, Tenso
     return wr.T.contiguous(), (-wi).T.contiguous()
 
 
-@functools.lru_cache(maxsize=64)
+@tensor_cache(maxsize=64)
 def irfft_basis(d: int, device=None) -> Tuple[Tensor, Tensor]:
     """Synthesis basis: s[t] = sum_f  Br[f, t] * Gr[f] + Bi[f, t] * Gi[f].
 

@@ -48,8 +48,8 @@ def off_diagonal_sq_sum_raw(z1: Tensor, z2: Tensor) -> Tensor:
     if n and d:
         tiles = -(-d // TILE)
         partial = torch.empty((tiles * tiles,), dtype=torch.float32, device=z1.device)
-        build.launch(FAMILY, "off_diagonal_sq_sum", z1.device, z1, z2, partial, out, n, d)
-        count_launch(off_diagonal_sq_sum_raw)
+        if build.launch(FAMILY, "off_diagonal_sq_sum", z1.device, z1, z2, partial, out, n, d):
+            count_launch(off_diagonal_sq_sum_raw)
     return out
 
 

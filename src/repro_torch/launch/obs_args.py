@@ -7,15 +7,14 @@ scrapeable exactly like a serving one:
 
     obs = build_train_obs(args)                       # None when not asked
     ...
+    attach_train_step(obs, step_fn, state, batch)    # the roofline join
     run_training(..., registry=obs.registry if obs else None,
                  perf=obs.perf if obs else None)
     finish_train_obs(args, obs)
 
 ``build_train_obs`` returns ``None`` when neither flag was given — default
 runs stay completely telemetry-free (no registry on the step path), matching
-the previous behavior byte for byte.  The reference's ``attach_train_step``
-(an HLO roofline join of the jitted step) goes with the launch analysis
-tools and is not here.
+the previous behavior byte for byte.
 """
 
 from __future__ import annotations
@@ -48,6 +47,19 @@ def build_train_obs(args) -> Optional["Obs"]:
     from repro_torch.obs import AlertManager, Obs, default_train_rules
 
     return Obs(alerts=AlertManager(default_train_rules() if args.alerts else ()))
+
+
+def attach_train_step(obs, step_fn, state, batch) -> bool:
+    """Best-effort attribution join for the train step: its op-level
+    FLOPs / bytes, analysed on fake copies of the state and the batch
+    (``ExecTimer.attach_jit``; the real state is not touched) -> roofline
+    gauges.  Never fails the run."""
+    if obs is None:
+        return False
+    try:
+        return obs.perf.attach_jit("train_step", step_fn, state, batch)
+    except Exception:
+        return False
 
 
 def finish_train_obs(args, obs, *, host: str = "127.0.0.1") -> None:

@@ -13,8 +13,9 @@ on ``--device``, or ``off``) warms the ``repro_torch.tune`` choices of the
 aux loss's shapes (batch * tokens_per_seq rows of width d_model) before the
 first step (``decorr.warmup_tune_cache``).
 ``--metrics-port`` / ``--alerts`` turn the telemetry on (``launch/obs_args``):
-per-phase histograms, ``train_*`` gauges and the step's device-inclusive
-time, scraped once over HTTP at the end.
+per-phase histograms, ``train_*`` gauges, the step's device-inclusive
+time and its roofline join (``attach_train_step``), scraped once over HTTP
+at the end.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ from repro_torch import resolve_device
 from repro_torch.configs import get_config
 from repro_torch.core.decorrelation import LMDecorrConfig
 from repro_torch.data.synthetic import LMDataConfig, lm_batch
-from repro_torch.launch.obs_args import add_obs_args, build_train_obs, finish_train_obs
+from repro_torch.launch.obs_args import add_obs_args, attach_train_step, build_train_obs, finish_train_obs
 from repro_torch.decorr.config import DecorrConfig
 from repro_torch.models.common import ArchConfig
 from repro_torch.models.transformer import ParamTree, init_params
@@ -137,8 +138,12 @@ def train(args: argparse.Namespace) -> TrainState:
               f"decorr={m.get('decorr_aux', 0):.5f} ({time.time() - t0:.1f}s)", flush=True)
 
     obs = build_train_obs(args)
+    batch_fn = lm_batch_fn(cfg, data, dev)
+    if obs is not None:
+        # the step's roofline join, analysed on fake copies (nothing runs)
+        attach_train_step(obs, step_fn, state, batch_fn(0))
     state = run_training(
-        state, step_fn, lm_batch_fn(cfg, data, dev), lcfg, log_fn=log_fn,
+        state, step_fn, batch_fn, lcfg, log_fn=log_fn,
         registry=obs.registry if obs is not None else None,
         perf=obs.perf if obs is not None else None,
     )

@@ -25,6 +25,7 @@ import torch
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.kernels.paged_attention.kernel import paged_decode_attention
 from repro_torch.models.common import ArchConfig, BlockSpec, softcap
+from repro_torch.parallel import sharding as shd
 
 Tensor = torch.Tensor
 
@@ -102,7 +103,24 @@ def _project_qkv(params, x: Tensor, cfg: ArchConfig, positions: Tensor):
         pos2d = positions if positions.dim() == 2 else positions[0]
         q = apply_rope(q, pos2d, cfg.rope_theta)
         k = apply_rope(k, pos2d, cfg.rope_theta)
-    return q, k, v.reshape(b, s, kv, hd)
+    v = v.reshape(b, s, kv, hd)
+    # layout annotations, the reference's line for line (``shard`` is a no-op
+    # in eager PyTorch: no compiler to hint)
+    if cfg.seq_shard_attention:
+        mesh = shd.current_mesh()
+        n_model = 1
+        if mesh is not None:
+            names = tuple(mesh.mesh_dim_names or ())
+            for ax in shd.current_rules().get("heads") or ():
+                if ax in names:
+                    n_model *= int(mesh.shape[names.index(ax)])
+        if h % max(n_model, 1) != 0:
+            # heads unshardable: shard query-sequence over `model`; k/v stay
+            # replicated so scores/softmax/out are fully shard-local.
+            q = shd.shard(q, ("batch", "kv_seq", None, None))
+            return q, k, v
+    q = shd.shard(q, ("batch", None, "heads", None))
+    return q, k, v
 
 
 def _repeat_kv(x: Tensor, n_rep: int) -> Tensor:

@@ -65,9 +65,14 @@ class ArchConfig:
     # takes the chunked, flash-style path (``attention._chunked_attention``)
     attn_chunk_threshold: int = 8192
     attn_chunk_size: int = 2048
+    # when n_heads % model-parallelism != 0, annotate attention's query
+    # sequence over `model` instead of its heads (``parallel.sharding.shard``
+    # annotations: layout hints, no-ops in eager PyTorch)
+    seq_shard_attention: bool = False
 
     # mlp
     activation: str = "swiglu"  # swiglu | gelu | squared_relu
+    mlp_bias: bool = False  # read by no layer, in the reference as here
 
     # moe
     n_experts: int = 0
@@ -86,6 +91,10 @@ class ArchConfig:
     # rwkv6
     rwkv_head_dim: int = 64
     rwkv_chunk: Optional[int] = None  # chunk-parallel prefill recurrence
+    # XLA's scan unroll hint in the reference; the port's recurrence is an
+    # eager Python loop, so the field changes nothing (it exists so every
+    # reference variant builds)
+    ssm_unroll: int = 1
 
     # norms / embeddings
     rms_eps: float = 1e-6
@@ -98,9 +107,15 @@ class ArchConfig:
     # dtypes
     param_dtype: torch.dtype = torch.bfloat16
     compute_dtype: torch.dtype = torch.bfloat16
+    optimizer_moment_dtype: torch.dtype = torch.float32  # AdamW's m and v
 
     # training features: the paper's aux loss on the final hidden states
     decorr: LMDecorrConfig = dataclasses.field(default_factory=LMDecorrConfig)
+    # per-layer rematerialisation while autograd records: "nothing" saves
+    # no activation inside a block (recomputed in the backward pass),
+    # "dots" saves the matrix products' outputs (``models.transformer``)
+    remat: bool = True
+    remat_policy: str = "nothing"  # nothing | dots
 
     source: str = ""
 
@@ -124,6 +139,13 @@ class ArchConfig:
     def is_attention_free(self) -> bool:
         """True when no pattern position attends (RWKV)."""
         return all(b.mixer != "attn" for b in self.pattern)
+
+    @property
+    def supports_long_context(self) -> bool:
+        """True if decode cost is sub-quadratic in context (SSM / hybrid)."""
+        return all(b.mixer != "attn" or b.attn_type == "local" for b in self.pattern) or (
+            self.family in ("ssm", "hybrid")
+        )
 
     def param_count(self) -> int:
         """Approximate total parameter count (embeddings + blocks), as the

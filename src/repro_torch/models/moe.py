@@ -124,12 +124,15 @@ def _moe_groups(params: Dict[str, Tensor], xg: Tensor, cfg: ArchConfig, axis=Non
         pos = pos + off[torch.arange(k, device=xg.device), expert_idx]
     keep = pos < cap
 
-    # dispatch: kept (group, token, choice) -> expert buffer (E, n, C, d)
+    # dispatch: kept (group, token, choice) -> expert buffer (E, n, C, d).  A
+    # dropped claim lands in a spare slot C that is cut off: the shapes never
+    # depend on the routing (no host sync, and a fake-tensor analysis runs it)
     grp = torch.arange(n, device=xg.device)[:, None, None].expand(n, g, k)
     tok = torch.arange(g, device=xg.device)[None, :, None].expand(n, g, k)
-    xe = xg.new_zeros((e, n, cap, d))
-    xe[expert_idx[keep], grp[keep], pos[keep]] = xg[grp[keep], tok[keep]]
-    xe = xe.reshape(e, n * cap, d)
+    slot = torch.where(keep, pos, cap)
+    xe = xg.new_zeros((e, n, cap + 1, d))
+    xe[expert_idx, grp, slot] = xg[grp, tok]
+    xe = xe[:, :, :cap].reshape(e, n * cap, d)
     act = activation_fn(cfg.activation)
     h = torch.bmm(xe, params["w_in"].to(cd))
     if "w_gate" in params:

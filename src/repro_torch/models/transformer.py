@@ -30,18 +30,21 @@ Modes (all through ``forward``):
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.common import ArchConfig, BlockSpec, dense_init, mlp_apply, rms_norm, softcap
+from repro_torch.parallel import sharding as shd
 
 Tensor = torch.Tensor
 
@@ -249,6 +252,31 @@ def init_paged_caches(cfg: ArchConfig, num_pages: int, page: int, device: Device
     return out
 
 
+def cache_shardings_logical(cfg: ArchConfig) -> Dict[str, Dict[str, tuple]]:
+    """Logical axes of each cache leaf (``launch/specs.cache_specs``)."""
+
+    def one(spec: BlockSpec):
+        if spec.mixer == "attn":
+            return {
+                "k": ("stack", "batch", "kv_seq", None, None),
+                "v": ("stack", "batch", "kv_seq", None, None),
+            }
+        if spec.mixer == "mamba":
+            return {
+                "conv": ("stack", "batch", None, "ff"),
+                "ssm": ("stack", "batch", "ff", None),
+            }
+        if spec.mixer == "rwkv":
+            return {
+                "wkv": ("stack", "batch", None, None, None),
+                "shift_t": ("stack", "batch", None),
+                "shift_c": ("stack", "batch", None),
+            }
+        return {}
+
+    return {f"pos{pos}": one(spec) for pos, spec in enumerate(cfg.pattern)}
+
+
 def is_paged(leafs) -> bool:
     """True for an attention position's page pool."""
     return "k_pages" in leafs
@@ -291,6 +319,38 @@ def _apply_block(p, x, cfg: ArchConfig, spec: BlockSpec, positions, cache, cache
     if cfg.post_block_norm:
         out = rms_norm(out, p["post_norm2"], cfg.rms_eps)
     return x + out, cache, aux
+
+
+# the outputs ``remat_policy="dots"`` keeps (jax's ``dots_saveable``: every dot)
+_SAVED_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default, torch.ops.aten.addmm.default,
+                   torch.ops.aten.baddbmm.default)
+
+
+def _dots_saveable(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _SAVED_PRODUCTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _block_fn(cfg: ArchConfig, caches):
+    """``_apply_block``, rematerialised when ``cfg.remat`` asks for it and
+    autograd records a cache-free forward (a cache is written in place, and
+    serving runs without grad)."""
+    if not (cfg.remat and caches is None and torch.is_grad_enabled()):
+        return _apply_block
+    if cfg.remat_policy not in ("nothing", "dots"):
+        raise ValueError(f"remat_policy must be 'nothing' or 'dots', got {cfg.remat_policy!r}")
+    kw = {}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _dots_saveable)
+    # the recomputation sees the mesh and data-parallel axis the forward saw
+    # (the MoE's capacity and claim positions span the data-parallel batch)
+    state = shd.current_state()
+
+    def block(*args):
+        with shd.installed(state):
+            return _apply_block(*args)
+
+    # the stack draws no random numbers: no RNG state to stash and replay
+    return functools.partial(checkpoint, block, use_reentrant=False, preserve_rng_state=False, **kw)
 
 
 def _embed_inputs(params, cfg: ArchConfig, tokens: Optional[Tensor], embeds: Optional[Tensor]) -> Tensor:
@@ -356,11 +416,12 @@ def forward(
         if cfg.mrope:
             positions = positions[None].expand(3, b, s)
     aux = None  # a device tensor only once a MoE layer has run
+    block = _block_fn(cfg, caches)
     for r in range(cfg.repeats):
         for pos, spec in enumerate(cfg.pattern):
             name = f"pos{pos}"
             cache = None if caches is None else {k: v[r] for k, v in caches[name].items()}
-            x, new, a = _apply_block(
+            x, new, a = block(
                 layer_params(params, name, r), x, cfg, spec, positions, cache, cache_len, block_tables, impl,
                 chunked_prefill,
             )

@@ -20,15 +20,18 @@ the attribution layer:
     allocator's blocks; there is no separate compile);
   * **shape-cache traffic** — ``exec_cache_{hits,misses}_total`` counters
     from the engines' bucket ladders;
-  * **the roofline join** — ``attach_analysis`` takes an executable's FLOPs
-    and bytes, and every snapshot derives achieved GFLOP/s and GB/s, a
-    roofline-utilization gauge ``min(1, bound_s / best_measured_s)`` and the
-    disagreement ratio ``best_measured_s / bound_s``.  The bound is the
-    H100 SXM's: ``max(hbm_bytes / 3.35 TB/s, flops / 67 TFLOP/s f32)``.
-    The reference's ``attach_compiled`` / ``attach_jit`` parse XLA's HLO;
-    their PyTorch counterpart belongs with the launch analysis tools.
+  * **the roofline join** — ``attach_compiled`` / ``attach_jit`` take an
+    executable's op-level analysis (``repro_torch.launch.hlo_cost``: FLOPs
+    by dtype, bytes, collectives and kernel launches of one call, recorded
+    on fake copies of its arguments — the same analyzer the tune dry tier
+    uses) and every snapshot derives achieved GFLOP/s and GB/s, a
+    roofline-utilization gauge ``min(1, bound_s / best_measured_s)`` and
+    the disagreement ratio ``best_measured_s / bound_s``.  The bound is
+    ``hlo_cost.roofline_terms``' H100 SXM roofline.
 
-A disabled timer (``Obs.disabled()``) costs one attribute read per hot-path
+Everything is lazy and failure-tolerant: the analyzer is imported only when
+something attaches, an executable the analyzer cannot run simply yields no
+join, and a disabled timer (``Obs.disabled()``) costs one attribute read per hot-path
 check, because the engines hold ``perf = None`` instead of a disabled object.
 """
 
@@ -42,10 +45,6 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from repro_torch.obs.registry import DEFAULT_BUCKETS, MetricsRegistry
-
-# the H100 SXM's data-sheet rates, as PERF.md's bounds take them
-HBM_BW = 3.35e12  # bytes / s
-PEAK_FLOPS = 67e12  # f32 FLOP / s
 
 # executable steps on a warm pool run well under the latency ladder's 100us
 # floor on a GPU — extend the default buckets downward
@@ -160,28 +159,85 @@ class ExecTimer:
         *,
         flops: float,
         hbm_bytes: float,
+        collective_bytes: float = 0.0,
         bound_s: Optional[float] = None,
         dominant: Optional[str] = None,
         compile_s: Optional[float] = None,
     ):
-        """Attach an executable's analytic costs (tests; callers with their
-        own cost model).  ``bound_s`` defaults to the H100 roofline bound,
-        the larger of ``hbm_bytes / HBM_BW`` and ``flops / PEAK_FLOPS``."""
+        """Attach analytic costs directly (tests; callers with their own
+        cost model).  ``bound_s`` defaults to the hlo_cost roofline bound
+        (FLOPs priced at the f32 peak)."""
         if not self.enabled:
             return
         if bound_s is None:
-            terms = {"compute": flops / PEAK_FLOPS, "memory": hbm_bytes / HBM_BW}
-            dominant = dominant or max(terms, key=terms.get)
-            bound_s = max(terms.values())
+            from repro_torch.launch.hlo_cost import OpAnalysis, roofline_terms
+
+            terms = roofline_terms(OpAnalysis(
+                flops=flops, hbm_bytes=hbm_bytes, collective_bytes={"all-reduce": collective_bytes},
+                flops_by_op={}, trip_counts={}, n_ops=0,
+            ))
+            dominant = dominant or terms["dominant"]
+            bound_s = terms["bound_s"]
         with self._lock:
             self._analysis[name] = {
                 "flops": float(flops),
                 "hbm_bytes": float(hbm_bytes),
+                "collective_bytes": float(collective_bytes),
                 "bound_s": float(bound_s),
                 "dominant": dominant,
             }
         if compile_s is not None:
             self.record_compile(name, compile_s)
+
+    def attach_compiled(self, name: str, analysis, compile_s: Optional[float] = None) -> bool:
+        """Join one executable's ``hlo_cost.OpAnalysis``: its FLOPs, bytes
+        and collectives and their roofline terms.  Idempotent per name;
+        returns False (and attaches nothing) when ``analysis`` is not an
+        analysis the roofline can price."""
+        if not self.enabled:
+            return False
+        with self._lock:
+            if name in self._analysis:
+                return True
+        try:
+            from repro_torch.launch.hlo_cost import roofline_terms
+
+            terms = roofline_terms(analysis)
+            flops, hbm = float(analysis.flops), float(analysis.hbm_bytes)
+            coll = float(analysis.total_collective_bytes)
+        except Exception:
+            return False
+        self.attach_analysis(
+            name,
+            flops=flops,
+            hbm_bytes=hbm,
+            collective_bytes=coll,
+            bound_s=terms["bound_s"],
+            dominant=terms["dominant"],
+            compile_s=compile_s,
+        )
+        return True
+
+    def attach_jit(self, name: str, fn, *args, **kw) -> bool:
+        """Analyse ``fn(*args, **kw)`` on fake copies of its arguments
+        (``hlo_cost.analyze``: nothing runs on the device, no argument
+        changes) and join the result.  The first-call gauge is left as it
+        is: in eager PyTorch the engines time an executable's first real
+        call as its compile time (``record_compile``), and an analysis is
+        not that call.  Idempotent per name; False when the analysis
+        raises."""
+        if not self.enabled:
+            return False
+        with self._lock:
+            if name in self._analysis:
+                return True
+        try:
+            from repro_torch.launch.hlo_cost import analyze
+
+            analysis = analyze(fn, *args, **kw)
+        except Exception:
+            return False
+        return self.attach_compiled(name, analysis)
 
     @property
     def analyzed(self) -> int:

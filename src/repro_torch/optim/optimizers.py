@@ -66,12 +66,12 @@ class _Explicit(torch.optim.Optimizer):
 
     BUFFERS: Sequence[str] = ()
 
-    def __init__(self, params, defaults: Dict[str, Any]):
+    def __init__(self, params, defaults: Dict[str, Any], buffer_dtype: torch.dtype = torch.float32):
         super().__init__(params, defaults)
         for group in self.param_groups:
             for p in group["params"]:
                 for name in self.BUFFERS:
-                    self.state[p][name] = torch.zeros_like(p, dtype=torch.float32)
+                    self.state[p][name] = torch.zeros_like(p, dtype=buffer_dtype)
 
     def _params_with_grad(self, grads: Optional[Sequence[Tensor]] = None):
         """(group, param, f32 gradient) for every parameter with a gradient:
@@ -166,12 +166,14 @@ def _pieces(*tensors: Tensor):
 class AdamW(_Explicit):
     """AdamW with the reference's update: bias-corrected Adam direction plus
     wd p for matrices, p -= lr upd (a large leaf in ``_PIECE``-element
-    slices)."""
+    slices).  Moments of ``moment_dtype``: the update runs in f32 and
+    rounds them to it once a step (the reference's ``m32.astype(...)``)."""
 
     BUFFERS = ("m", "v")
 
-    def __init__(self, params, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1):
-        super().__init__(params, dict(b1=b1, b2=b2, eps=eps, weight_decay=weight_decay, count=0))
+    def __init__(self, params, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1, moment_dtype=torch.float32):
+        super().__init__(params, dict(b1=b1, b2=b2, eps=eps, weight_decay=weight_decay, count=0),
+                         buffer_dtype=moment_dtype)
 
     @torch.no_grad()
     def step(self, lr, grads: Optional[Sequence[Tensor]] = None):
@@ -185,12 +187,17 @@ class AdamW(_Explicit):
             c2 = float(np.float32(1.0) - np.float32(b2) ** np.float32(count))
             decay = group["weight_decay"] if _is_adaptive(p) else None
             for ps, gs, m, v in _pieces(p, g, self.state[p]["m"], self.state[p]["v"]):
-                m.mul_(b1).add_((1 - b1) * gs)
-                v.mul_(b2).add_((1 - b2) * gs * gs)
-                upd = (m / c1) / (torch.sqrt(v / c2) + group["eps"])
+                m32 = m if m.dtype == torch.float32 else m.float()
+                v32 = v if v.dtype == torch.float32 else v.float()
+                m32.mul_(b1).add_((1 - b1) * gs)
+                v32.mul_(b2).add_((1 - b2) * gs * gs)
+                upd = (m32 / c1) / (torch.sqrt(v32 / c2) + group["eps"])
                 if decay is not None:
                     upd = upd + decay * ps.float()
                 _apply(ps, lr * upd)
+                if m32 is not m:
+                    m.copy_(m32)
+                    v.copy_(v32)
 
 
 class SGDMomentum(_Explicit):
@@ -216,9 +223,11 @@ def lars(momentum=0.9, weight_decay=1e-4, trust_coefficient=0.001, eps=1e-8) -> 
     return Optimizer(LARS, tuple(hyper.items()), "lars")
 
 
-def adamw(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1) -> Optimizer:
-    """Decoupled weight decay Adam (f32 moments)."""
-    hyper = dict(b1=b1, b2=b2, eps=eps, weight_decay=weight_decay)
+def adamw(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1, moment_dtype=torch.float32) -> Optimizer:
+    """Decoupled weight decay Adam (moments of ``moment_dtype``, f32 by
+    default; the configs that ask for bf16 moments name it in
+    ``ArchConfig.optimizer_moment_dtype``)."""
+    hyper = dict(b1=b1, b2=b2, eps=eps, weight_decay=weight_decay, moment_dtype=moment_dtype)
     return Optimizer(AdamW, tuple(hyper.items()), "adamw")
 
 

@@ -114,6 +114,22 @@ def data_parallel_axis() -> Optional[str]:
     return getattr(_STATE, "dp_axis", None)
 
 
+def current_state():
+    """What this thread has installed: (mesh, rules, data-parallel axis)."""
+    return current_mesh(), getattr(_STATE, "rules", None), data_parallel_axis()
+
+
+@contextlib.contextmanager
+def installed(state):
+    """Install a ``current_state()`` again: a forward pass recomputed in the
+    backward pass (``models.transformer``'s remat; the backward may run on
+    another thread) must see the layout its first run saw."""
+    mesh, rules, axis = state
+    with sharding_context(mesh, rules) if mesh is not None else contextlib.nullcontext():
+        with data_parallel(axis):
+            yield
+
+
 def axis_index(axis: str) -> int:
     """This rank's index along mesh axis ``axis`` of the current mesh."""
     axis_groups(axis)  # raises on an unbound axis

@@ -172,20 +172,24 @@ class ServeEngine:
         return int(self.model_cfg.projector_widths[-1])
 
     @torch.no_grad()
-    def _forward(self, x: Tensor) -> Tensor:
+    def _forward(self, x: Tensor, model=None) -> Tensor:
         """One bucket's rows -> (b, d): the model, or under a mesh this
-        rank's block, the tp all-to-all and the gather of every block."""
+        rank's block, the tp all-to-all and the gather of every block.
+        ``model``: another copy of the engine's model (an analysis's fake
+        copy); the engine's own by default."""
+        model = self.model if model is None else model
         if self.mesh is None:
-            return self.model(x)
+            return model(x)
         with shd.sharding_context(self.mesh):
-            z = self.model(shd.NamedSharding(self.mesh, self._in_spec).local(x))
+            z = model(shd.NamedSharding(self.mesh, self._in_spec).local(x))
             if self.model_axis is not None:
                 z = all_to_all_features(z.contiguous(), self.model_axis)
             return shd.NamedSharding(self.mesh, self._rows_spec).gather(z)
 
     def warmup(self) -> Tuple[int, ...]:
         """Run every bucket once (zeros in), so no request pays a first call
-        (timed as each bucket's first-call gauge when a timer is attached)."""
+        (timed as each bucket's first-call gauge when a timer is attached,
+        which then also gets each bucket's roofline join: ``embed_b{b}``)."""
         for b in bucket_sizes(self.policy):
             x = torch.zeros((b, self.model_cfg.input_dim), dtype=torch.float32, device=self.device)
             perf = self.perf
@@ -194,6 +198,8 @@ class ServeEngine:
             if perf is not None:
                 perf.block(self.device)
                 perf.record_compile(f"embed_b{b}", perf.elapsed(t0))
+                # the roofline join, analysed on fake copies of the model
+                perf.attach_jit(f"embed_b{b}", lambda model, x: self._forward(x, model), self.model, x)
             self._warm.add(b)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -542,15 +548,23 @@ class ContinuousLMEngine:
         and verify write row 0 of every slot (dense) or of the sentinel page
         (paged) and advance every slot's recurrent state: an insert
         overwrites a slot, nothing reads the sentinel unmasked, and slot 0
-        is zeroed afterwards, as the reference leaves it."""
+        is zeroed afterwards, as the reference leaves it.  With a timer,
+        each executable's first call is its first-call gauge, and after it
+        its roofline join is analysed on fake copies of the parameters and
+        pools (``prefill_b{len}``, ``decode_step``, ``verify_step``,
+        ``chunk_prefill``: the reference's names), which leaves the real
+        pools, tables and tokens as they are."""
         if self.pad_prompts:
             buckets = self.prompt_bucket_sizes()
         else:
             buckets = tuple(sorted(set(int(n) for n in prompt_lens or ())) or (1,))
+        perf = self.perf
         for length in buckets:
             toks = torch.zeros((1, length), dtype=torch.int32, device=self.device)
             with self._first_call(f"prefill_b{length}"):
                 self._prefill(self.params, self._prefill_template(), toks, 1)
+            if perf is not None:
+                perf.attach_jit(f"prefill_b{length}", self._prefill, self.params, self._caches1, toks, 1)
             self._warmed_prefill.add(int(length))
         n = self.pool.n_slots
         zeros = torch.zeros((n,), dtype=torch.int32, device=self.device)
@@ -559,6 +573,9 @@ class ContinuousLMEngine:
             bt = torch.zeros((n, self.pager.blocks_per_slot), dtype=torch.int32, device=self.device)
         with self._first_call("decode_step"):
             self.step_logits(self.caches, zeros, zeros, bt, self.impl)
+        if perf is not None:
+            perf.attach_jit("decode_step", self._decode, self.params, self.caches, zeros, zeros[:, None],
+                            block_tables=bt, impl=self.impl)
         if self.paged:
             reset_slot_state_paged(self.caches, 0, np.zeros((self.pager.blocks_per_slot,), np.int32))
         else:
@@ -569,10 +586,15 @@ class ContinuousLMEngine:
             vbt = torch.zeros((vb, self.pager.blocks_per_slot), dtype=torch.int32, device=self.device)
             with self._first_call("verify_step"):
                 self.step_logits(self.caches, vzeros, vzeros, vbt, self.impl)
+            if perf is not None:
+                perf.attach_jit("verify_step", self._decode, self.params, self.caches, vzeros, vzeros[:, None],
+                                block_tables=vbt, impl=self.impl)
         if self.prefill_chunk is not None:
             toks = torch.zeros((1, self.prefill_chunk), dtype=torch.int32, device=self.device)
             with self._first_call("chunk_prefill"):
                 self._chunk_step(self.params, self._chunk_tree, toks, 0, 0)
+            if perf is not None:
+                perf.attach_jit("chunk_prefill", self._chunk_step, self.params, self._chunk_tree, toks, 0, 0)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return buckets

@@ -101,7 +101,9 @@ class DecorrProbe:
 
     def warmup(self, d: int):
         """Run the probe once on a zero window without folding anything into
-        the stream — builds the CUDA kernels before the first request."""
+        the stream — builds the CUDA kernels before the first request (with
+        a timer: the first-call gauge, then the roofline join of
+        ``probe_update`` analysed on fake copies)."""
         zero = torch.zeros((self.sample_rows or 8, d), dtype=torch.float32, device=self.device)
         perm = self.permutation(0, d)
         t0 = self.perf.start() if self.perf is not None else 0.0
@@ -110,6 +112,8 @@ class DecorrProbe:
             torch.cuda.synchronize(self.device)
         if self.perf is not None:
             self.perf.record_compile("probe_update", self.perf.elapsed(t0))
+            self.perf.attach_jit("probe_update", functools.partial(
+                probe_metrics, cfg=self.cfg, include_off=self._include_off), zero, None, perm=perm)
 
     def observe(self, z) -> int:
         """Streaming entry point: buffer served rows and fold a probe update

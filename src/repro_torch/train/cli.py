@@ -19,7 +19,11 @@ Only rank 0 logs and writes checkpoints; a checkpoint holds the full tree
 rerun on the same layout resumes from it.  ``--pretune`` (default
 ``analytic``; ``dry``, ``measure`` on the run's device, or ``off``) warms the
 ``repro_torch.tune`` choices of the shard-local regularizer shapes before
-the first step (``decorr.warmup_tune_cache``).
+the first step (``decorr.warmup_tune_cache``).  ``--metrics-port`` /
+``--alerts`` turn the telemetry on (``launch/obs_args``, rank 0): the
+loop's histograms and gauges, a ``DecorrHealthMonitor`` on the projector
+output of view 1 (the matrix the objective decorrelates), the train step's
+roofline join (``attach_train_step``), one scrape at the end.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from repro_torch.data.synthetic import SSLDataConfig, ssl_batch
 from repro_torch.decorr import warmup_tune_cache
 from repro_torch.decorr.config import DecorrConfig
 from repro_torch.launch.mesh import make_mesh_for_devices
+from repro_torch.launch.obs_args import add_obs_args, attach_train_step, build_train_obs, finish_train_obs
 from repro_torch.optim.optimizers import lars, warmup_cosine
 from repro_torch.train.loop import LoopConfig, run_training
 from repro_torch.train.ssl import (
@@ -69,6 +74,7 @@ def _args(argv: Optional[Sequence[str]]) -> argparse.Namespace:
                     help="run the sharded step on every rank of the process group in this decorr "
                          "engine mode (default: the single-device step)")
     ap.add_argument("--model-parallel", type=int, default=1, help="model-axis size for --distributed tp")
+    add_obs_args(ap)
     ap.add_argument("--pretune", default="analytic", choices=["off", "analytic", "dry", "measure"],
                     help="warm the repro_torch.tune choices of the shard-local regularizer shapes first")
     return ap.parse_args(argv)
@@ -171,7 +177,22 @@ def _train(args: argparse.Namespace, dev: torch.device, mesh) -> int:
         preempt_flag=args.preempt_flag,
         ckpt_writer=rank == 0,
     )
-    state = run_training(state, step_fn, batch_fn, lcfg, log_fn=log_fn if rank == 0 else None)
+    obs = build_train_obs(args) if rank == 0 else None
+    monitor = None
+    if obs is not None:
+        from repro_torch.obs import DecorrHealthMonitor
+
+        # probe the projector output of view1 — the matrix the decorrelation
+        # objective acts on — for collapse / relaxation-gap health
+        monitor = DecorrHealthMonitor(lambda m, batch: m(batch["view1"]), device=dev)
+        attach_train_step(obs, step_fn, state, batch_fn(0))
+    state = run_training(
+        state, step_fn, batch_fn, lcfg, log_fn=log_fn if rank == 0 else None,
+        registry=obs.registry if obs is not None else None,
+        monitor=monitor,
+        perf=obs.perf if obs is not None else None,
+    )
+    finish_train_obs(args, obs)
 
     if mesh is not None:
         model.load_state_dict(state.state_dict()["params"])  # the full tree, gathered on every rank

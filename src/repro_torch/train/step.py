@@ -57,6 +57,7 @@ import torch.distributed as dist
 from repro_torch.core.decorrelation import lm_decorrelation_loss
 from repro_torch.core.permutation import permutation_for_step
 from repro_torch.decorr.modes import psum_if
+from repro_torch.kernels.utils import is_fake
 from repro_torch.models.common import ArchConfig
 from repro_torch.models.transformer import forward
 from repro_torch.optim import compression as comp
@@ -203,8 +204,9 @@ def make_train_step(
             return None
         perm = perm_fn(state.step) if perm_fn is not None else permutation_for_step(
             state.seed, state.step, cfg.d_model)
-        if device.type == "cuda" and not perm.is_cuda:
+        if device.type == "cuda" and not perm.is_cuda and not is_fake(perm):
             # a pageable host->device copy would stall the host on the stream
+            # (an analysis's fake copy has no host memory to pin)
             perm = perm.pin_memory().to(device, non_blocking=True)
         return perm.to(device)
 
@@ -258,7 +260,12 @@ def make_train_step(
         perm = step_perm(state, params[0].device)
         with shd.sharding_context(dp_mesh) if dp_mesh is not shd.current_mesh() else contextlib.nullcontext():
             n = shd.axis_size(data_axis)
-            (group,) = shd.axis_groups(data_axis)
+            groups = shd.axis_groups(data_axis)
+            if len(groups) != 1:
+                raise NotImplementedError(
+                    f"make_train_step: data_axis={data_axis!r} spans {len(groups)} mesh axes; the "
+                    "data-parallel step reduces over one")
+            (group,) = groups
             plan = [None] * len(params)
             if grad_shardings is not None and num_microbatches > 1:
                 plan = _grad_plan(grad_shardings, params, data_axis, n)

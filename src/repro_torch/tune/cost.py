@@ -5,9 +5,10 @@ Three tiers:
   * ``analytic_cost``    — closed-form FLOPs / HBM bytes / kernel launches
                            of a config.  Instant; the implicit dispatch
                            fallback.
-  * ``flop_count``       — the "dry" tier: FLOPs of the candidate's plain
-                           route counted by ``torch.utils.flop_counter``
-                           on CPU tensors (deterministic, nothing timed).
+  * ``compiled_cost``    — the "dry" tier: FLOPs and bytes of one call of
+                           the candidate, analysed op by op on fake copies
+                           of its inputs (``launch/hlo_cost.analyze``:
+                           deterministic, nothing runs or is timed).
   * ``measured_time_us`` — best-of-N time of the candidate: CUDA events on a
                            card, ``perf_counter`` on the CPU.
 
@@ -146,14 +147,17 @@ def rank_key(cost: Dict[str, float], kernel: str = "") -> Tuple[float, float, fl
 # ---------------------------------------------------------------------------
 
 
-def flop_count(fn: Callable, *args) -> float:
-    """FLOPs ``torch.utils.flop_counter`` counts while ``fn(*args)`` runs
-    (matrix products; elementwise work and FFTs count zero)."""
-    from torch.utils.flop_counter import FlopCounterMode
+def compiled_cost(fn: Callable, *args) -> Dict[str, float]:
+    """{flops, hbm_bytes} of one call of ``fn(*args)`` by the op-level
+    analyzer (the reference's trip-exact ``compiled_cost``): the kernel
+    route for CUDA operands (each launch at its C entry's formula), the
+    plain route for CPU ones.  Nothing is allocated or run on a device."""
+    # imported here, not at module top: the analytic tier (what the kernels
+    # use implicitly) must not drag repro_torch.launch into the dispatch path
+    from repro_torch.launch.hlo_cost import analyze
 
-    with FlopCounterMode(display=False) as counter:
-        fn(*args)
-    return float(counter.get_total_flops())
+    a = analyze(fn, *args)
+    return {"flops": a.flops, "hbm_bytes": a.hbm_bytes}
 
 
 def _device_of(args) -> torch.device:

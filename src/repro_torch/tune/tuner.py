@@ -3,9 +3,12 @@
 
 Modes:
   * ``analytic`` — rank by the closed-form model only.  Instant.
-  * ``dry``      — count each candidate's FLOPs on its plain route on CPU
-                   tensors (``cost.flop_count``), analytic bytes as the
-                   tiebreak.  Nothing is timed: deterministic everywhere.
+  * ``dry``      — count each candidate's FLOPs and bytes with the op-level
+                   analyzer on fake copies of its inputs
+                   (``cost.compiled_cost``): the kernel route on a card
+                   (each launch at its C entry's formula), the plain route
+                   on the CPU.  Nothing runs or is timed: deterministic
+                   everywhere.
   * ``measure``  — time each candidate once (best of ``repeats`` calls) on
                    ``device``: a plan candidate as the whole regularizer
                    call, forward and backward, on the kernel route under
@@ -149,12 +152,12 @@ def _build(kernel: str, shape: Tuple[int, ...], cfg: Config, device, dtype=torch
     raise KeyError(kernel)
 
 
-def _dry_cost(kernel: str, shape: Tuple[int, ...], cfg: Config) -> Dict[str, float]:
-    """Counted FLOPs of the candidate's plain route on CPU tensors, beside
-    its analytic bytes, launches and shared memory."""
+def _dry_cost(kernel: str, shape: Tuple[int, ...], cfg: Config, device) -> Dict[str, float]:
+    """The candidate's analysed FLOPs and bytes on ``device``'s route,
+    beside its analytic launches and shared memory."""
     out = _cost.analytic_cost(kernel, shape, cfg)
-    fn, args = _build(kernel, shape, cfg, torch.device("cpu"))
-    out["flops"] = _cost.flop_count(fn, *args)
+    fn, args = _build(kernel, shape, cfg, device)
+    out.update(_cost.compiled_cost(fn, *args))
     return out
 
 
@@ -205,6 +208,9 @@ def tune(
         from repro_torch import resolve_device
 
         dev = resolve_device(device)
+    elif mode == "dry":
+        # the route a call on this machine takes: the kernels on a card
+        dev = torch.device(device if device is not None else "cuda" if torch.cuda.is_available() else "cpu")
     backend = backend or _cache.backend_key(dev)
     canon = _dispatch.canonical_shape(kernel, shape)
     dtype_s = _dispatch.dtype_str(dtype)
@@ -231,7 +237,7 @@ def tune(
     else:
         for cfg in cands:
             if mode == "dry":
-                evaluated.append(Candidate(cfg, _dry_cost(kernel, canon, cfg)))
+                evaluated.append(Candidate(cfg, _dry_cost(kernel, canon, cfg, dev)))
             else:
                 fn, args = _build(kernel, canon, cfg, dev, dtype)
                 t = _cost.measured_time_us(fn, *args, repeats=repeats)

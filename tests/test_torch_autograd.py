@@ -157,6 +157,7 @@ def _fake_launch(family, name, device, *args):
         out.copy_(tx.off_diagonal_sq_sum_plain(z1, z2))
     else:
         raise AssertionError(f"unknown kernel {key}")
+    return True  # launched: the wrapper counts it
 
 
 @pytest.fixture

@@ -25,7 +25,7 @@ assert not bad, bad
 # the numpy-only serving modules the port keeps its own copies of, the
 # model families and arch configs of the LM serving path, the modules of
 # the LM training path, those of distributed training / serving and
-# telemetry, and the fabric and the tuner
+# telemetry, the fabric and the tuner, and the launch analysis tools
 COPIES = ("repro_torch.data.synthetic", "repro_torch.core.decorrelation", "repro_torch.core.whitening",
           "repro_torch.train.step", "repro_torch.launch.train",
           "repro_torch.serve.sampling", "repro_torch.serve.spec", "repro_torch.serve.paging.radix",
@@ -41,7 +41,10 @@ COPIES = ("repro_torch.data.synthetic", "repro_torch.core.decorrelation", "repro
           "repro_torch.serve.fabric", "repro_torch.serve.fabric.router", "repro_torch.serve.fabric.failover",
           "repro_torch.serve.fabric.replica", "repro_torch.launch.serve", "repro_torch.obs.catalog",
           "repro_torch.tune.cache", "repro_torch.tune.dispatch", "repro_torch.tune.tuner", "repro_torch.tune.cli",
-          "repro_torch.tune.__main__", "repro_torch.decorr.warmup")
+          "repro_torch.tune.__main__", "repro_torch.decorr.warmup",
+          # the launch analysis tools
+          "repro_torch.launch.hlo_cost", "repro_torch.launch.specs", "repro_torch.launch.dryrun",
+          "repro_torch.launch.perf")
 
 SMOKE = r"""
 import importlib.util, sys

@@ -506,3 +506,114 @@ def test_from_checkpoint_serves_what_the_reference_serves(tmp_path, layout):
                                atol=1e-5 * max(1.0, float(np.abs(want_old).max())))
     with pytest.raises(FileNotFoundError, match="no committed checkpoint"):
         ServeEngine.from_checkpoint(str(tmp_path / "empty"), SSLModelConfig(**WIDTHS), device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# per-layer rematerialisation and bf16 AdamW moments
+# ---------------------------------------------------------------------------
+
+
+def _loss_and_grads(cfg, tree, batch, perm):
+    from repro_torch.train.step import _lm_loss_fn
+
+    model = ParamTree({k: v for k, v in tree.items()})
+    params = list(model.parameters())
+    loss, _ = _lm_loss_fn(model.tree(), batch, cfg, perm)
+    return float(loss), [g.detach() for g in torch.autograd.grad(loss, params)]
+
+
+@pytest.mark.parametrize("arch", ["gemma2-2b", "llama4-scout-17b-a16e", "jamba-v0.1-52b", "rwkv6-3b"])
+def test_remat_policies_give_the_same_loss_and_gradients(arch):
+    """remat off, on (save nothing) and on with ``dots`` saved: one loss
+    and one gradient, within 1e-6 relative (the recomputation repeats the
+    forward's arithmetic)."""
+    _, cfg = _step_cfgs(arch)
+    tree = init_params(cfg, seed=1, device="cpu")
+    data = LMDataConfig(vocab_size=cfg.vocab_size, batch=4, seq_len=8)
+    batch = {k: torch.from_numpy(v) for k, v in lm_batch(data, 0).items()}
+    perm = _ref_perm(0, cfg.d_model)
+    want_loss, want = _loss_and_grads(dataclasses.replace(cfg, remat=False), tree, batch, perm)
+    for policy in ("nothing", "dots"):
+        loss, grads = _loss_and_grads(dataclasses.replace(cfg, remat=True, remat_policy=policy), tree, batch, perm)
+        assert abs(loss - want_loss) <= 1e-6 * abs(want_loss), policy
+        for g, w in zip(grads, want):
+            assert _rel(g.numpy(), w.numpy()) <= 1e-6, policy
+
+
+@pytest.mark.parametrize("policy", ["nothing", "dots"])
+def test_remat_train_steps_hold_the_reference(policy):
+    """Remat on, as the reference's configs have it, holds the reference's
+    two steps (themselves under ``jax.checkpoint``) at the existing 5e-4."""
+    init, want_params, want_metrics = _ref_two_steps("gemma2-2b", 1)
+    rcfg, cfg = _step_cfgs("gemma2-2b")
+    assert rcfg.remat and cfg.remat and rcfg.remat_policy == cfg.remat_policy == "nothing"
+    cfg = dataclasses.replace(cfg, remat_policy=policy)
+    opt = adamw()
+    state = create_train_state(ParamTree(params_from_jax(cfg, init, device="cpu")), opt)
+    step = make_train_step(cfg, opt, warmup_cosine(3e-3, 0, 10), perm_fn=lambda s: _ref_perm(s, cfg.d_model))
+    data = LMDataConfig(vocab_size=cfg.vocab_size, batch=4, seq_len=8)
+    for s in range(2):
+        state, m = step(state, {k: torch.from_numpy(v) for k, v in lm_batch(data, s).items()})
+        for k in ("loss", "ce", "decorr_aux", "grad_norm"):
+            assert abs(float(m[k]) - want_metrics[s][k]) <= RTOL * max(abs(want_metrics[s][k]), 1e-6), (s, k)
+    for name, p in state.model.named_parameters():
+        want = functools.reduce(lambda t, k: t[k], name.split("."), want_params)
+        assert _rel(p.detach().numpy(), want) <= RTOL, name
+
+
+def test_analyzer_flops_order_remat_nothing_dots_off():
+    """The op-level analyzer sees the recomputation: saving nothing re-runs
+    every block's products in the backward pass; ``dots`` saves them (its
+    product FLOPs are the no-remat step's: the analyzer counts products
+    only, and ``dots`` recomputes the rest) and holds more bytes alive than
+    saving nothing; no remat holds the most."""
+    from repro_torch.launch import hlo_cost
+
+    _, cfg = _step_cfgs("gemma2-2b")
+    cfg = dataclasses.replace(cfg, d_model=128, d_ff=512, n_layers=6)
+    tree = init_params(cfg, device="cpu")
+    data = LMDataConfig(vocab_size=cfg.vocab_size, batch=4, seq_len=32)
+    batch = {k: torch.from_numpy(v) for k, v in lm_batch(data, 0).items()}
+    perm = _ref_perm(0, cfg.d_model)
+    from repro_torch.train.step import _lm_loss_fn
+
+    def grads(c, t, b, p):
+        model = ParamTree(t)
+        return torch.autograd.grad(_lm_loss_fn(model.tree(), b, c, p)[0], list(model.parameters()))
+
+    got = {}
+    for name, kw in (("nothing", dict(remat=True)), ("dots", dict(remat=True, remat_policy="dots")),
+                     ("off", dict(remat=False))):
+        got[name] = hlo_cost.analyze(grads, dataclasses.replace(cfg, **kw), tree, batch, perm)
+    flops = {k: a.product_flops for k, a in got.items()}
+    temp = {k: a.temp_bytes for k, a in got.items()}
+    print(f"remat product flops {flops} temp bytes {temp}")
+    assert flops["nothing"] > flops["dots"] >= flops["off"], flops
+    assert temp["nothing"] < temp["dots"] < temp["off"], temp
+
+
+def test_adamw_bf16_moments_within_one_ulp_of_the_reference():
+    """``adamw(moment_dtype=bf16)``: bf16 moments, and after two steps on
+    the same gradients the parameters within one bf16 ulp of the
+    reference's ``adamw(moment_dtype=jnp.bfloat16)``."""
+    rng = np.random.default_rng(11)
+    shapes = {"w": (8, 16), "b": (16,)}
+    init = {k: rng.standard_normal(s).astype(np.float32) for k, s in shapes.items()}
+    grads = [{k: rng.standard_normal(s).astype(np.float32) * 0.1 for k, s in shapes.items()} for _ in range(2)]
+    ropt = ref_adamw(moment_dtype=jnp.bfloat16)
+    rparams = {k: jnp.asarray(v) for k, v in init.items()}
+    rstate = ropt.init(rparams)
+    for g in grads:
+        rparams, rstate = ropt.update({k: jnp.asarray(v) for k, v in g.items()}, rstate, rparams, 1e-2)
+    assert all(v.dtype == jnp.bfloat16 for v in jax.tree.leaves((rstate["m"], rstate["v"])))
+
+    params = [torch.nn.Parameter(torch.from_numpy(init[k].copy())) for k in shapes]
+    opt = adamw(moment_dtype=torch.bfloat16).init(params)
+    for g in grads:
+        opt.step(1e-2, [torch.from_numpy(g[k]) for k in shapes])
+    for p, k in zip(params, shapes):
+        assert opt.state[p]["m"].dtype == opt.state[p]["v"].dtype == torch.bfloat16
+        np.testing.assert_array_equal(opt.state[p]["m"].float().numpy(), np.asarray(rstate["m"][k], np.float32))
+        want = np.asarray(rparams[k], np.float32)
+        ulp = 2.0 ** (np.floor(np.log2(np.abs(want))) - 7)
+        assert np.all(np.abs(p.detach().numpy() - want) <= ulp), k

@@ -951,3 +951,173 @@ def test_train_launcher_obs_flags_scrape(capsys):
                                     "--device", "cpu", "--metrics-port", "0", "--alerts"]))
     text = capsys.readouterr().out
     assert "[obs] scraped" in text and "train_step: 2 calls" in text
+
+
+# ---------------------------------------------------------------------------
+# The roofline join: attach_compiled / attach_jit, the warmups' attachments,
+# attach_train_step
+# ---------------------------------------------------------------------------
+
+
+class TestExecTimerJoin:
+    def test_attach_jit_analyses_a_real_call(self):
+        """Twin of the reference's ``test_attach_jit_parses_real_hlo``: the
+        op-level analysis of a product, joined; idempotent.  The analysis is
+        not the first call, so no compile gauge is set."""
+        x = torch.ones((32, 32))
+        t = ExecTimer()
+        assert t.attach_jit("matmul", lambda a, b: a @ b, x, x)
+        t.observe("matmul", 1e-3)
+        (row,) = t.snapshot()
+        assert row["flops"] == 2.0 * 32**3 and row["bound_s"] > 0
+        assert 0.0 < row["roofline_utilization"] <= 1.0
+        assert "compile_s" not in row
+        # idempotent: re-attaching the same name is a no-op that reports True
+        assert t.attach_jit("matmul", lambda a, b: a @ b, x, x)
+        assert t.analyzed == 1
+
+    def test_attach_compiled_tolerates_bad_backends(self):
+        class NoAnalysis:
+            pass
+
+        t = ExecTimer()
+        assert t.attach_compiled("weird", NoAnalysis()) is False
+        assert t.attach_jit("raises", lambda: 1 / 0) is False
+        assert t.analyzed == 0
+
+    def test_attach_compiled_joins_flops_bytes_and_collectives(self):
+        from repro_torch.launch import hlo_cost
+
+        a = hlo_cost.OpAnalysis(flops=67e12, hbm_bytes=1e6, collective_bytes={"all-reduce": 900e9},
+                                flops_by_op={}, trip_counts={}, n_ops=1, flops_by_dtype={"float32": 67e12})
+        t = ExecTimer()
+        assert t.attach_compiled("step", a, compile_s=0.25)
+        t.observe("step", 4.0)
+        (row,) = t.snapshot()
+        assert row["bound_s"] == pytest.approx(2.0) and row["dominant"] == "collective"
+        assert row["disagreement"] == pytest.approx(2.0) and row["compile_s"] == 0.25
+        # the default bound of attach_analysis counts collectives too
+        t.attach_analysis("x", flops=0.0, hbm_bytes=0.0, collective_bytes=450e9)
+        t.observe("x", 2.0)
+        assert {r["executable"]: r["bound_s"] for r in t.snapshot()}["x"] == pytest.approx(1.0)
+
+
+def _lm_engines(opts):
+    """(port engine, reference engine) of reduced gemma2-2b with ``opts``."""
+    import jax
+
+    from repro.configs import get_config as ref_config
+    from repro.models import init_params as ref_init
+    from repro.serve import ContinuousLMEngine as RefEngine
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.serve.engine import ContinuousLMEngine
+
+    cfg, rcfg = get_config("gemma2-2b").reduced(), ref_config("gemma2-2b").reduced()
+    kw = dict(n_slots=4, max_len=48, max_prompt_len=24, **opts)
+    port = ContinuousLMEngine(cfg, init_params(cfg, device="cpu"), device="cpu", **kw)
+    ref = RefEngine(rcfg, ref_init(jax.random.PRNGKey(0), rcfg), **kw)
+    return port, ref
+
+
+@pytest.mark.parametrize(
+    "opts",
+    [{}, dict(paged=True, page_size=8), dict(paged=True, page_size=8, speculative=True, draft_k=2),
+     dict(paged=True, page_size=8, prefill_chunk=8)],
+    ids=["dense", "paged", "speculative", "chunked"],
+)
+def test_lm_engine_warmup_attaches_the_reference_names(opts):
+    port, ref = _lm_engines(opts)
+    port.perf, ref.perf = ExecTimer(), ref_obs.ExecTimer()
+    assert port.warmup() == ref.warmup()
+    names = set(port.perf._analysis)
+    assert names == set(ref.perf._analysis)
+    assert port.perf.analyzed == len(names) >= 2
+    assert {"decode_step", "verify_step", "chunk_prefill"} & names == (
+        {"decode_step"} | ({"verify_step"} if opts.get("speculative") else set())
+        | ({"chunk_prefill"} if opts.get("prefill_chunk") else set()))
+
+
+def test_embedding_engine_and_probe_attach_the_reference_names():
+    import jax
+
+    from repro.serve import buckets as rbuckets
+    from repro.serve.engine import ServeEngine as RefServeEngine
+    from repro.serve.probes import DecorrProbe as RefProbe
+    from repro.train.ssl import SSLModelConfig as RefModelConfig
+    from repro.train.ssl import init_ssl_params
+    from repro_torch.serve import buckets
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.probes import DecorrProbe
+    from repro_torch.train.ssl import SSLModelConfig, init_ssl_model
+
+    widths = dict(input_dim=12, backbone_widths=(16,), projector_widths=(24, 32))
+    port = ServeEngine(SSLModelConfig(**widths), init_ssl_model(SSLModelConfig(**widths), device="cpu"),
+                       policy=buckets.BucketPolicy(max_batch=16), device="cpu")
+    ref = RefServeEngine(RefModelConfig(**widths), init_ssl_params(jax.random.PRNGKey(0), RefModelConfig(**widths)),
+                         policy=rbuckets.BucketPolicy(max_batch=16))
+    probe, rprobe = DecorrProbe(device="cpu"), RefProbe()
+    for obj, t in ((port, ExecTimer()), (probe, None), (ref, ref_obs.ExecTimer()), (rprobe, None)):
+        obj.perf = t
+    probe.perf, rprobe.perf = port.perf, ref.perf
+    port.warmup(), ref.warmup()
+    probe.warmup(32), rprobe.warmup(32)
+    assert set(port.perf._analysis) == set(ref.perf._analysis)
+    assert "probe_update" in port.perf._analysis and any(n.startswith("embed_b") for n in port.perf._analysis)
+
+
+def test_attachment_leaves_pool_and_tokens_unchanged():
+    """A timed service (every executable attached at warmup) and an untimed
+    one emit the same tokens; after warmup their pools are byte-identical."""
+    from repro_torch.serve.service import LMService
+
+    opts = dict(paged=True, page_size=8, speculative=True, draft_k=2, prefill_chunk=8)
+    timed, _ = _lm_engines(opts)
+    plain, _ = _lm_engines(opts)
+    timed.perf = ExecTimer()
+    svc_t, svc_p = LMService(timed).warmup(), LMService(plain).warmup()
+    assert timed.perf.analyzed == len(timed.prompt_bucket_sizes()) + 3
+    for name, leaves in timed.caches.items():
+        for k, v in leaves.items():
+            assert torch.equal(v, plain.caches[name][k]), (name, k)
+    rng = np.random.default_rng(3)
+    prompts = [(rng.integers(0, 256, n).astype(np.int32), m) for n, m in ((5, 6), (12, 4), (20, 7), (3, 5))]
+    outs = []
+    for svc in (svc_t, svc_p):
+        futs = [svc.submit(t, m) for t, m in prompts]
+        svc.drain()
+        outs.append([np.asarray(f.result(timeout=60)) for f in futs])
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_train_cli_with_telemetry_attaches_the_train_step(capsys):
+    from repro_torch.train import cli
+
+    assert cli.main(["--tiny", "--device", "cpu", "--steps", "4", "--metrics-port", "0", "--pretune", "off"]) == 0
+    out = capsys.readouterr().out
+    assert "[obs] scraped" in out
+    line = next(ln for ln in out.splitlines() if ln.startswith("[obs]   train_step:"))
+    assert "4 calls" in line and "util=" in line  # measured and joined
+
+
+def test_attach_train_step_joins_the_lm_step():
+    import argparse
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.obs_args import attach_train_step, build_train_obs
+    from repro_torch.models import ParamTree, init_params
+    from repro_torch.optim import adamw, warmup_cosine
+    from repro_torch.train import create_train_state, make_train_step
+
+    cfg = get_config("gemma2-2b").reduced()
+    opt = adamw()
+    state = create_train_state(ParamTree(init_params(cfg, device="cpu")), opt)
+    step = make_train_step(cfg, opt, warmup_cosine(1e-3, 1, 10))
+    toks = torch.zeros((2, 16), dtype=torch.int32)
+    before = [p.detach().clone() for p in state.model.parameters()]
+    obs = build_train_obs(argparse.Namespace(metrics_port=None, alerts=True))
+    assert attach_train_step(obs, step, state, {"tokens": toks, "labels": toks})
+    assert obs.perf.analyzed == 1 and state.step == 0
+    assert all(torch.equal(a, p.detach()) for a, p in zip(before, state.model.parameters()))
+    assert attach_train_step(None, step, state, {}) is False

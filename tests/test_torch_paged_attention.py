@@ -103,6 +103,7 @@ def _fake_launch(family, name, device, *args):
     assert tables.is_contiguous() and lens.is_contiguous()
     assert out.dtype == torch.float32 and out.shape == q.shape
     out.copy_(paged_decode_plain(q, kp, vp, tables, lens, scale=scale, softcap=softcap, window=window))
+    return True  # launched: the wrapper counts it
 
 
 @pytest.fixture

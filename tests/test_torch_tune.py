@@ -314,6 +314,13 @@ class TestTuner:
         default, best = res.candidate_for(res.default), res.candidate_for(res.best)
         assert best.cost["flops"] <= default.cost["flops"] and best.cost["hbm_bytes"] <= default.cost["hbm_bytes"]
         assert all(c.cost["flops"] > 0 for c in res.candidates)  # counted, not modelled
+        # the dry tier's FLOPs and bytes are the op-level analyzer's (the
+        # plain route here), the analytic launches and shared memory beside them
+        for c in res.candidates:
+            fn, args = ttuner._build("paged_attention", res.shape, c.config, "cpu")
+            counted = tcost.compiled_cost(fn, *args)
+            assert {k: c.cost[k] for k in ("flops", "hbm_bytes")} == counted
+            assert c.cost["launches"] == tcost.analytic_cost("paged_attention", res.shape, c.config)["launches"]
 
     def test_dry_mode_deterministic_and_persists(self):
         r1 = tune.tune("sumvec_fft_plan", (48,), mode="dry", max_candidates=4)

@@ -10,7 +10,7 @@ Run from the repo root:
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tools/torch_parity.py
 
-``--only dist_serve,obs,fabric,tune`` prints the rows of the named sections
+``--only dist_serve,obs,fabric,tune,launch`` prints the rows of the named sections
 alone (the section functions' names without ``_rows``; the base rows run
 only without it).
 """
@@ -1111,7 +1111,130 @@ def _tune_rows(row):
     return out
 
 
-SECTIONS = {"dist_serve": _dist_serve_rows, "obs": _obs_rows, "fabric": _fabric_rows, "tune": _tune_rows}
+def _launch_rows(row):
+    """Slice 6c: the launch analysis tools (``tests/test_torch_{launch,
+    hlo_cost,lm_train}.py``): the parameter specs of the ten archs at full
+    width, the op-level analyzer's product FLOPs against ``analyze_hlo``'s
+    dot FLOPs (prefill with the head on every row, one decode step, the
+    train step with remat; the MoE archs dispatch by other means), remat's
+    gradients and the bf16-moment AdamW."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from repro.configs import get_config as ref_config
+    from repro.launch import specs as ref_specs
+    from repro.launch.hlo_cost import analyze_hlo
+    from repro.models import init_params as ref_init
+    from repro.models.transformer import init_caches as ref_init_caches
+    from repro.optim import adamw as ref_adamw
+    from repro.optim import warmup_cosine as ref_warmup_cosine
+    from repro.train import create_train_state as ref_create_state
+    from repro.train import make_train_step as ref_make_step
+    from repro.train.serve import make_decode_step as ref_decode_step
+    from repro.train.serve import make_prefill_step as ref_prefill_step
+    from repro_torch.configs import get_config, list_archs
+    from repro_torch.launch import hlo_cost, specs
+    from repro_torch.models import ParamTree, forward, init_params
+    from repro_torch.models.transformer import init_caches
+    from repro_torch.optim import adamw, warmup_cosine
+    from repro_torch.train import create_train_state, make_train_step
+    from repro_torch.train.serve import make_decode_step
+    from repro_torch.train.step import _lm_loss_fn
+
+    class FakeMesh:
+        shape = {"data": 16, "model": 16}
+        axis_names = ("data", "model")
+
+    def norm(spec):
+        out = [(e[0] if len(e) == 1 else list(e)) if isinstance(e, tuple) else e for e in tuple(spec)]
+        while out and out[-1] is None:
+            out.pop()
+        return out
+
+    out = []
+    leaves, bad = 0, 0
+    for arch in list_archs():
+        ref = {tuple(str(k.key) for k in path): leaf for path, leaf in jax.tree_util.tree_flatten_with_path(
+            jax.eval_shape(lambda: ref_init(jax.random.PRNGKey(0), ref_config(arch))))[0]}
+
+        def walk(t, path=()):
+            for k, v in t.items():
+                yield from walk(v, path + (k,)) if isinstance(v, dict) else [(path + (k,), v)]
+
+        for path, leaf in walk(specs.params_spec_tree(get_config(arch), FakeMesh())):
+            r = ref.get(path)
+            leaves += 1
+            rpath = [jax.tree_util.DictKey(k) for k in path]
+            same = (r is not None and tuple(leaf.shape) == tuple(r.shape)
+                    and str(leaf.dtype).replace("torch.", "") == str(r.dtype)
+                    and norm(specs.param_spec(path, leaf)) == norm(ref_specs.param_spec(rpath, r))
+                    and specs._divisible(leaf.shape, specs.param_spec(path, leaf), FakeMesh())
+                    == ref_specs._divisible(r.shape, ref_specs.param_spec(rpath, r), FakeMesh()))
+            bad += not same
+    out.append(row("launch/specs params_spec_tree", f"10 archs full width, {leaves} leaves: shape, dtype, "
+                   "param_spec, _divisible on (16, 16) (mismatches)", [float(bad)], [0.0]))
+
+    def ref_dots(fn, *args):
+        return float(sum(analyze_hlo(jax.jit(fn).lower(*args).compile().as_text()).dot_flops_by_meta.values()))
+
+    for arch in ("gemma2-2b", "codeqwen1.5-7b", "llama4-scout-17b-a16e", "arctic-480b"):
+        rcfg, cfg = ref_config(arch).reduced(), get_config(arch).reduced()
+        rparams = ref_init(jax.random.PRNGKey(0), rcfg)
+        rcaches = ref_init_caches(rcfg, 2, 32)
+        ref_pre = ref_dots(ref_prefill_step(rcfg), rparams, rcaches, jnp.zeros((2, 16), jnp.int32))
+        ref_dec = ref_dots(ref_decode_step(rcfg), rparams, rcaches, jnp.int32(16), jnp.zeros((2, 1), jnp.int32))
+        rstate = ref_create_state(rparams, ref_adamw())
+        rb = {"tokens": jnp.zeros((2, 32), jnp.int32), "labels": jnp.zeros((2, 32), jnp.int32)}
+        ref_train = ref_dots(ref_make_step(rcfg, ref_adamw(), ref_warmup_cosine(3e-3, 0, 10)), rstate, rb)
+        params, caches = init_params(cfg, device="cpu"), init_caches(cfg, 2, 32, device="cpu")
+        pre = hlo_cost.analyze(torch.no_grad()(lambda p, c, t: forward(p, cfg, t, caches=c, cache_len=0)), params,
+                               caches, torch.zeros((2, 16), dtype=torch.int32)).product_flops
+        dec = hlo_cost.analyze(torch.no_grad()(make_decode_step(cfg)), params, caches, 16,
+                               torch.zeros((2, 1), dtype=torch.int32)).product_flops
+        opt = adamw()
+        state = create_train_state(ParamTree(params), opt)
+        b = {"tokens": torch.zeros((2, 32), dtype=torch.int32), "labels": torch.zeros((2, 32), dtype=torch.int32)}
+        train = hlo_cost.analyze(make_train_step(cfg, opt, warmup_cosine(3e-3, 0, 10)), state, b).product_flops
+        moe = " (MoE: other dispatch)" if cfg.n_experts else ""
+        out.append(row("launch/hlo_cost analyze", f"{arch} reduced product FLOPs vs analyze_hlo dots: prefill 16, "
+                       f"decode 1, train step with remat{moe}", [pre, dec, train], [ref_pre, ref_dec, ref_train]))
+
+    cfg = dataclasses.replace(get_config("gemma2-2b").reduced(), remat=False)
+    tree = init_params(cfg, seed=1, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (4, 8)).astype(np.int32))
+    grads = {}
+    for name, kw in (("off", dict(remat=False)), ("nothing", dict(remat=True)),
+                     ("dots", dict(remat=True, remat_policy="dots"))):
+        model = ParamTree(dict(tree))
+        loss = _lm_loss_fn(model.tree(), {"tokens": toks, "labels": toks}, dataclasses.replace(cfg, **kw))[0]
+        grads[name] = [loss.detach().reshape(1)] + list(torch.autograd.grad(loss, list(model.parameters())))
+    for name in ("nothing", "dots"):
+        out.append(row("models/transformer remat", f"gemma2-2b reduced: loss and every gradient, remat {name} vs off",
+                       grads[name], grads["off"]))
+
+    rng = np.random.default_rng(11)
+    init = {"w": rng.standard_normal((8, 16)).astype(np.float32), "b": rng.standard_normal(16).astype(np.float32)}
+    gs = [{k: rng.standard_normal(v.shape).astype(np.float32) * 0.1 for k, v in init.items()} for _ in range(2)]
+    ropt = ref_adamw(moment_dtype=jnp.bfloat16)
+    rp = {k: jnp.asarray(v) for k, v in init.items()}
+    rs = ropt.init(rp)
+    for g in gs:
+        rp, rs = ropt.update({k: jnp.asarray(v) for k, v in g.items()}, rs, rp, 1e-2)
+    params = [torch.nn.Parameter(torch.from_numpy(init[k].copy())) for k in init]
+    opt = adamw(moment_dtype=torch.bfloat16).init(params)
+    for g in gs:
+        opt.step(1e-2, [torch.from_numpy(g[k]) for k in init])
+    out.append(row("optim/optimizers adamw(moment_dtype=bf16)", "two steps on (8, 16) + (16,): parameters, m",
+                   [p.detach() for p in params] + [opt.state[p]["m"].float() for p in params],
+                   [np.asarray(rp[k]) for k in init] + [np.asarray(rs["m"][k], np.float32) for k in init]))
+    return out
+
+
+SECTIONS = {"dist_serve": _dist_serve_rows, "obs": _obs_rows, "fabric": _fabric_rows, "tune": _tune_rows,
+            "launch": _launch_rows}
 
 
 def main(argv=None) -> None:
