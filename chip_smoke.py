@@ -221,6 +221,17 @@ Phases (any failed check exits non-zero and prints no result):
      device busy and idle share, each ported kernel's device ms, and the aux
      loss's share of the step's device time (its forward + backward alone
      at the step's shapes).  Peak bytes per arm.
+  7b. fsdp — the 2-D (FSDP over ``data``, TP over ``model``) LM train step
+     (``parallel/fsdp_tp.place_train_state``, then ``make_train_step`` on
+     the placed state) on one NCCL rank, a (data 1, model 1) mesh: gemma2-2b
+     at full width and depth, f32, batch 8 x 128, phase 7's schedule, in
+     three aux arms (R_sum b = 128, R_sum q = 2 ungrouped, R_off fused),
+     3 steps placed against 3 unplaced steps from the same seeded weights
+     and batches: every loss term within 5e-4 relative, every gathered
+     parameter within 5e-4 of its leaf's largest entry, each arm's kernels
+     launched forward and backward in the placed steps; median step ms and
+     peak allocated bytes (steps 2-3) of both.  Phase ``launch`` (e) prints each dry-run
+     cell's layout, and a 2-D cell's argument bytes must equal the specs'.
   8. report — one JSON ``kernels`` line, the card's name and power limit,
      and the last line ``{"ok": true, "device": {...}}``.
 
@@ -3805,6 +3816,143 @@ def phase_lmtrain(ph: Phase, dev):
     return fwd_total, bwd_total
 
 # ---------------------------------------------------------------------------
+# phase fsdp: the 2-D (FSDP over data, TP over model) LM train step
+# ---------------------------------------------------------------------------
+
+# gemma2-2b at full width and depth, f32, batch 8 x 128 (phase lmtrain's
+# data and schedule), placed by ``place_train_state`` on a (data 1, model 1)
+# mesh of one NCCL rank, against the unplaced step from the same weights
+FSDP_STEPS = 3
+FSDP_ARMS = ("r_sum q=2 b=128", "r_sum q=2", "r_off fused")
+
+
+def _fsdp_arm(ph, tag, dev, mesh, smi):
+    """One aux arm: FSDP_STEPS unplaced steps, then as many placed ones
+    from the same seeded weights and batches (launch counters cleared just
+    before the placed steps, read just after).  Every loss term within 5e-4
+    relative, every parameter within 5e-4 of its leaf's largest entry.
+    Returns the placed steps' ({kernel: launches}, {kernel: backward
+    launches})."""
+    import statistics
+
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.data import LMDataConfig
+    from repro_torch.launch.train import lm_batch_fn
+    from repro_torch.parallel.fsdp_tp import place_train_state
+
+    kw, kernels_fwd, kernels_bwd = LMTRAIN_ARMS[tag]
+    cfg = _lmtrain_cfg("gemma2-2b", None, kw)
+    batch_fn = lm_batch_fn(cfg, LMDataConfig(cfg.vocab_size, batch=LMTRAIN_BATCH, seq_len=LMTRAIN_SEQ, seed=SEED),
+                           dev)
+    batches = [batch_fn(i) for i in range(FSDP_STEPS)]
+    runs = {}
+    for placed in (False, True):
+        _free()
+        state, step = _lmtrain_state(cfg, dev, None)
+        if placed:
+            state = place_train_state(state, mesh)
+        kernels.reset_launch_counts()
+        metrics, ms = _lmtrain_steps(state, step, batches[:1])
+        # the peak of the steady steps, over what the state holds
+        torch.cuda.reset_peak_memory_stats()
+        m_rest, ms_rest = _lmtrain_steps(state, step, batches[1:])
+        metrics, ms = metrics + m_rest, ms + ms_rest
+        counts = (kernels.launch_counts(), kernels.backward_launch_counts())
+        peak = torch.cuda.max_memory_allocated()
+        held = torch.cuda.memory_allocated()  # what the state holds between steps
+        if placed:
+            ph.check(type(state).__name__ == "ShardedTrainState", f"[fsdp] {tag}: the state was not placed")
+            params = {k: v.clone() for k, v in state.state_dict()["params"].items()}
+        else:  # on the host: the placed run's peak holds none of it
+            params = {k: v.detach().to("cpu", copy=True) for k, v in state.model.named_parameters()}
+        runs[placed] = (metrics, ms, counts, peak, params, held)
+        if tag == FSDP_ARMS[0]:
+            _fsdp_profile(tag, "placed" if placed else "unplaced", state, step, batches[-1], smi)
+        del state, step
+    (u_m, u_ms, _, u_peak, u_params, u_held), (p_m, p_ms, (fwd, bwd), p_peak, p_params, p_held) = runs[False], runs[True]
+    keys = ("loss", "ce", "decorr_aux", "decorr_var", "decorr_reg", "grad_norm")
+    loss_rel = {k: _max_rel([m[k] for m in p_m], [m[k] for m in u_m]) for k in keys if k in u_m[0]}
+    for k, v in loss_rel.items():
+        ph.check(v <= LOSS_TOL, f"[fsdp] {tag}: {k} rel err {v:.3g} > {LOSS_TOL}")
+    worst, worst_name = 0.0, ""
+    for name, want in u_params.items():
+        want = want.to(dev)
+        rel = float((p_params[name] - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+        if rel > worst:
+            worst, worst_name = rel, name
+        del want
+    ph.check(worst <= LOSS_TOL, f"[fsdp] {tag}: parameter {worst_name} rel err {worst:.3g} > {LOSS_TOL}")
+    for name in kernels_fwd:
+        ph.check(fwd[name] > 0, f"[fsdp] {tag}: kernel {name} never launched in the placed steps")
+    for name in kernels_bwd:
+        ph.check(bwd[name] > 0, f"[fsdp] {tag}: kernel {name} never launched on the placed steps' backward passes")
+    for i, m in enumerate(p_m):
+        ph.check(all(math.isfinite(v) for v in m.values()), f"[fsdp] {tag}: non-finite metrics at step {i}: {m}")
+    print(f"[fsdp] {tag}: {cfg.name} {cfg.n_layers} layers d={cfg.d_model} batch {LMTRAIN_BATCH} x seq "
+          f"{LMTRAIN_SEQ} f32, {FSDP_STEPS} steps, mesh (data 1, model 1) on one NCCL rank | loss "
+          f"{['%.7g' % m['loss'] for m in p_m]} | placed vs unplaced: max rel err "
+          f"{ {k: float('%.3g' % v) for k, v in loss_rel.items()} } max param rel err {worst:.3g} ({worst_name}) | "
+          f"median step ms placed={statistics.median(p_ms[1:]):.3f} unplaced={statistics.median(u_ms[1:]):.3f} | "
+          f"peak allocated bytes of steps 2-{FSDP_STEPS} placed={p_peak} unplaced={u_peak}, allocated after them "
+          f"placed={p_held} unplaced={u_held} | launches fwd {_nonzero(fwd)} bwd "
+          f"{_nonzero(bwd)} | {smi}", flush=True)
+    del runs, u_params, p_params
+    _free()
+    return fwd, bwd
+
+
+def _fsdp_profile(tag, which, state, step, batch, smi):
+    """One more step under the profiler: device busy ms, the NCCL kernels'
+    and the copies' device ms, the largest device items."""
+    by_name = {}
+    for name, us in _device_events(lambda: step(state, batch)):
+        by_name[name] = by_name.get(name, 0.0) + us / 1e3
+    busy = sum(by_name.values())
+    nccl = sum(v for k, v in by_name.items() if "nccl" in k.lower())
+    copies = sum(v for k, v in by_name.items() if "memcpy" in k.lower() or "copy" in k.lower())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    print(f"[profile] fsdp {tag} {which}: one step, device busy {busy:.3f} ms, NCCL {nccl:.3f} ms, copies "
+          f"{copies:.3f} ms | top { {k[:60]: round(v, 3) for k, v in top} } | {smi}", flush=True)
+
+
+def phase_fsdp(ph: Phase, dev):
+    """The 2-D LM train step (``parallel/fsdp_tp``) on one NCCL rank, in
+    FSDP_ARMS; returns the placed steps' ({kernel: launches}, {kernel:
+    backward launches})."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh_for_devices
+
+    smi = _smi()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
+    torch.cuda.set_device(dev.index or 0)
+    dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1), rank=0, world_size=1)
+    fwd_total, bwd_total = {}, {}
+    try:
+        mesh = make_mesh_for_devices(1, 1)
+        for tag in FSDP_ARMS:
+            t0 = time.perf_counter()
+            fwd, bwd = _fsdp_arm(ph, tag, dev, mesh, smi)
+            for k in fwd:
+                fwd_total[k] = fwd_total.get(k, 0) + fwd[k]
+                bwd_total[k] = bwd_total.get(k, 0) + bwd[k]
+            print(f"[fsdp] {tag}: {time.perf_counter() - t0:.1f}s", flush=True)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    return fwd_total, bwd_total
+
+
+# ---------------------------------------------------------------------------
 # phase launch: the op-level analyzer (launch/hlo_cost) and the roofline join
 # ---------------------------------------------------------------------------
 
@@ -4093,8 +4241,14 @@ def _launch_dryrun_finish(ph, proc, smi):
         if rec["status"] != "ok":
             print(rec.get("traceback", ""), flush=True)
             continue
+        if rec.get("layout") == "2d":
+            # the 2-D step holds what the specs' layout holds a rank
+            ph.check(rec["memory"]["argument_bytes"] == rec["reference_argument_bytes"],
+                     f"[launch] (e) {tag}: 2-D argument bytes {rec['memory']['argument_bytes']} != the specs' "
+                     f"{rec['reference_argument_bytes']}")
         roof = {k: (f"{v:.4g}" if isinstance(v, float) else v) for k, v in rec["roofline"].items()}
-        print(f"[launch] (e) {tag}: memory {rec['memory']} reference_argument_bytes {rec['reference_argument_bytes']} "
+        print(f"[launch] (e) {tag}: layout {rec.get('layout')} memory {rec['memory']} "
+              f"reference_argument_bytes {rec['reference_argument_bytes']} "
               f"fits_80gb {rec['fits_80gb']} | collectives { {k: f'{v:.4g}' for k, v in rec['collectives'].items()} } "
               f"| roofline {roof} | flops {rec['flops']:.6g} model_flops/device {rec['model_flops_per_device']:.6g} "
               f"| kernels {rec['kernel_launches']} | analysis {rec['compile_s']} s", flush=True)
@@ -4164,11 +4318,12 @@ def main() -> int:
     tuned = ph.run("tune", phase_tune, ph, dev) or {}
     archs = ph.run("archs", phase_archs, ph, dev) or {}
     lmtrain_fwd, lmtrain_bwd = ph.run("lmtrain", phase_lmtrain, ph, dev) or ({}, {})
+    fsdp_fwd, fsdp_bwd = ph.run("fsdp", phase_fsdp, ph, dev) or ({}, {})
     launch = ph.run("launch", phase_launch, ph, dev) or {}
-    for part in (train_fwd, dist_fwd, obs, lm, fabric, tuned, archs, lmtrain_fwd, launch):
+    for part in (train_fwd, dist_fwd, obs, lm, fabric, tuned, archs, lmtrain_fwd, fsdp_fwd, launch):
         for k, v in part.items():
             launches[k] = launches.get(k, 0) + v
-    for part in (dist_bwd, lmtrain_bwd):
+    for part in (dist_bwd, lmtrain_bwd, fsdp_bwd):
         for k, v in part.items():
             train_bwd[k] = train_bwd.get(k, 0) + v
     for name in REPLACES:

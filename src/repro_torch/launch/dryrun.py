@@ -15,16 +15,19 @@ Nothing is allocated: the inputs are ``launch/specs``' fake tensors and the
 cell runs under ``launch/hlo_cost.analyze``.
 
 What runs is the PORT's per-rank program, not the reference's: the port has
-no GSPMD partitioner, and its LM step under a mesh is data-parallel
-(``make_train_step(mesh=)``: every rank holds the whole parameters and
-optimizer state and steps on its block of the batch along ``data``); the
-prefill and decode cells run the one-device serving steps of
-``train/serve`` on the rank's block of the batch.  Each record therefore
-carries ``"layout": "dp"`` and, beside the port's ``argument_bytes``,
-``reference_argument_bytes``: what the rank would hold under the specs' 2-D
-(FSDP over ``data``, TP over ``model``) layout.  A multi-pod train cell
-records the DP step's refusal of a batch split over two mesh axes
-(``("pod", "data")``) as its error.
+no GSPMD partitioner.  A train cell of an arch whose layers are all
+attention plus a dense MLP runs the port's 2-D step (``parallel/fsdp_tp``:
+the rank holds its block of every parameter and both AdamW moments under
+the specs' layout, FSDP over ``data``, TP over ``model``, the batch over
+``("pod", "data")``), recorded as ``"layout": "2d"``; its
+``argument_bytes`` then equal ``reference_argument_bytes``, what the
+specs' 2-D layout holds a rank.  The MoE and recurrent archs' train cells
+run the data-parallel step (``make_train_step(mesh=)``: every rank holds
+the whole parameters and optimizer state and steps on its block of the
+batch along the batch axes), and the prefill and decode cells the
+one-device serving steps of ``train/serve`` on the rank's block of the
+batch: ``"layout": "dp"``, with ``reference_argument_bytes`` beside the
+port's ``argument_bytes``.
 
 ``--device`` defaults to ``cuda`` (fake CUDA tensors: the kernel route, each
 hand-written kernel's launches counted; a machine without CUDA raises, as
@@ -52,6 +55,7 @@ from repro_torch.launch import specs as S
 from repro_torch.launch.mesh import _make_mesh, make_production_mesh
 from repro_torch.models.transformer import forward, logits_from_hidden
 from repro_torch.optim.optimizers import adamw, warmup_cosine
+from repro_torch.parallel import fsdp_tp
 from repro_torch.train.serve import make_decode_step, make_prefill_step
 from repro_torch.train.step import make_train_step
 from repro_torch.train.train_state import TrainState
@@ -161,11 +165,18 @@ def build_cell(arch: str, shape_name: str, multi_pod: bool, device=None, *, cfg=
         opt_state = S.opt_state_spec_tree(opt.init, model, mesh)
         batch = S.batch_specs(cfg, shape, mesh, device=dev)
         meta["reference_argument_bytes"] = _local_bytes((model, opt_state, batch))
-        data_axis = batch_axes[0] if len(batch_axes) == 1 else batch_axes
-        grad_sh = [p.sharding for p in model.parameters()] if grad_shardings else None
-        step = make_train_step(cfg, opt, sched, num_microbatches=micro, mesh=mesh, data_axis=data_axis,
-                               grad_shardings=grad_sh)
         state = TrainState(step=0, model=model, opt_state=opt_state, seed=0)
+        if fsdp_tp.supports(cfg):
+            # the 2-D step on the rank's blocks of the specs' fake tensors
+            meta["layout"] = "2d"
+            with S.fake_mode():
+                state = fsdp_tp.place_train_state(state, mesh)
+            grad_sh = [p.placement for p in state.model.parameters()] if grad_shardings else None
+            step = make_train_step(cfg, opt, sched, num_microbatches=micro, grad_shardings=grad_sh)
+        else:
+            grad_sh = [p.sharding for p in model.parameters()] if grad_shardings else None
+            step = make_train_step(cfg, opt, sched, num_microbatches=micro, mesh=mesh, data_axis=batch_axes,
+                                   grad_shardings=grad_sh)
         return step, (state, _rank_block(batch, batch_axes, mesh)), meta
 
     caches = S.cache_specs(cfg, shape.global_batch, shape.seq_len, mesh, device=dev)

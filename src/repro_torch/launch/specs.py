@@ -12,9 +12,10 @@ Every spec of one process comes from one fake mode (``fake_mode()``), so
 
 The sharding rules are the reference's, on the port's parameter paths (the
 tree's keys, e.g. ``("blocks", "pos0", "attn", "wq")``): "data" is the FSDP
-axis, "model" the TP / EP axis.  The port's steps do not run that layout
-(its LM step under a mesh is data-parallel); ``launch/dryrun`` records what
-the layout would hold beside what the port's step holds.
+axis, "model" the TP / EP axis.  ``parallel/fsdp_tp.place_train_state``
+places a train state by them, and the dense archs' LM step runs on the
+blocks (the 2-D step); ``launch/dryrun`` records what the layout holds
+beside what the port's step holds.
 """
 
 from __future__ import annotations

@@ -25,6 +25,7 @@ import torch
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.kernels.paged_attention.kernel import paged_decode_attention
 from repro_torch.models.common import ArchConfig, BlockSpec, softcap
+from repro_torch.parallel import fsdp_tp
 from repro_torch.parallel import sharding as shd
 
 Tensor = torch.Tensor
@@ -84,17 +85,23 @@ def attn_shapes(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
     return shapes
 
 
-def _project_qkv(params, x: Tensor, cfg: ArchConfig, positions: Tensor):
+def _project_qkv(params, x: Tensor, cfg: ArchConfig, positions: Tensor, weight=None, heads=None):
+    """(q, k, v) with RoPE applied: (B, S, heads, hd).  ``weight(name)``
+    gives the leaf to multiply by (default: the leaf in the compute dtype)
+    and ``heads`` the (q, kv) heads it yields (default: all of them); the
+    2-D layout passes a rank's head blocks."""
     b, s, _ = x.shape
-    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    h, kv = heads or (cfg.n_heads, cfg.n_kv_heads)
+    hd = cfg.hd
     cd = cfg.compute_dtype
-    q = x @ params["wq"].to(cd)
-    k = x @ params["wk"].to(cd)
-    v = x @ params["wv"].to(cd)
+    weight = weight or (lambda name: params[name].to(cd))
+    q = x @ weight("wq")
+    k = x @ weight("wk")
+    v = x @ weight("wv")
     if cfg.qkv_bias:
-        q = q + params["bq"].to(cd)
-        k = k + params["bk"].to(cd)
-        v = v + params["bv"].to(cd)
+        q = q + weight("bq")
+        k = k + weight("bk")
+        v = v + weight("bv")
     q, k = q.reshape(b, s, h, hd), k.reshape(b, s, kv, hd)
     if cfg.mrope:
         q = apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
@@ -337,6 +344,58 @@ def _offset_prefill_attention(q, cache_k, cache_v, offset: int, cfg: ArchConfig,
     return _softmax_attend(scores, mask[None, None], v, q.dtype)
 
 
+def _scoring_attention(params, x: Tensor, cfg: ArchConfig, spec: BlockSpec, positions: Tensor,
+                       cache: Optional[Dict[str, Tensor]] = None) -> Tensor:
+    """The forward over the full sequence (a prefill writes k / v into rows
+    [0, S) of ``cache`` first).  On placed blocks (``parallel/fsdp_tp``, the
+    2-D train step) each weight is gathered over ``data``; with ``wo`` split
+    over ``model`` (row-parallel, its output all-reduced over ``model``) a
+    rank computes its q heads where whole q heads fall on each rank, and its
+    kv heads where whole kv heads do too (a rank's q heads then read exactly
+    its kv heads).  A leaf that does not split on a head boundary is
+    gathered over ``model`` and computed whole: whole q heads give whole
+    outputs, of which the rank keeps the columns of its ``wo`` rows; whole
+    kv heads are indexed by the rank's q heads.  A whole leaf passes through
+    every gather."""
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    cd = cfg.compute_dtype
+    model = fsdp_tp.MODEL
+    tp = fsdp_tp.split_over(params["wo"], model)
+    m = shd.axis_size(model) if tp else 1
+    idx = shd.axis_index(model) if tp else 0
+    q_split = tp and h % m == 0 and fsdp_tp.split_over(params["wq"], model)
+    kv_split = q_split and kv % m == 0 and fsdp_tp.split_over(params["wk"], model)
+    if tp:
+        x = fsdp_tp.enter_tp(x)
+    split = {"wq": q_split, "bq": q_split, "wk": kv_split, "bk": kv_split, "wv": kv_split, "bv": kv_split,
+             "wo": tp}
+
+    def weight(name):
+        return fsdp_tp.gather(params[name], model=not split[name], repeated=not tp, tp=tp).to(cd)
+
+    hl = h // m if q_split else h
+    kvl = kv // m if kv_split else kv
+    q, k, v = _project_qkv(params, x, cfg, positions, weight=weight, heads=(hl, kvl))
+    if q_split and not kv_split:
+        # whole kv heads: the ones this rank's q heads read, one a q head
+        sel = torch.div(idx * hl + torch.arange(hl, device=q.device), h // kv, rounding_mode="floor")
+        k, v = k.index_select(2, sel), v.index_select(2, sel)
+    b, s = x.shape[:2]
+    if cache is not None:
+        cache["k"][:, :s] = k
+        cache["v"][:, :s] = v
+    if s > cfg.attn_chunk_threshold and s % cfg.attn_chunk_size == 0:
+        out = _chunked_attention(q, k, v, cfg, spec, cfg.attn_chunk_size)
+    else:
+        out = _full_attention(q, k, v, cfg, spec)
+    out = out.reshape(b, s, hl * hd)
+    if tp and not q_split:
+        cols = h * hd // m
+        out = out[..., idx * cols:(idx + 1) * cols]
+    out = out @ weight("wo")
+    return fsdp_tp.exit_tp(out) if tp else out
+
+
 # ---------------------------------------------------------------------------
 # Public entry
 # ---------------------------------------------------------------------------
@@ -364,13 +423,17 @@ def attn_apply(
       with ``chunked=True`` the chunk is written at rows
       [cache_len, cache_len + S) instead and attends across the prefix
       already written (incremental prefill).
+
+    The scoring forward and the prefill take ``_scoring_attention``, which
+    also runs placed blocks (``parallel/fsdp_tp``, the 2-D train step).
     """
     b, s, _ = x.shape
+    if cache is None or (s > 1 and not chunked):
+        return _scoring_attention(params, x, cfg, spec, positions, cache), cache
     h, hd = cfg.n_heads, cfg.hd
     cd = cfg.compute_dtype
     q, k, v = _project_qkv(params, x, cfg, positions)
-
-    if cache is not None and s == 1:
+    if s == 1:
         if "k_pages" in cache:
             out, cache = _paged_decode(q, k, v, cache, cache_len, block_tables, cfg, spec, impl)
         else:
@@ -385,18 +448,8 @@ def attn_apply(
                 cv[:, int(cache_len)] = v[:, 0]
             out = _decode_attention(q, ck, cv, cache_len + 1, cfg, spec)
         return out.reshape(b, s, h * hd) @ params["wo"].to(cd), cache
-    if cache is not None and chunked:
-        off = int(cache_len)
-        cache["k"][:, off:off + s] = k
-        cache["v"][:, off:off + s] = v
-        out = _offset_prefill_attention(q, cache["k"], cache["v"], off, cfg, spec)
-        return out.reshape(b, s, h * hd) @ params["wo"].to(cd), cache
-    if cache is not None:
-        cache["k"][:, :s] = k
-        cache["v"][:, :s] = v
-
-    if s > cfg.attn_chunk_threshold and s % cfg.attn_chunk_size == 0:
-        out = _chunked_attention(q, k, v, cfg, spec, cfg.attn_chunk_size)
-    else:
-        out = _full_attention(q, k, v, cfg, spec)
+    off = int(cache_len)
+    cache["k"][:, off:off + s] = k
+    cache["v"][:, off:off + s] = v
+    out = _offset_prefill_attention(q, cache["k"], cache["v"], off, cfg, spec)
     return out.reshape(b, s, h * hd) @ params["wo"].to(cd), cache

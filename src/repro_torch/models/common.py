@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.decorrelation import LMDecorrConfig
+from repro_torch.parallel import fsdp_tp
 
 Tensor = torch.Tensor
 
@@ -251,12 +252,25 @@ def activation_fn(name: str):
 
 
 def mlp_apply(params: Dict[str, Tensor], x: Tensor, cfg: ArchConfig) -> Tensor:
-    """Dense MLP: ``act(x W_in) W_out``, gated when ``w_gate`` is present."""
+    """Dense MLP: ``act(x W_in) W_out``, gated when ``w_gate`` is present.
+
+    On placed blocks (``parallel/fsdp_tp``) each weight is gathered over
+    ``data`` first; split over ``model``, ``w_in`` / ``w_gate`` are column
+    blocks and ``w_out`` a row block, and the output is all-reduced over
+    ``model`` (the entry's and exit's collectives)."""
     act = activation_fn(cfg.activation)
     cd = cfg.compute_dtype
-    h = x @ params["w_in"].to(cd)
+    tp = fsdp_tp.split_over(params["w_out"], fsdp_tp.MODEL)
+    if tp:
+        x = fsdp_tp.enter_tp(x)
+
+    def w(name):
+        return fsdp_tp.gather(params[name], model=not tp, repeated=True, tp=tp).to(cd)
+
+    h = x @ w("w_in")
     if "w_gate" in params:
-        h = act(x @ params["w_gate"].to(cd)) * h
+        h = act(x @ w("w_gate")) * h
     else:
         h = act(h)
-    return h @ params["w_out"].to(cd)
+    out = h @ w("w_out")
+    return fsdp_tp.exit_tp(out) if tp else out

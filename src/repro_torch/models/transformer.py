@@ -44,6 +44,7 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.common import ArchConfig, BlockSpec, dense_init, mlp_apply, rms_norm, softcap
+from repro_torch.parallel import fsdp_tp
 from repro_torch.parallel import sharding as shd
 
 Tensor = torch.Tensor
@@ -200,10 +201,11 @@ class ParamTree(nn.Module):
 
 
 def layer_params(params: Dict[str, Any], name: str, r: int) -> Dict[str, Any]:
-    """Views of layer ``r`` of pattern position ``name`` (no copies)."""
+    """Views of layer ``r`` of pattern position ``name`` (no copies); a
+    placed block's view carries its placement (``parallel/fsdp_tp``)."""
 
     def take(tree):
-        return {k: take(v) if isinstance(v, dict) else v[r] for k, v in tree.items()}
+        return {k: take(v) if isinstance(v, dict) else fsdp_tp.layer_view(v, v[r]) for k, v in tree.items()}
 
     return take(params["blocks"][name])
 
@@ -359,27 +361,42 @@ def _embed_inputs(params, cfg: ArchConfig, tokens: Optional[Tensor], embeds: Opt
     cd = cfg.compute_dtype
     if embeds is not None:  # a modality frontend supplies the embeddings
         x = embeds.to(cd)
-    elif cfg.frontend == "audio_codes":
-        # tokens: (B, S, n_codebooks) codes; one embedding per codebook, summed
-        x = sum(params["embed"][q][tokens[..., q]].to(cd) for q in range(cfg.n_codebooks))
     else:
-        x = params["embed"][tokens].to(cd)
+        # audio: (B, S, n_codebooks) codes, one table a codebook, summed; a
+        # placed table is looked up vocabulary-parallel (``parallel/fsdp_tp``)
+        x = fsdp_tp.embed_lookup(params["embed"], tokens, cd)
     if cfg.scale_embed:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=torch.float32).to(cd)
     return x
 
 
+def _head_leaf(params, cfg: ArchConfig):
+    """(the head's leaf, True when it is the tied (V, d) embedding)."""
+    if cfg.frontend == "audio_codes":
+        return params["heads"], False
+    if cfg.tie_embeddings:
+        return params["embed"], True
+    return params["lm_head"], False
+
+
+def vocab_start(params, cfg: ArchConfig):
+    """The first column of the flat (n_codebooks x) vocabulary that
+    ``logits_from_hidden`` gives this rank, or None when it gives them all
+    (the head is not a placed block split over ``model``)."""
+    return fsdp_tp.vocab_start(*_head_leaf(params, cfg))
+
+
 def logits_from_hidden(params, cfg: ArchConfig, h: Tensor) -> Tensor:
     """The LM head: tied embedding (or ``lm_head``; audio: the n_codebooks
-    ``heads``, (…, n_codebooks, V)), f32, final softcap."""
-    cd = cfg.compute_dtype
-    if cfg.frontend == "audio_codes":
-        logits = h @ params["heads"].to(cd)
+    ``heads``, (…, n_codebooks, V)), f32, final softcap.  A placed head
+    split over ``model`` (``parallel/fsdp_tp``) gives this rank's columns of
+    the flat (n_codebooks x) vocabulary, (…, C), from ``vocab_start``."""
+    leaf, tied = _head_leaf(params, cfg)
+    start, w = fsdp_tp.head_columns(leaf, tied)
+    w = w.to(cfg.compute_dtype)
+    logits = (h if start is None else fsdp_tp.enter_tp(h)) @ (w.T if tied else w)
+    if start is None and cfg.frontend == "audio_codes":
         logits = logits.reshape(*h.shape[:-1], cfg.n_codebooks, cfg.vocab_size)
-    elif cfg.tie_embeddings:
-        logits = h @ params["embed"].to(cd).T
-    else:
-        logits = h @ params["lm_head"].to(cd)
     return softcap(logits.float(), cfg.final_softcap)
 
 

@@ -266,11 +266,13 @@ def clip_by_global_norm(
     return [(g.float() * scale).to(g.dtype) for g in grads], norm
 
 
-def clip_by_global_norm_(grads: Sequence[Tensor], max_norm: float) -> Tensor:
+def clip_by_global_norm_(grads: Sequence[Tensor], max_norm: float,
+                         params: Optional[Sequence[Tensor]] = None) -> Tensor:
     """``clip_by_global_norm`` in place: each gradient is scaled where it
     lies, so a step on a model whose gradients fill much of the card never
-    holds two copies of them.  Returns the pre-clip global norm."""
-    norm = global_norm(grads)
+    holds two copies of them.  Returns the pre-clip global norm (``params``
+    as in ``global_norm``: blocks' squares summed over their shard groups)."""
+    norm = global_norm(grads, params)
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
     for g in grads:
         g.mul_(scale)

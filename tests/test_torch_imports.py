@@ -25,7 +25,8 @@ assert not bad, bad
 # the numpy-only serving modules the port keeps its own copies of, the
 # model families and arch configs of the LM serving path, the modules of
 # the LM training path, those of distributed training / serving and
-# telemetry, the fabric and the tuner, and the launch analysis tools
+# telemetry, the fabric and the tuner, the launch analysis tools, and the
+# 2-D train step's layout
 COPIES = ("repro_torch.data.synthetic", "repro_torch.core.decorrelation", "repro_torch.core.whitening",
           "repro_torch.train.step", "repro_torch.launch.train",
           "repro_torch.serve.sampling", "repro_torch.serve.spec", "repro_torch.serve.paging.radix",
@@ -44,7 +45,9 @@ COPIES = ("repro_torch.data.synthetic", "repro_torch.core.decorrelation", "repro
           "repro_torch.tune.__main__", "repro_torch.decorr.warmup",
           # the launch analysis tools
           "repro_torch.launch.hlo_cost", "repro_torch.launch.specs", "repro_torch.launch.dryrun",
-          "repro_torch.launch.perf")
+          "repro_torch.launch.perf",
+          # the 2-D (FSDP x TP) train step's placement and collectives
+          "repro_torch.parallel.fsdp_tp")
 
 SMOKE = r"""
 import importlib.util, sys

@@ -14,8 +14,11 @@
 * ``run_cell`` on reduced archs on a (2, 2) fake mesh (``device="cpu"``):
   status ok, the reference record's keys present, ``argument_bytes`` the
   sum of the rank's inputs and ``reference_argument_bytes`` the specs'
-  arithmetic; a multi-pod train cell records the DP step's refusal; one
-  full-width cell (gemma2-2b ``decode_32k``, single mesh) in under 60 s.
+  arithmetic; a dense arch's train cell runs the 2-D step (``"layout":
+  "2d"``, ``argument_bytes`` equal to ``reference_argument_bytes``), an
+  MoE arch's the data-parallel one (``"dp"``), and so do they on a
+  multi-pod mesh, the batch over ``("pod", "data")``; one full-width cell
+  (gemma2-2b ``decode_32k``, single mesh) in under 60 s.
 * ``VARIANTS``: the reference's names, every override a field of the
   port's ``ArchConfig``; ``baseline`` < ``decorr_sum`` in FLOPs.
 """
@@ -177,7 +180,8 @@ from repro_torch.launch import dryrun, perf
 out = {"cells": [], "variants": {}}
 for arch, shape, mesh in (("gemma2-2b", "train_4k", (2, 2)), ("gemma2-2b", "decode_32k", (2, 2)),
                           ("rwkv6-3b", "long_500k", (2, 2)), ("llama4-scout-17b-a16e", "train_4k", (2, 2)),
-                          ("qwen2-vl-2b", "prefill_32k", (2, 2)), ("gemma2-2b", "train_4k", (2, 2, 2))):
+                          ("qwen2-vl-2b", "prefill_32k", (2, 2)), ("llama4-scout-17b-a16e", "train_4k", (2, 2, 2)),
+                          ("gemma2-2b", "train_4k", (2, 2, 2))):
     rec = dryrun.run_cell(arch, shape, len(mesh) == 3, device="cpu", cfg=get_config(arch).reduced(), mesh_shape=mesh)
     out["cells"].append(rec)
 for v in ("baseline", "decorr_sum", "decorr_sum_b128", "decorr_off_baseline"):
@@ -354,35 +358,49 @@ def test_run_cell_records_the_reference_keys_and_bytes(jobs):
     cells = jobs["cells"]["cells"]
     by = {(c["arch"], c["shape"], c["mesh"]): c for c in cells}
     sizes = {"data": 2, "model": 2}
-    for rec in cells[:-1]:
+    for rec in cells[:-2]:
         assert rec["status"] == "ok", rec.get("traceback")
         assert REF_RECORD_KEYS <= set(rec), REF_RECORD_KEYS - set(rec)
-        assert rec["layout"] == "dp" and rec["n_devices"] == 4 and rec["mesh_shape"] == sizes
+        layout = "2d" if (rec["arch"], rec["shape"]) == ("gemma2-2b", "train_4k") else "dp"
+        assert rec["layout"] == layout and rec["n_devices"] == 4 and rec["mesh_shape"] == sizes
         assert set(rec["memory"]) == {"argument_bytes", "output_bytes", "temp_bytes", "alias_bytes"}
         assert rec["kernel_launches"] == {}  # the plain route
         assert rec["trip_counts"] == {} and rec["flops"] > 0
 
-    # gemma2 train: parameters and two f32 moments whole, the rank's half of
-    # the (256, 4096) tokens and labels
+    # gemma2 train, the 2-D step: the rank's blocks of the parameters and of
+    # two f32 moments, its half of the (256, 4096) tokens and labels
     cfg = get_config("gemma2-2b").reduced()
-    n = _param_elems(cfg)
     train = by[("gemma2-2b", "train_4k", "pod2x2")]
     assert train["num_microbatches"] == 1
-    assert train["memory"]["argument_bytes"] == 3 * 4 * n + 2 * (128 * 4096 * 4)
-    assert train["memory"]["alias_bytes"] == 3 * 4 * n  # the state, updated in place
-    assert train["reference_argument_bytes"] == 3 * _reference_layout_bytes(cfg, sizes) + 2 * (128 * 4096 * 4)
-    assert train["collectives"]["all-reduce"] > 0  # the gradients' all-reduce over "data"
+    state_bytes = 3 * _reference_layout_bytes(cfg, sizes)
+    assert train["memory"]["argument_bytes"] == train["reference_argument_bytes"] == state_bytes + 2 * (128 * 4096 * 4)
+    assert train["memory"]["alias_bytes"] == state_bytes  # the state, updated in place
+    # FSDP's gathers and reduce-scatters over "data", TP's all-reduces over "model"
+    assert min(train["collectives"][k] for k in ("all-gather", "reduce-scatter", "all-reduce")) > 0
+    # an MoE arch's train cell: the data-parallel step, parameters (f32) and
+    # moments (the config's bf16) whole
+    moe_cfg = get_config("llama4-scout-17b-a16e").reduced()
+    assert moe_cfg.optimizer_moment_dtype == torch.bfloat16
+    moe = by[("llama4-scout-17b-a16e", "train_4k", "pod2x2")]
+    state_moe = (4 + 2 + 2) * _param_elems(moe_cfg)
+    assert moe["memory"]["argument_bytes"] == state_moe + 2 * (128 * 4096 * 4) > moe["reference_argument_bytes"]
+    assert moe["collectives"]["all-reduce"] > 0  # the gradients' all-reduce over "data"
 
     # gemma2 decode: parameters whole, the rank's 64 of 128 cache rows and tokens
+    n = _param_elems(cfg)
     dec = by[("gemma2-2b", "decode_32k", "pod2x2")]
     kv = cfg.repeats * 64 * 32768 * cfg.n_kv_heads * cfg.hd * 4 * 2 * len(cfg.pattern)
     assert dec["memory"]["argument_bytes"] == 4 * n + kv + 64 * 4
     # the reference layout: rows over data, the cache's sequence over model
     assert dec["reference_argument_bytes"] == _reference_layout_bytes(cfg, sizes) + kv // 2 + 64 * 4 + 4
-    assert by[("llama4-scout-17b-a16e", "train_4k", "pod2x2")]["status"] == "ok"  # MoE: shape-static dispatch
 
+    # the multi-pod train cells: the batch over ("pod", "data"), each step's layout
+    for arch, layout in (("gemma2-2b", "2d"), ("llama4-scout-17b-a16e", "dp")):
+        multi = by[(arch, "train_4k", "pod2x2x2")]
+        assert multi["status"] == "ok", multi.get("traceback")
+        assert multi["layout"] == layout and multi["n_devices"] == 8
     multi = by[("gemma2-2b", "train_4k", "pod2x2x2")]
-    assert multi["status"] == "error" and "spans 2 mesh axes" in multi["error"]
+    assert multi["memory"]["argument_bytes"] == multi["reference_argument_bytes"]
 
 
 def test_one_full_width_cell_within_a_minute(jobs):

@@ -10,7 +10,7 @@ Run from the repo root:
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tools/torch_parity.py
 
-``--only dist_serve,obs,fabric,tune,launch`` prints the rows of the named sections
+``--only dist_serve,fsdp_tp,obs,fabric,tune,launch`` prints the rows of the named sections
 alone (the section functions' names without ``_rows``; the base rows run
 only without it).
 """
@@ -124,6 +124,7 @@ def _rows():
     out.extend(_lm_train_rows(row))
     out.extend(_dist_rows(row))
     out.extend(_dist_serve_rows(row))
+    out.extend(_fsdp_tp_rows(row))
     out.extend(_obs_rows(row))
     return out
 
@@ -941,6 +942,52 @@ def _dist_serve_rows(row):
     return out
 
 
+def _fsdp_tp_rows(row):
+    """The 2-D (FSDP x TP) LM step: the jobs of ``tests/test_torch_fsdp_tp.py``
+    (the port on 4 gloo ranks a mesh; the reference on one device and, one
+    mesh an arch, its GSPMD step on 4 fake XLA devices) — one row an arch
+    and mesh (loss terms and gathered parameters after 2 AdamW steps against
+    the one-device step on the whole batch), one an arch against GSPMD, and
+    the unplaced data-parallel step over ("pod", "data")."""
+    import json
+    import os
+    import sys
+    import tempfile
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tests"))
+    import test_torch_fsdp_tp as tft
+
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = tft.run_jobs(tmp)
+    out = []
+
+    def compare(port, ref, what, module="train/step make_train_step (placed state)"):
+        got_m, want_m = json.loads(str(port[0])), json.loads(str(ref[0]))
+        names = sorted(port[1])
+        out.append(row(module, what, [m[k] for m in got_m for k in tft.METRICS] + [port[1][n] for n in names],
+                       [m[k] for m in want_m for k in tft.METRICS] + [ref[1][n] for n in names]))
+
+    def leaves(res, prefix):
+        return {k[len(prefix):]: v for k, v in res.items() if k.startswith(prefix)}
+
+    for mesh, shape in tft.MESHES.items():
+        oracle = f"oracle{tft._batch_ranks(shape)}"
+        for arch in tft.ARCHS:
+            compare((runs[mesh][f"{arch}/metrics"], leaves(runs[mesh], f"{arch}/param/")),
+                    (runs[arch][f"{oracle}/metrics"], leaves(runs[arch], f"{oracle}/param/")),
+                    f"{arch} reduced, mesh {tuple(shape)}, 2 microbatches, 2 AdamW steps: loss terms and parameters "
+                    "vs one device")
+    for arch, mesh in tft.GSPMD.items():
+        compare((runs[mesh][f"{arch}/metrics"], leaves(runs[mesh], f"{arch}/param/")),
+                (runs[arch][f"gspmd/{mesh}/metrics"], leaves(runs[arch], f"gspmd/{mesh}/param/")),
+                f"{arch} reduced, mesh {tuple(tft.MESHES[mesh])}: the same vs the reference's GSPMD step")
+    compare((runs["c"]["dp/metrics"], leaves(runs["c"], "dp/param/")),
+            (runs["gemma2-2b"]["oracle2/metrics"], leaves(runs["gemma2-2b"], "oracle2/param/")),
+            "gemma2-2b reduced, unplaced, the batch over (pod 2, data 1): the same vs one device",
+            module="train/step make_train_step(mesh=, data_axis=(\"pod\", \"data\"))")
+    return out
+
+
 def _obs_rows(row):
     """Slice 6a: the same operations on ``repro.obs`` and
     ``repro_torch.obs`` (``tests/test_torch_obs.py``): the exposition, the
@@ -1233,7 +1280,7 @@ def _launch_rows(row):
     return out
 
 
-SECTIONS = {"dist_serve": _dist_serve_rows, "obs": _obs_rows, "fabric": _fabric_rows, "tune": _tune_rows,
+SECTIONS = {"dist_serve": _dist_serve_rows, "fsdp_tp": _fsdp_tp_rows, "obs": _obs_rows, "fabric": _fabric_rows, "tune": _tune_rows,
             "launch": _launch_rows}
 
 
