@@ -221,17 +221,24 @@ Phases (any failed check exits non-zero and prints no result):
      device busy and idle share, each ported kernel's device ms, and the aux
      loss's share of the step's device time (its forward + backward alone
      at the step's shapes).  Peak bytes per arm.
-  7b. fsdp — the 2-D (FSDP over ``data``, TP over ``model``) LM train step
-     (``parallel/fsdp_tp.place_train_state``, then ``make_train_step`` on
-     the placed state) on one NCCL rank, a (data 1, model 1) mesh: gemma2-2b
-     at full width and depth, f32, batch 8 x 128, phase 7's schedule, in
-     three aux arms (R_sum b = 128, R_sum q = 2 ungrouped, R_off fused),
-     3 steps placed against 3 unplaced steps from the same seeded weights
-     and batches: every loss term within 5e-4 relative, every gathered
-     parameter within 5e-4 of its leaf's largest entry, each arm's kernels
-     launched forward and backward in the placed steps; median step ms and
-     peak allocated bytes (steps 2-3) of both.  Phase ``launch`` (e) prints each dry-run
-     cell's layout, and a 2-D cell's argument bytes must equal the specs'.
+  7b. fsdp — the 2-D (FSDP over ``data``, TP and the MoE experts over
+     ``model``) LM train step (``parallel/fsdp_tp.place_train_state``, then
+     ``make_train_step`` on the placed state) on one NCCL rank, a (data 1,
+     model 1) mesh: gemma2-2b at full width and depth, f32, batch 8 x 128,
+     phase 7's schedule, in three aux arms (R_sum b = 128, R_sum q = 2
+     ungrouped, R_off fused); then, one a kind of layer, R_sum q = 2, full
+     width, the config's moments: llama4-scout 1 of 48 layers (4 x 64),
+     jamba's first two pattern positions (Mamba + dense, Mamba + MoE;
+     4 x 64), rwkv6-3b 4 of 32 layers (8 x 128, the chunk-parallel path),
+     one state at a time.  3 steps placed against 3 unplaced steps from the
+     same seeded weights and batches: every loss term within 5e-4 relative,
+     every gathered parameter within 5e-4 of its leaf's largest entry, each
+     arm's kernels launched forward and backward in the placed steps; median
+     step ms and peak allocated bytes (steps 2-3) of both.  Phase ``launch``
+     (e) prints each dry-run cell's layout (three processes started with
+     phase launch): every train cell (gemma2-2b, llama4-scout, rwkv6-3b
+     ``train_4k`` on (16, 16)) is the 2-D step and its argument bytes must
+     equal the specs'.
   8. report — one JSON ``kernels`` line, the card's name and power limit,
      and the last line ``{"ok": true, "device": {...}}``.
 
@@ -3596,15 +3603,15 @@ def _lmtrain_cfg(name, depth, aux_kw):
                                compute_dtype=torch.float32, decorr=decorr)
 
 
-def _lmtrain_state(cfg, dev, impl):
+def _lmtrain_state(cfg, dev, impl, moments=None):
     """(state, step): seeded random weights (the same for every call of one
-    config), a fresh AdamW, the launcher's schedule; ``impl`` routes the aux
-    regularizer."""
+    config), a fresh AdamW (moments of dtype ``moments``, f32 by default),
+    the launcher's schedule; ``impl`` routes the aux regularizer."""
     from repro_torch.models import ParamTree, init_params
     from repro_torch.optim import adamw, warmup_cosine
     from repro_torch.train import create_train_state, make_train_step
 
-    opt = adamw()
+    opt = adamw() if moments is None else adamw(moment_dtype=moments)
     state = create_train_state(ParamTree(init_params(cfg, seed=SEED, device=dev)), opt, seed=SEED)
     sched = warmup_cosine(LMTRAIN_LR, max(LMTRAIN_STEPS // 10, 1), LMTRAIN_STEPS)
     return state, make_train_step(cfg, opt, sched, impl=impl)
@@ -3824,13 +3831,55 @@ def phase_lmtrain(ph: Phase, dev):
 # mesh of one NCCL rank, against the unplaced step from the same weights
 FSDP_STEPS = 3
 FSDP_ARMS = ("r_sum q=2 b=128", "r_sum q=2", "r_off fused")
+# one arm a kind of layer the MoE / recurrent archs add, at full width (f32
+# weights; the config's moments, bf16 for llama4 and jamba, as launch/train
+# keeps them: f32 moments and the gathered copies of a layer's experts do
+# not fit beside each other), the R_sum q = 2 aux, depth cut by
+# ``_fsdp_arch_cfg``: (tag, arch, batch, seq).  rwkv6's 128 tokens take
+# the chunk-parallel path (``rwkv_chunk`` 64)
+FSDP_ARCH_ARMS = (
+    ("llama4 moe", "llama4-scout-17b-a16e", LMTRAIN_MOE_BATCH, LMTRAIN_MOE_SEQ),
+    ("jamba mamba+moe", "jamba-v0.1-52b", LMTRAIN_MOE_BATCH, LMTRAIN_MOE_SEQ),
+    ("rwkv6", "rwkv6-3b", LMTRAIN_BATCH, LMTRAIN_SEQ),
+)
 
 
-def _fsdp_arm(ph, tag, dev, mesh, smi):
-    """One aux arm: FSDP_STEPS unplaced steps, then as many placed ones
-    from the same seeded weights and batches (launch counters cleared just
-    before the placed steps, read just after).  Every loss term within 5e-4
-    relative, every parameter within 5e-4 of its leaf's largest entry.
+def _fsdp_arch_cfg(arch):
+    """The FSDP_ARCH_ARMS config of ``arch``: full width, f32, the R_sum
+    q = 2 aux; llama4 1 of 48 layers, jamba its first two pattern positions
+    (Mamba + dense, Mamba + MoE; ``n_layers=2`` alone would give 0 repeats
+    of the 8-layer period), rwkv6 4 of 32 layers."""
+    import dataclasses
+
+    kw = LMTRAIN_ARMS["r_sum q=2"][0]
+    if arch.startswith("jamba"):
+        cfg = _lmtrain_cfg(arch, None, kw)
+        return dataclasses.replace(cfg, pattern=cfg.pattern[:2], n_layers=2)
+    return _lmtrain_cfg(arch, 1 if arch.startswith("llama4") else 4, kw)
+
+
+def _worst_param_rel(state, want, dev):
+    """(largest |placed - want| over the leaf's largest |want|, its leaf):
+    each parameter of the placed ``state`` gathered and each of ``want``
+    (host tensors) brought to the card one leaf at a time."""
+    worst, worst_name = 0.0, ""
+    for name, p in state.model.named_parameters():
+        got = state.shardings[name].gather(p.detach())
+        ref = want[name].to(dev)
+        rel = float((got - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
+        if rel > worst:
+            worst, worst_name = rel, name
+        del got, ref
+    return worst, worst_name
+
+
+def _fsdp_arm(ph, tag, cfg, batch, seq, kernels_fwd, kernels_bwd, dev, mesh, smi, profile=False, moments=None):
+    """One arm: FSDP_STEPS unplaced steps, then as many placed ones from the
+    same seeded weights and batches (launch counters cleared just before
+    the placed steps, read just after).  Every loss term within 5e-4
+    relative, every parameter within 5e-4 of its leaf's largest entry (the
+    unplaced run's kept on the host, compared on the card one leaf at a
+    time).  ``moments``: AdamW's moment dtype (None: f32).
     Returns the placed steps' ({kernel: launches}, {kernel: backward
     launches})."""
     import statistics
@@ -3842,15 +3891,12 @@ def _fsdp_arm(ph, tag, dev, mesh, smi):
     from repro_torch.launch.train import lm_batch_fn
     from repro_torch.parallel.fsdp_tp import place_train_state
 
-    kw, kernels_fwd, kernels_bwd = LMTRAIN_ARMS[tag]
-    cfg = _lmtrain_cfg("gemma2-2b", None, kw)
-    batch_fn = lm_batch_fn(cfg, LMDataConfig(cfg.vocab_size, batch=LMTRAIN_BATCH, seq_len=LMTRAIN_SEQ, seed=SEED),
-                           dev)
+    batch_fn = lm_batch_fn(cfg, LMDataConfig(cfg.vocab_size, batch=batch, seq_len=seq, seed=SEED), dev)
     batches = [batch_fn(i) for i in range(FSDP_STEPS)]
     runs = {}
     for placed in (False, True):
         _free()
-        state, step = _lmtrain_state(cfg, dev, None)
+        state, step = _lmtrain_state(cfg, dev, None, moments=moments)
         if placed:
             state = place_train_state(state, mesh)
         kernels.reset_launch_counts()
@@ -3864,25 +3910,24 @@ def _fsdp_arm(ph, tag, dev, mesh, smi):
         held = torch.cuda.memory_allocated()  # what the state holds between steps
         if placed:
             ph.check(type(state).__name__ == "ShardedTrainState", f"[fsdp] {tag}: the state was not placed")
-            params = {k: v.clone() for k, v in state.state_dict()["params"].items()}
+            params = _worst_param_rel(state, runs[False][4], dev)
         else:  # on the host: the placed run's peak holds none of it
             params = {k: v.detach().to("cpu", copy=True) for k, v in state.model.named_parameters()}
         runs[placed] = (metrics, ms, counts, peak, params, held)
-        if tag == FSDP_ARMS[0]:
+        if profile:
             _fsdp_profile(tag, "placed" if placed else "unplaced", state, step, batches[-1], smi)
         del state, step
-    (u_m, u_ms, _, u_peak, u_params, u_held), (p_m, p_ms, (fwd, bwd), p_peak, p_params, p_held) = runs[False], runs[True]
-    keys = ("loss", "ce", "decorr_aux", "decorr_var", "decorr_reg", "grad_norm")
-    loss_rel = {k: _max_rel([m[k] for m in p_m], [m[k] for m in u_m]) for k in keys if k in u_m[0]}
+    (u_m, u_ms, _, u_peak, u_params, u_held), (p_m, p_ms, (fwd, bwd), p_peak, worst, p_held) = runs[False], runs[True]
+    worst, worst_name = worst
+    keys = ("loss", "ce", "moe_aux", "decorr_aux", "decorr_var", "decorr_reg", "grad_norm")
+    # a term that is zero unplaced (no MoE layer) must be zero placed
+    zero = [k for k in keys if k in u_m[0] and not any(m[k] for m in u_m)]
+    for k in zero:
+        ph.check(not any(m[k] for m in p_m), f"[fsdp] {tag}: {k} is zero unplaced, not placed")
+    ph.check(cfg.n_experts == 0 or "moe_aux" not in zero, f"[fsdp] {tag}: the MoE router loss is zero")
+    loss_rel = {k: _max_rel([m[k] for m in p_m], [m[k] for m in u_m]) for k in keys if k in u_m[0] and k not in zero}
     for k, v in loss_rel.items():
         ph.check(v <= LOSS_TOL, f"[fsdp] {tag}: {k} rel err {v:.3g} > {LOSS_TOL}")
-    worst, worst_name = 0.0, ""
-    for name, want in u_params.items():
-        want = want.to(dev)
-        rel = float((p_params[name] - want).abs().max()) / max(float(want.abs().max()), 1e-30)
-        if rel > worst:
-            worst, worst_name = rel, name
-        del want
     ph.check(worst <= LOSS_TOL, f"[fsdp] {tag}: parameter {worst_name} rel err {worst:.3g} > {LOSS_TOL}")
     for name in kernels_fwd:
         ph.check(fwd[name] > 0, f"[fsdp] {tag}: kernel {name} never launched in the placed steps")
@@ -3890,15 +3935,16 @@ def _fsdp_arm(ph, tag, dev, mesh, smi):
         ph.check(bwd[name] > 0, f"[fsdp] {tag}: kernel {name} never launched on the placed steps' backward passes")
     for i, m in enumerate(p_m):
         ph.check(all(math.isfinite(v) for v in m.values()), f"[fsdp] {tag}: non-finite metrics at step {i}: {m}")
-    print(f"[fsdp] {tag}: {cfg.name} {cfg.n_layers} layers d={cfg.d_model} batch {LMTRAIN_BATCH} x seq "
-          f"{LMTRAIN_SEQ} f32, {FSDP_STEPS} steps, mesh (data 1, model 1) on one NCCL rank | loss "
-          f"{['%.7g' % m['loss'] for m in p_m]} | placed vs unplaced: max rel err "
+    n_params = sum(v.numel() for v in u_params.values())
+    print(f"[fsdp] {tag}: {cfg.name} {cfg.n_layers} layers ({n_params} parameters) d={cfg.d_model} batch {batch} x "
+          f"seq {seq} f32, moments {moments or torch.float32}, {FSDP_STEPS} steps, mesh (data 1, model 1) on one "
+          f"NCCL rank | loss {['%.7g' % m['loss'] for m in p_m]} | placed vs unplaced: max rel err "
           f"{ {k: float('%.3g' % v) for k, v in loss_rel.items()} } max param rel err {worst:.3g} ({worst_name}) | "
           f"median step ms placed={statistics.median(p_ms[1:]):.3f} unplaced={statistics.median(u_ms[1:]):.3f} | "
           f"peak allocated bytes of steps 2-{FSDP_STEPS} placed={p_peak} unplaced={u_peak}, allocated after them "
           f"placed={p_held} unplaced={u_held} | launches fwd {_nonzero(fwd)} bwd "
           f"{_nonzero(bwd)} | {smi}", flush=True)
-    del runs, u_params, p_params
+    del runs, u_params
     _free()
     return fwd, bwd
 
@@ -3918,9 +3964,10 @@ def _fsdp_profile(tag, which, state, step, batch, smi):
 
 
 def phase_fsdp(ph: Phase, dev):
-    """The 2-D LM train step (``parallel/fsdp_tp``) on one NCCL rank, in
-    FSDP_ARMS; returns the placed steps' ({kernel: launches}, {kernel:
-    backward launches})."""
+    """The 2-D LM train step (``parallel/fsdp_tp``) on one NCCL rank: gemma2
+    in FSDP_ARMS, then FSDP_ARCH_ARMS in turn (each state freed before the
+    next); returns the placed steps' ({kernel: launches}, {kernel: backward
+    launches})."""
     import shutil
     import tempfile
 
@@ -3935,11 +3982,17 @@ def phase_fsdp(ph: Phase, dev):
     torch.cuda.set_device(dev.index or 0)
     dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1), rank=0, world_size=1)
     fwd_total, bwd_total = {}, {}
+    arms = [(tag, _lmtrain_cfg("gemma2-2b", None, LMTRAIN_ARMS[tag][0]), LMTRAIN_BATCH, LMTRAIN_SEQ,
+             LMTRAIN_ARMS[tag][1:], tag == FSDP_ARMS[0], None) for tag in FSDP_ARMS]
+    for tag, arch, batch, seq in FSDP_ARCH_ARMS:
+        cfg = _fsdp_arch_cfg(arch)
+        arms.append((tag, cfg, batch, seq, LMTRAIN_ARMS["r_sum q=2"][1:], False, cfg.optimizer_moment_dtype))
     try:
         mesh = make_mesh_for_devices(1, 1)
-        for tag in FSDP_ARMS:
+        for tag, cfg, batch, seq, (kernels_fwd, kernels_bwd), profile, moments in arms:
             t0 = time.perf_counter()
-            fwd, bwd = _fsdp_arm(ph, tag, dev, mesh, smi)
+            fwd, bwd = _fsdp_arm(ph, tag, cfg, batch, seq, kernels_fwd, kernels_bwd, dev, mesh, smi, profile,
+                                 moments)
             for k in fwd:
                 fwd_total[k] = fwd_total.get(k, 0) + fwd[k]
                 bwd_total[k] = bwd_total.get(k, 0) + bwd[k]
@@ -3962,24 +4015,36 @@ LAUNCH_DISAGREE_MIN = 0.95  # best measured / analytic bound: below it the analy
 LAUNCH_PEAK_TOL = 0.15
 LAUNCH_LM_MAX_PROMPT, LAUNCH_LM_MAX_LEN = 512, 1024
 LAUNCH_TIMED_CALLS = 3
-LAUNCH_CELLS = (("gemma2-2b", "train_4k"), ("gemma2-2b", "prefill_32k"), ("gemma2-2b", "decode_32k"),
-                ("rwkv6-3b", "long_500k"))
-# (e) and (f) in a process of their own: the dry run makes a fake process
-# group of 256 ranks, which must not meet this process's groups
+# (e) and (f) run in processes of their own, one a group of cells (the
+# first also runs (f)), started with phase launch, one thread each at a
+# lower priority: the dry run makes a fake process group of 256 ranks,
+# which must not meet this process's groups.  llama4's train_4k cell
+# dispatches 7 of its 16 microbatches of 48 layers
+# (``launch/dryrun.analyze_cell``), rwkv6's 64 chunks a layer
+LAUNCH_CELLS = ((("gemma2-2b", "train_4k"), ("gemma2-2b", "prefill_32k"), ("gemma2-2b", "decode_32k"),
+                 ("rwkv6-3b", "long_500k")),
+                (("rwkv6-3b", "train_4k"),),
+                (("llama4-scout-17b-a16e", "train_4k"),))
 _LAUNCH_DRYRUN = r"""
 import json, sys
+import torch
+torch.set_num_threads(1)
 from repro_torch.launch import dryrun, perf
 for arch, shape in json.loads(sys.argv[1]):
     print("DRYRUN " + json.dumps(dryrun.run_cell(arch, shape, False)), flush=True)
-recs = {v: perf.build_and_analyze("gemma2-2b", "train_4k", perf.VARIANTS[v]) for v in ("baseline", "decorr_sum")}
-print("PERF " + json.dumps(recs), flush=True)
+if sys.argv[2] == "perf":
+    recs = {v: perf.build_and_analyze("gemma2-2b", "train_4k", perf.VARIANTS[v]) for v in ("baseline", "decorr_sum")}
+    print("PERF " + json.dumps(recs), flush=True)
 """
 
 
 def _launch_dryrun_start():
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    return subprocess.Popen([sys.executable, "-c", _LAUNCH_DRYRUN, json.dumps(LAUNCH_CELLS)], cwd=ROOT, env=env,
-                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    """The dry-run processes of (e) and (f), one a group of LAUNCH_CELLS."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), OMP_NUM_THREADS="1")
+    return [subprocess.Popen([sys.executable, "-c", _LAUNCH_DRYRUN, json.dumps(cells), "perf" if i == 0 else "-"],
+                             cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                             preexec_fn=lambda: os.nice(10))
+            for i, cells in enumerate(LAUNCH_CELLS)]
 
 
 def _launch_model_flops(name, train_tokens, n_active, engines):
@@ -4224,23 +4289,30 @@ def _launch_serving(ph, dev, smi):
     return launches
 
 
-def _launch_dryrun_finish(ph, proc, smi):
-    """(e) the dry-run cells and (f) the perf variants, from the subprocess."""
-    try:
-        out, _ = proc.communicate(timeout=600)
-    except subprocess.TimeoutExpired:
-        proc.kill()
-        out, _ = proc.communicate()
-        ph.check(False, "[launch] (e) the dry-run process ran past 600 s")
-    ph.check(proc.returncode == 0, f"[launch] (e) the dry-run process exited {proc.returncode}: {out[-3000:]}")
+def _launch_dryrun_finish(ph, procs, smi):
+    """(e) the dry-run cells and (f) the perf variants, from the subprocesses."""
+    outs = []
+    for proc in procs:
+        try:
+            out, _ = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, _ = proc.communicate()
+            ph.check(False, "[launch] (e) a dry-run process ran past 600 s")
+        ph.check(proc.returncode == 0, f"[launch] (e) a dry-run process exited {proc.returncode}: {out[-3000:]}")
+        outs.append(out)
+    out = "\n".join(outs)
     cells = [json.loads(ln[len("DRYRUN "):]) for ln in out.splitlines() if ln.startswith("DRYRUN ")]
-    ph.check(len(cells) == len(LAUNCH_CELLS), f"[launch] (e) {len(cells)} dry-run records of {len(LAUNCH_CELLS)}")
+    n_cells = sum(len(group) for group in LAUNCH_CELLS)
+    ph.check(len(cells) == n_cells, f"[launch] (e) {len(cells)} dry-run records of {n_cells}")
     for rec in cells:
         tag = f"{rec['arch']} {rec['shape']} {rec['mesh']}"
         ph.check(rec["status"] == "ok", f"[launch] (e) {tag}: {rec['status']} {rec.get('error')}")
         if rec["status"] != "ok":
             print(rec.get("traceback", ""), flush=True)
             continue
+        if rec["shape"] == "train_4k":
+            ph.check(rec.get("layout") == "2d", f"[launch] (e) {tag}: layout {rec.get('layout')}, not the 2-D step")
         if rec.get("layout") == "2d":
             # the 2-D step holds what the specs' layout holds a rank
             ph.check(rec["memory"]["argument_bytes"] == rec["reference_argument_bytes"],
@@ -4269,7 +4341,7 @@ def phase_launch(ph: Phase, dev):
     """The launch analysis tools and the roofline join; returns the kernels'
     launches of the real calls it made."""
     smi = _smi()
-    proc = _launch_dryrun_start()
+    procs = _launch_dryrun_start()
     launches = {}
     try:
         cfg, batch_fn, counts = _launch_train(ph, dev, smi)
@@ -4279,7 +4351,7 @@ def phase_launch(ph: Phase, dev):
         for k, v in _launch_serving(ph, dev, smi).items():
             launches[k] = launches.get(k, 0) + v
     finally:
-        _launch_dryrun_finish(ph, proc, smi)
+        _launch_dryrun_finish(ph, procs, smi)
     return launches
 
 

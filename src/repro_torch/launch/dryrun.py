@@ -12,22 +12,20 @@ this module (and only this one) initialises a ``fake`` process group
 each cell's mesh: ``make_production_mesh`` then builds the production
 ``DeviceMesh`` and every collective returns at once without moving data.
 Nothing is allocated: the inputs are ``launch/specs``' fake tensors and the
-cell runs under ``launch/hlo_cost.analyze``.
+cell runs under ``launch/hlo_cost.analyze``.  A train cell of more than 4
+microbatches is analysed at 3 and 4 of them and extended by the rest
+(``analyze_cell``: the same record, sooner).
 
 What runs is the PORT's per-rank program, not the reference's: the port has
-no GSPMD partitioner.  A train cell of an arch whose layers are all
-attention plus a dense MLP runs the port's 2-D step (``parallel/fsdp_tp``:
-the rank holds its block of every parameter and both AdamW moments under
-the specs' layout, FSDP over ``data``, TP over ``model``, the batch over
-``("pod", "data")``), recorded as ``"layout": "2d"``; its
-``argument_bytes`` then equal ``reference_argument_bytes``, what the
-specs' 2-D layout holds a rank.  The MoE and recurrent archs' train cells
-run the data-parallel step (``make_train_step(mesh=)``: every rank holds
-the whole parameters and optimizer state and steps on its block of the
-batch along the batch axes), and the prefill and decode cells the
-one-device serving steps of ``train/serve`` on the rank's block of the
-batch: ``"layout": "dp"``, with ``reference_argument_bytes`` beside the
-port's ``argument_bytes``.
+no GSPMD partitioner.  Every train cell runs the port's 2-D step
+(``parallel/fsdp_tp``: the rank holds its block of every parameter and
+both AdamW moments under the specs' layout, FSDP over ``data``, TP and the
+MoE experts over ``model``, the batch over ``("pod", "data")``), recorded
+as ``"layout": "2d"``; its ``argument_bytes`` then equal
+``reference_argument_bytes``, what the specs' 2-D layout holds a rank.  The
+prefill and decode cells run the one-device serving steps of
+``train/serve`` on the rank's block of the batch: ``"layout": "dp"``, with
+``reference_argument_bytes`` beside the port's ``argument_bytes``.
 
 ``--device`` defaults to ``cuda`` (fake CUDA tensors: the kernel route, each
 hand-written kernel's launches counted; a machine without CUDA raises, as
@@ -118,6 +116,18 @@ def _rank_block(spec_tree, axes, mesh):
     return out
 
 
+def _first_rows(block, runs: int, micro: int):
+    """The first ``runs`` of ``micro`` equal row blocks of each batch spec."""
+    out = {}
+    for k, t in block.items():
+        dim = 1 if k == "positions" and t.dim() == 3 else 0
+        shape = list(t.shape)
+        shape[dim] = shape[dim] // micro * runs
+        with S.fake_mode():
+            out[k] = torch.empty(shape, dtype=t.dtype, device=t.device)
+    return out
+
+
 def _local_bytes(tree) -> int:
     """Bytes one rank holds of every spec in ``tree`` under its sharding."""
     total = 0
@@ -140,11 +150,13 @@ def _mesh(multi_pod: bool, mesh_shape):
 
 
 def build_cell(arch: str, shape_name: str, multi_pod: bool, device=None, *, cfg=None, microbatches=None,
-               grad_shardings: bool = False, mesh_shape=None):
+               grad_shardings: bool = False, mesh_shape=None, runs=None):
     """Returns (fn, example_args, meta) ready for ``hlo_cost.analyze(fn, *args)``
     (``cfg`` / ``microbatches`` / ``grad_shardings``: ``launch/perf``'s variant
     overrides; ``mesh_shape``: a smaller (data, model) or (pod, data,
-    model) mesh in place of the production one, for tests)."""
+    model) mesh in place of the production one, for tests; ``runs``: a
+    train step of only the first ``runs`` of the cell's microbatches, each
+    of the cell's size)."""
     cfg = cfg or get_config(arch)
     shape = S.SHAPES[shape_name]
     ok, why = S.cell_applicable(cfg, shape)
@@ -166,18 +178,16 @@ def build_cell(arch: str, shape_name: str, multi_pod: bool, device=None, *, cfg=
         batch = S.batch_specs(cfg, shape, mesh, device=dev)
         meta["reference_argument_bytes"] = _local_bytes((model, opt_state, batch))
         state = TrainState(step=0, model=model, opt_state=opt_state, seed=0)
-        if fsdp_tp.supports(cfg):
-            # the 2-D step on the rank's blocks of the specs' fake tensors
-            meta["layout"] = "2d"
-            with S.fake_mode():
-                state = fsdp_tp.place_train_state(state, mesh)
-            grad_sh = [p.placement for p in state.model.parameters()] if grad_shardings else None
-            step = make_train_step(cfg, opt, sched, num_microbatches=micro, grad_shardings=grad_sh)
-        else:
-            grad_sh = [p.sharding for p in model.parameters()] if grad_shardings else None
-            step = make_train_step(cfg, opt, sched, num_microbatches=micro, mesh=mesh, data_axis=batch_axes,
-                                   grad_shardings=grad_sh)
-        return step, (state, _rank_block(batch, batch_axes, mesh)), meta
+        # the 2-D step on the rank's blocks of the specs' fake tensors
+        meta["layout"] = "2d"
+        with S.fake_mode():
+            state = fsdp_tp.place_train_state(state, mesh)
+        grad_sh = [p.placement for p in state.model.parameters()] if grad_shardings else None
+        block = _rank_block(batch, batch_axes, mesh)
+        if runs is not None:
+            block = _first_rows(block, runs, micro)
+        step = make_train_step(cfg, opt, sched, num_microbatches=runs or micro, grad_shardings=grad_sh)
+        return step, (state, block), meta
 
     caches = S.cache_specs(cfg, shape.global_batch, shape.seq_len, mesh, device=dev)
     rows = S.local_shape((shape.global_batch,), S._batch_spec(mesh, shape.global_batch))[0]
@@ -214,6 +224,33 @@ def build_cell(arch: str, shape_name: str, multi_pod: bool, device=None, *, cfg=
         return decode(params, caches, shape.seq_len - 1, inputs["tokens"])
 
     return fn, (params, local_caches, _rank_block(toks, batch_axes, mesh)), meta
+
+
+# a train step of more microbatches is analysed at 3 and 4 of them and
+# extended by the rest (``analyze_cell``)
+MAX_ANALYSED_MICROBATCHES = 4
+
+
+def analyze_cell(fn, args, meta, rebuild) -> hlo_cost.OpAnalysis:
+    """The analysis of a cell that ``build_cell`` built as (``fn``, ``args``,
+    ``meta``); ``rebuild(runs)`` builds it again with its ``runs`` argument.
+    From a train step's third microbatch on, each microbatch dispatches
+    the ops of the one before, takes as many batch bytes and raises the
+    high-water mark by its metrics alone (the first starts the sums, and
+    from the third on the loop holds the previous microbatch's gradients
+    while it computes), so a train cell of k > MAX_ANALYSED_MICROBATCHES
+    microbatches is analysed at 3 and 4 of them and extended by k - 4
+    (``hlo_cost.extend``): the whole step's analysis, k / 7 times sooner."""
+    micro = meta.get("num_microbatches", 1)
+    if micro <= MAX_ANALYSED_MICROBATCHES:
+        return hlo_cost.analyze(fn, *args)
+    del fn, args
+    parts = []
+    for runs in (3, 4):
+        fn, args, _ = rebuild(runs)
+        parts.append(hlo_cost.analyze(fn, *args))
+        del fn, args
+    return hlo_cost.extend(*parts, micro - 4)
 
 
 def model_flops(cfg, shape: S.ShapeSpec) -> float:
@@ -258,7 +295,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, device=None, *, cfg=No
     try:
         t0 = time.time()
         cfg = cfg or get_config(arch)
-        fn, args, meta = build_cell(arch, shape_name, multi_pod, device=device, cfg=cfg, mesh_shape=mesh_shape)
+        kw = dict(device=device, cfg=cfg, mesh_shape=mesh_shape)
+        fn, args, meta = build_cell(arch, shape_name, multi_pod, **kw)
         if fn is None:
             rec.update(status="skipped", reason=meta["skip"])
             return rec
@@ -267,7 +305,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, device=None, *, cfg=No
         # analysis where it compiles
         rec["lower_s"] = round(time.time() - t0, 2)
         t0 = time.time()
-        analysis = hlo_cost.analyze(fn, *args)
+        analysis = analyze_cell(fn, args, meta, lambda runs: build_cell(arch, shape_name, multi_pod, runs=runs, **kw))
         rec["compile_s"] = round(time.time() - t0, 2)
         record_analysis(rec, analysis)
         # eager runs every loop trip: the "body once" figures are the totals

@@ -458,6 +458,36 @@ class _Recorder(TorchDispatchMode):
         return out
 
 
+def extend(first: OpAnalysis, second: OpAnalysis, times: int) -> OpAnalysis:
+    """The analysis of a call that runs ``times`` more repeats of a part
+    that ``second``'s call runs once more than ``first``'s: each field of
+    ``second`` plus ``times`` of its difference from ``first``.  Exact where
+    every repeat dispatches the same ops, takes the same argument bytes and
+    raises the high-water mark by the same bytes (the microbatches of a
+    train step from its third: ``launch/dryrun.analyze_cell``)."""
+
+    def more(a, b):
+        return b + times * (b - a)
+
+    def more_each(a: Dict, b: Dict) -> Dict:
+        return {k: more(a.get(k, 0), b.get(k, 0)) for k in {**b, **a}}
+
+    return OpAnalysis(
+        flops=more(first.flops, second.flops),
+        hbm_bytes=more(first.hbm_bytes, second.hbm_bytes),
+        collective_bytes=more_each(first.collective_bytes, second.collective_bytes),
+        flops_by_op=more_each(first.flops_by_op, second.flops_by_op),
+        trip_counts={},
+        n_ops=more(first.n_ops, second.n_ops),
+        flops_by_dtype=more_each(first.flops_by_dtype, second.flops_by_dtype),
+        kernel_launches=more_each(first.kernel_launches, second.kernel_launches),
+        argument_bytes=more(first.argument_bytes, second.argument_bytes),
+        output_bytes=more(first.output_bytes, second.output_bytes),
+        alias_bytes=more(first.alias_bytes, second.alias_bytes),
+        temp_bytes=more(first.temp_bytes, second.temp_bytes),
+    )
+
+
 def analyze(fn: Callable, *args, **kw) -> OpAnalysis:
     """Run ``fn(*args, **kw)`` once on fake copies of its arguments (real
     tensors are copied by ``FakeTensorMode.from_tensor``; fake ones are used

@@ -28,9 +28,8 @@ from typing import Dict, Optional
 from repro_torch.configs import get_config
 from repro_torch.core.decorrelation import LMDecorrConfig
 from repro_torch.decorr.config import DecorrConfig
-from repro_torch.launch import hlo_cost
 from repro_torch.launch import specs as S
-from repro_torch.launch.dryrun import build_cell, model_flops, record_analysis
+from repro_torch.launch.dryrun import analyze_cell, build_cell, model_flops, record_analysis
 
 
 @dataclasses.dataclass
@@ -204,9 +203,9 @@ def build_and_analyze(
     shape = S.SHAPES[shape_name]
     rec: Dict = {"arch": arch, "shape": shape_name, "variant": variant.name,
                  "hypothesis": variant.hypothesis, "multi_pod": multi_pod}
-    fn, args, meta = build_cell(arch, shape_name, multi_pod, device=device, cfg=cfg,
-                                microbatches=variant.microbatches, grad_shardings=variant.shard_grad_acc,
-                                mesh_shape=mesh_shape)
+    kw = dict(device=device, cfg=cfg, microbatches=variant.microbatches, grad_shardings=variant.shard_grad_acc,
+              mesh_shape=mesh_shape)
+    fn, args, meta = build_cell(arch, shape_name, multi_pod, **kw)
     if fn is None:
         raise ValueError(f"{arch} x {shape_name}: {meta['skip']}")
     if "num_microbatches" in meta:
@@ -214,7 +213,7 @@ def build_and_analyze(
     rec["layout"] = meta["layout"]
     rec["reference_argument_bytes"] = meta["reference_argument_bytes"]
     t0 = time.time()
-    analysis = hlo_cost.analyze(fn, *args)
+    analysis = analyze_cell(fn, args, meta, lambda runs: build_cell(arch, shape_name, multi_pod, runs=runs, **kw))
     rec["compile_s"] = round(time.time() - t0, 2)
     record_analysis(rec, analysis)
     n_dev = math.prod(mesh_shape) if mesh_shape is not None else 512 if multi_pod else 256

@@ -23,6 +23,10 @@ and ungrouped dispatch seats every token at its position in the global
 (k-major, token) order — an exclusive prefix sum of the ranks' per-expert
 claim counts — against the whole batch's capacity.  Grouped dispatch is
 rank-local when a rank's block holds whole groups, and raises otherwise.
+The batch may be split over a tuple of axes (``("pod", "data")``), its
+blocks in row-major order.  On placed blocks whose experts split over
+``model`` (the 2-D step) each ``model`` rank runs its E / m experts
+(``_moe_groups``).
 
 Variants of the archs: arctic-480b (128 experts top-2 + a dense residual
 MLP), llama4-scout (16 experts top-1 + an always-on shared expert), jamba
@@ -35,11 +39,11 @@ from __future__ import annotations
 from typing import Dict, Tuple
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.decorr.modes import psum_if
 from repro_torch.models.common import ArchConfig, activation_fn, mlp_apply
+from repro_torch.parallel import fsdp_tp
 from repro_torch.parallel import sharding as shd
 
 Tensor = torch.Tensor
@@ -80,16 +84,17 @@ def _top_k(probs: Tensor, k: int) -> Tuple[Tensor, Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
-def _global_offsets(mask: Tensor, axis: str) -> Tensor:
+def _global_offsets(mask: Tensor, axis) -> Tensor:
     """(k, E) offsets that move this rank's (k-major, token) claim
-    positions to the whole batch's order, the ranks' blocks in rank order:
-    claims of earlier choices on every rank, then of the same choice on
-    earlier ranks.  ``mask``: (1, G, k, E) one-hot claims of this rank."""
+    positions to the whole batch's order, the ranks' blocks in row-major
+    order over ``axis`` (a mesh axis or a tuple of them, the first major, as
+    the batch's blocks are laid out): claims of earlier choices on every
+    rank, then of the same choice on earlier ranks.  ``mask``: (1, G, k, E)
+    one-hot claims of this rank."""
     counts = mask[0].sum(dim=0)  # (k, E)
-    (group,) = shd.axis_groups(axis)
-    every = [torch.empty_like(counts) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(every, counts.contiguous(), group=group)
-    every = torch.stack(every)  # (ranks, k, E)
+    every = counts[None]
+    for group in reversed(shd.axis_groups(axis)):  # the minor axis first: row-major blocks
+        every = fsdp_tp.gather_dim(every, 0, group)  # (ranks, k, E)
     r = shd.axis_index(axis)
     before = lambda c: torch.cumsum(c, dim=0) - c  # noqa: E731  (exclusive, over choices)
     return before(every.sum(dim=0)) - before(counts) + every[:r].sum(dim=0)
@@ -102,14 +107,27 @@ def _moe_groups(params: Dict[str, Tensor], xg: Tensor, cfg: ArchConfig, axis=Non
     ``_moe_one_group``; more: its ``_moe_grouped``).  ``axis``: the
     data-parallel axis, over which the aux loss's fractions are taken;
     ``span``: the one group spans every rank's block (global positions and
-    the whole batch's capacity)."""
+    the whole batch's capacity).
+
+    With the experts split over ``model`` (placed blocks, the 2-D step)
+    every ``model`` rank routes the same tokens the same way, seats only
+    the claims of its own E / m experts (the others go to the spare slot)
+    and combines them into a partial output, all-reduced over ``model``.
+    The dispatched rows and the gate values enter the TP region (their
+    cotangents are this rank's share); the router's softmax also feeds the
+    load-balance aux, which every rank computes whole, so the router's
+    input and weight do not."""
     n, g, d = xg.shape
     e, k = cfg.n_experts, cfg.top_k
     ranks = shd.axis_size(axis) if axis is not None else 1
     cap = _capacity(g * ranks if span else g, cfg)
     cd = cfg.compute_dtype
+    ep = fsdp_tp.split_dim(params["w_in"], fsdp_tp.MODEL) == 0
+    el = params["w_in"].shape[0] if ep else e  # the experts this rank computes
+    lo = shd.axis_index(fsdp_tp.MODEL) * el if ep else 0
 
-    logits = xg.float() @ params["router"].float()  # (n, G, E)
+    router = fsdp_tp.gather(params["router"], model=True, repeated=True)
+    logits = xg.float() @ router.float()  # (n, G, E)
     probs = torch.softmax(logits, dim=-1)
     gate_vals, expert_idx = _top_k(probs, k)  # (n, G, k)
     gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
@@ -123,28 +141,41 @@ def _moe_groups(params: Dict[str, Tensor], xg: Tensor, cfg: ArchConfig, axis=Non
         off = _global_offsets(mask, axis)  # (k, E)
         pos = pos + off[torch.arange(k, device=xg.device), expert_idx]
     keep = pos < cap
+    if ep:
+        keep = keep & (expert_idx >= lo) & (expert_idx < lo + el)
+        local = (expert_idx - lo).clamp(0, el - 1)
+        xg, gate_vals = fsdp_tp.enter_tp(xg), fsdp_tp.enter_tp(gate_vals)
+    else:
+        local = expert_idx
 
     # dispatch: kept (group, token, choice) -> expert buffer (E, n, C, d).  A
-    # dropped claim lands in a spare slot C that is cut off: the shapes never
-    # depend on the routing (no host sync, and a fake-tensor analysis runs it)
+    # dropped claim (and, split over "model", another rank's) lands in a
+    # spare slot C that is cut off: the shapes never depend on the routing
+    # (no host sync, and a fake-tensor analysis runs it)
     grp = torch.arange(n, device=xg.device)[:, None, None].expand(n, g, k)
     tok = torch.arange(g, device=xg.device)[None, :, None].expand(n, g, k)
     slot = torch.where(keep, pos, cap)
-    xe = xg.new_zeros((e, n, cap + 1, d))
-    xe[expert_idx, grp, slot] = xg[grp, tok]
-    xe = xe[:, :, :cap].reshape(e, n * cap, d)
+    xe = xg.new_zeros((el, n, cap + 1, d))
+    xe[local, grp, slot] = xg[grp, tok]
+    xe = xe[:, :, :cap].reshape(el, n * cap, d)
     act = activation_fn(cfg.activation)
-    h = torch.bmm(xe, params["w_in"].to(cd))
+
+    def w(name):
+        return fsdp_tp.gather(params[name], model=not ep, repeated=True).to(cd)
+
+    h = torch.bmm(xe, w("w_in"))
     if "w_gate" in params:
-        h = act(torch.bmm(xe, params["w_gate"].to(cd))) * h
+        h = act(torch.bmm(xe, w("w_gate"))) * h
     else:
         h = act(h)
-    ye = torch.bmm(h, params["w_out"].to(cd)).reshape(e, n, cap, d)
+    ye = torch.bmm(h, w("w_out")).reshape(el, n, cap, d)
 
     # combine: each token's kept choices, weighted by their gate values
     weight = (gate_vals * keep).to(xg.dtype)
-    picked = ye[expert_idx, grp, pos.clamp(max=cap - 1)]  # (n, G, k, d)
+    picked = ye[local, grp, pos.clamp(max=cap - 1)]  # (n, G, k, d)
     out = (weight[..., None] * picked).sum(dim=2)
+    if ep:
+        out = fsdp_tp.exit_tp(out)
 
     tokens = float(n * g * ranks)
     frac_tokens = psum_if(mask[:, :, 0].float().sum(dim=(0, 1)), axis) / tokens  # top-1 share per expert

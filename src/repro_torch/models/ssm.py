@@ -22,6 +22,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import ArchConfig
+from repro_torch.parallel import fsdp_tp
+from repro_torch.parallel import sharding as shd
 
 Tensor = torch.Tensor
 
@@ -71,17 +73,43 @@ def mamba_apply(
 ) -> Tuple[Tensor, Optional[Dict[str, Tensor]]]:
     """x: (B, S, d).  ``state`` given and S == 1: one decode step; else the
     full scan from ``state`` (or zeros), returning the carried state when
-    one was given (prefill)."""
+    one was given (prefill).
+
+    On placed blocks (``parallel/fsdp_tp``, the 2-D train step; no
+    ``state``) with ``out_proj`` split over ``model`` a rank runs its di / m
+    channels: the conv, the scan and the skip are per channel; ``in_proj``'s
+    column blocks straddle the ``[x | z]`` split, so it is gathered over
+    ``model`` and the rank takes its x and z columns; ``x_proj`` is
+    row-parallel and its (dt, B, C) output, which feeds every channel, is
+    all-reduced over ``model`` forward and backward; ``out_proj`` is
+    row-parallel."""
     b, s, d = x.shape
     di = cfg.ssm_expand * d
     n = cfg.ssm_d_state
     dt_rank = max(1, d // DT_RANK_DIV)
     cd = cfg.compute_dtype
+    tp = fsdp_tp.split_over(params["out_proj"], fsdp_tp.MODEL)
 
-    xz = x @ params["in_proj"].to(cd)
+    if tp:
+        c = di // shd.axis_size(fsdp_tp.MODEL)
+        lo = shd.axis_index(fsdp_tp.MODEL) * c
+        x = fsdp_tp.enter_tp(x)
+        w_in = fsdp_tp.gather(params["in_proj"], model=True, tp=True)
+        w_in = torch.cat([w_in[:, lo:lo + c], w_in[:, di + lo:di + lo + c]], dim=1)
+
+        def leaf(name, dim):
+            return fsdp_tp.own_slice(params[name], dim)
+    else:
+        c = di
+        w_in = fsdp_tp.gather(params["in_proj"], model=True, repeated=True)
+
+        def leaf(name, dim):
+            return fsdp_tp.gather(params[name], model=True, repeated=True)
+
+    xz = x @ w_in.to(cd)
     xin, z = torch.chunk(xz, 2, dim=-1)
-    conv_w = params["conv_w"].to(cd)
-    conv_b = params["conv_b"].to(cd)
+    conv_w = leaf("conv_w", 1).to(cd)
+    conv_b = leaf("conv_b", 0).to(cd)
     kk = conv_w.shape[0]
 
     decode = state is not None and s == 1
@@ -97,24 +125,28 @@ def mamba_apply(
             new_conv = torch.cat([pad, xin[:, -(kk - 1):, :]], dim=1)
     xc = F.silu(xc)
 
-    proj = xc @ params["x_proj"].to(cd)
+    proj = xc @ leaf("x_proj", 0).to(cd)
+    if tp:  # whole (dt, B, C) on every rank; each rank's cotangent is its channels' share
+        proj = fsdp_tp.enter_tp(fsdp_tp.exit_tp(proj))
     dt_raw, b_mat, c_mat = torch.split(proj, [dt_rank, n, n], dim=-1)
-    dt = F.softplus(dt_raw @ params["dt_proj"].to(cd) + params["dt_bias"].to(cd)).float()  # (B, S, di)
-    a = -torch.exp(params["a_log"].float())  # (di, n)
+    dt = F.softplus(dt_raw @ leaf("dt_proj", 1).to(cd) + leaf("dt_bias", 0).to(cd)).float()  # (B, S, di)
+    a = -torch.exp(leaf("a_log", 0).float())  # (di, n)
     da = torch.exp(dt[..., None] * a)  # (B, S, di, n)
     dbx = (dt * xc.float())[..., None] * b_mat.float()[:, :, None, :]
     c32 = c_mat.float()
 
-    h = state["ssm"].float() if state is not None else torch.zeros((b, di, n), dtype=torch.float32, device=x.device)
+    h = state["ssm"].float() if state is not None else torch.zeros((b, c, n), dtype=torch.float32, device=x.device)
     ys = []
     for t in range(s):
         h = da[:, t] * h + dbx[:, t]
         ys.append(torch.einsum("bdn,bn->bd", h, c32[:, t]))
     y = torch.stack(ys, dim=1)  # (B, S, di)
 
-    y = y + xc.float() * params["d_skip"].float()
+    y = y + xc.float() * leaf("d_skip", 0).float()
     y = y.to(cd) * F.silu(z)
-    out = y @ params["out_proj"].to(cd)
+    out = y @ leaf("out_proj", 0).to(cd)
+    if tp:
+        out = fsdp_tp.exit_tp(out)
 
     new_state = None
     if state is not None:
@@ -188,37 +220,60 @@ def rwkv_time_mix(
     state: Optional[Dict[str, Tensor]] = None,
 ) -> Tuple[Tensor, Optional[Dict[str, Tensor]]]:
     """The RWKV6 mixer over x: (B, S, d); with ``state`` it starts from the
-    carried wkv state and token shift and returns them advanced."""
+    carried wkv state and token shift and returns them advanced.
+
+    On placed blocks (``parallel/fsdp_tp``, the 2-D train step; no
+    ``state``) with ``w_o`` split over ``model`` a rank computes the heads
+    of its ``w_o`` rows: ``w_r`` / ``w_k`` / ``w_v`` / ``w_g`` are column
+    blocks, and it takes its heads' slices of ``decay_base``,
+    ``decay_lora_b``, ``bonus_u`` and ``ln_x`` (the group norm and the
+    recurrence need whole heads).  Where d / m is not whole heads the four
+    projections are gathered over ``model``, every head is computed whole
+    and the rank keeps the columns of its ``w_o`` rows.  The ddlerp runs
+    whole on every rank inside the TP region; ``w_o`` is row-parallel."""
     b, s, d = x.shape
     hd = cfg.rwkv_head_dim
     h = d // hd
     cd = cfg.compute_dtype
+    model = fsdp_tp.MODEL
+    tp = fsdp_tp.split_over(params["w_o"], model)
+    m = shd.axis_size(model) if tp else 1
+    split = tp and h % m == 0 and fsdp_tp.split_over(params["w_r"], model)
+    hl = h // m if split else h  # the heads this rank computes
+    if tp:
+        x = fsdp_tp.enter_tp(x)
+
+    def whole(name):
+        return fsdp_tp.gather(params[name], model=True, repeated=not tp, tp=tp)
+
+    def heads(name, dim):  # the leaf's entries of the heads this rank computes
+        return fsdp_tp.own_slice(params[name], dim) if split else whole(name)
 
     prev = state["shift_t"] if state is not None else None
     dx = _token_shift(x, prev) - x
 
     # data-dependent lerp (ddlerp) through low-rank adapters
-    x_base = x + dx * params["mu_base"].to(cd)
-    lora = torch.tanh(x_base @ params["lora_a"].to(cd)).reshape(b, s, 5, LORA_DIM)
-    adj = torch.einsum("bsfl,fld->bsfd", lora, params["lora_b"].to(cd))  # (B, S, 5, d)
-    mixed = x[:, :, None, :] + dx[:, :, None, :] * (params["mu"].to(cd) + adj)
+    x_base = x + dx * whole("mu_base").to(cd)
+    lora = torch.tanh(x_base @ whole("lora_a").to(cd)).reshape(b, s, 5, LORA_DIM)
+    adj = torch.einsum("bsfl,fld->bsfd", lora, whole("lora_b").to(cd))  # (B, S, 5, d)
+    mixed = x[:, :, None, :] + dx[:, :, None, :] * (whole("mu").to(cd) + adj)
     xr, xk, xv, xw, xg = (mixed[:, :, i, :] for i in range(5))
 
-    r = (xr @ params["w_r"].to(cd)).reshape(b, s, h, hd)
-    k = (xk @ params["w_k"].to(cd)).reshape(b, s, h, hd)
-    v = (xv @ params["w_v"].to(cd)).reshape(b, s, h, hd)
-    g = F.silu(xg @ params["w_g"].to(cd))
+    r = (xr @ heads("w_r", 1).to(cd)).reshape(b, s, hl, hd)
+    k = (xk @ heads("w_k", 1).to(cd)).reshape(b, s, hl, hd)
+    v = (xv @ heads("w_v", 1).to(cd)).reshape(b, s, hl, hd)
+    g = F.silu(xg @ heads("w_g", 1).to(cd))
 
     # data-dependent decay w in (0, 1); -log w = exp(dec) feeds the chunked path
-    dec = params["decay_base"].float() + (
-        torch.tanh(xw @ params["decay_lora_a"].to(cd)) @ params["decay_lora_b"].to(cd)
+    dec = heads("decay_base", 0).float() + (
+        torch.tanh(xw @ whole("decay_lora_a").to(cd)) @ heads("decay_lora_b", 1).to(cd)
     ).float()
-    neg_logw = torch.exp(dec).reshape(b, s, h, hd)
+    neg_logw = torch.exp(dec).reshape(b, s, hl, hd)
     w = torch.exp(-neg_logw)
 
-    u = params["bonus_u"].float()  # (H, hd)
+    u = heads("bonus_u", 0).float()  # (H, hd)
     r32, k32, v32 = r.float(), k.float(), v.float()
-    wkv = state["wkv"].float() if state is not None else torch.zeros((b, h, hd, hd), dtype=torch.float32,
+    wkv = state["wkv"].float() if state is not None else torch.zeros((b, hl, hd, hd), dtype=torch.float32,
                                                                       device=x.device)
 
     chunk = cfg.rwkv_chunk
@@ -238,8 +293,14 @@ def rwkv_time_mix(
     mean = y.mean(dim=-1, keepdim=True)
     var = y.var(dim=-1, keepdim=True, unbiased=False)
     y = (y - mean) * torch.rsqrt(var + 1e-5)
-    y = y.reshape(b, s, d) * params["ln_x"].float()
-    out = (y.to(cd) * g) @ params["w_o"].to(cd)
+    y = y.reshape(b, s, hl * hd) * heads("ln_x", 0).float()
+    y = y.to(cd) * g
+    if tp and not split:  # every head whole: the columns of this rank's w_o rows
+        cols = d // m
+        y = y[..., shd.axis_index(model) * cols:(shd.axis_index(model) + 1) * cols]
+    out = y @ (fsdp_tp.own_slice(params["w_o"], 0) if tp else whole("w_o")).to(cd)
+    if tp:
+        out = fsdp_tp.exit_tp(out)
 
     new_state = None
     if state is not None:
@@ -313,15 +374,31 @@ def rwkv_channel_mix(
     cfg: ArchConfig,
     state: Optional[Dict[str, Tensor]] = None,
 ) -> Tuple[Tensor, Optional[Dict[str, Tensor]]]:
-    """The RWKV channel mix (the layer's FFN), with its own token shift."""
+    """The RWKV channel mix (the layer's FFN), with its own token shift.
+    On placed blocks split over ``model`` (the 2-D train step) ``cmix_wk``
+    is column-parallel and ``cmix_wv`` row-parallel; the sigmoid gate
+    multiplies the whole ``kv``, so every rank computes it whole
+    (``cmix_wr`` gathered over ``model``)."""
     cd = cfg.compute_dtype
+    tp = fsdp_tp.split_over(params["cmix_wv"], fsdp_tp.MODEL)
+
+    def whole(name):
+        return fsdp_tp.gather(params[name], model=True, repeated=True)
+
     prev = state["shift_c"] if state is not None else None
     dx = _token_shift(x, prev) - x
-    xk = x + dx * params["cmix_mu_k"].to(cd)
-    xr = x + dx * params["cmix_mu_r"].to(cd)
-    k = torch.square(F.relu(xk @ params["cmix_wk"].to(cd)))
-    kv = k @ params["cmix_wv"].to(cd)
-    out = torch.sigmoid(xr @ params["cmix_wr"].to(cd)) * kv
+    xk = x + dx * whole("cmix_mu_k").to(cd)
+    xr = x + dx * whole("cmix_mu_r").to(cd)
+    if tp:
+        xk = fsdp_tp.enter_tp(xk)
+        wk, wv = fsdp_tp.own_slice(params["cmix_wk"], 1), fsdp_tp.own_slice(params["cmix_wv"], 0)
+    else:
+        wk, wv = whole("cmix_wk"), whole("cmix_wv")
+    k = torch.square(F.relu(xk @ wk.to(cd)))
+    kv = k @ wv.to(cd)
+    if tp:
+        kv = fsdp_tp.exit_tp(kv)
+    out = torch.sigmoid(xr @ whole("cmix_wr").to(cd)) * kv
     new_state = None
     if state is not None:
         new_state = dict(state, shift_c=x[:, -1, :])

@@ -36,9 +36,18 @@ axis, ``models.transformer.layer_params``), and the process groups of the
 axes it is split over as ``p.shard_groups`` (the clip's global norm sums a
 block's squares over them).  The model code (``models/common.mlp_apply``,
 ``models/attention.attn_apply``, ``models/transformer``'s embedding and
-head) reads ``placement``; a tensor without one is a whole leaf.  Only the
-dense attention stacks run this layout (``supports``); MoE experts over
-``model`` and the Mamba / RWKV6 splits are ROADMAP queue 1 item 7b.
+head, ``models/moe``'s experts, ``models/ssm``'s Mamba channels and RWKV6
+heads) reads ``placement``; a tensor without one is a whole leaf.  Every
+arch of ``configs`` runs this layout.
+
+Inside a TP region (its input entered with ``enter_tp``) every value is a
+share of the region's output, which ``exit_tp`` sums: a leaf the region
+reads whole gets ``gather(..., tp=True)`` (its share's gradient summed over
+``model``) and a per-channel leaf the rank's slice (``own_slice``).  A
+value every rank computes whole and uses outside the region (the MoE
+router's softmax, which feeds the load-balance aux) stays outside it: the
+TP entry then goes on what the region reads of it (the dispatched rows and
+the gate values), not on its inputs.
 """
 
 from __future__ import annotations
@@ -56,22 +65,6 @@ Tensor = torch.Tensor
 
 MODEL = "model"
 DATA = "data"
-# ROADMAP's item for the archs this layout does not cover yet
-NEXT_ITEM = "ROADMAP queue 1 item 7b (MoE experts over 'model', the Mamba / RWKV6 splits)"
-
-
-def supports(cfg) -> bool:
-    """True for the stacks whose layers are all attention plus a dense MLP."""
-    return all(spec.mixer == "attn" and spec.ffn == "dense" for spec in cfg.pattern)
-
-
-def check_supported(cfg) -> None:
-    """Raise ``NotImplementedError`` naming the arch where ``supports`` is False."""
-    if not supports(cfg):
-        kinds = sorted({f"{s.mixer}+{s.ffn}" for s in cfg.pattern})
-        raise NotImplementedError(
-            f"{cfg.name}: the 2-D (FSDP x TP) train step covers attention + dense MLP layers; this arch has "
-            f"{kinds}: {NEXT_ITEM}")
 
 
 # ---------------------------------------------------------------------------
@@ -184,6 +177,18 @@ def enter_tp(x: Tensor) -> Tensor:
 def exit_tp(x: Tensor) -> Tensor:
     """Exit from a TP region: all-reduce over ``model`` forward, identity backward."""
     return psum_if(x, MODEL)
+
+
+def own_slice(x: Tensor, dim: int) -> Tensor:
+    """This ``model`` rank's 1/m of the whole leaf along ``dim`` (contiguous
+    blocks in rank order), for its share of a TP region: its block where
+    ``x`` is split over ``model`` along ``dim``, else the whole leaf
+    (gathered over ``model``, or replicated and ``pvary``'d) cut to it."""
+    if split_dim(x, MODEL) == dim:
+        return gather(x, tp=True)
+    whole = gather(x, model=True, tp=True)
+    n = whole.shape[dim] // shd.axis_size(MODEL)
+    return whole.narrow(dim, shd.axis_index(MODEL) * n, n)
 
 
 def layer_view(leaf: Tensor, view: Tensor) -> Tensor:

@@ -95,9 +95,10 @@ def sharding_context(mesh, rules: Optional[Dict] = None):
 
 
 @contextlib.contextmanager
-def data_parallel(axis: Optional[str]):
+def data_parallel(axis: Optional[AxisName]):
     """Mark the enclosed forward as one rank's block of a data-parallel
-    batch sharded over mesh axis ``axis``: a batch statistic that is not a
+    batch sharded over mesh axis ``axis`` (or a tuple of axes, the first
+    major): a batch statistic that is not a
     mean of per-row terms (the MoE router's token fractions and its capacity
     positions) is then taken over the whole batch, as GSPMD takes it over
     the reference's global array.  ``None`` marks nothing."""
@@ -109,7 +110,7 @@ def data_parallel(axis: Optional[str]):
         _STATE.dp_axis = prev
 
 
-def data_parallel_axis() -> Optional[str]:
+def data_parallel_axis() -> Optional[AxisName]:
     """The axis ``data_parallel`` installed, or None."""
     return getattr(_STATE, "dp_axis", None)
 
@@ -130,10 +131,12 @@ def installed(state):
             yield
 
 
-def axis_index(axis: str) -> int:
-    """This rank's index along mesh axis ``axis`` of the current mesh."""
+def axis_index(axis: AxisName) -> int:
+    """This rank's index along mesh axis ``axis`` of the current mesh; for a
+    tuple of axes, its row-major index over them (the first axis major, as
+    a spec entry's blocks are ordered)."""
     axis_groups(axis)  # raises on an unbound axis
-    return int(current_mesh().get_local_rank(mesh_dim=axis))
+    return _block(current_mesh(), axis)[0]
 
 
 def _axis_names(mesh) -> Tuple[str, ...]:

@@ -48,10 +48,11 @@ its block of the batch over ``("pod", "data")``.  The forward gathers each
 layer's blocks over "data" inside its rematerialised block and runs heads,
 MLP columns and vocabulary columns tensor-parallel (``models/``); the CE is
 vocabulary-parallel; the aux loss runs on the gathered rows, as above.
-The gathers' backward reduce-scatters each block's gradient, the blocks are
-all-reduced over "pod" and the leaves that do not split over "data" over
-the batch axes; the clip counts each leaf once and AdamW steps each block.
-Only attention + dense MLP stacks run it (an MoE or recurrent arch raises).
+MoE experts run expert-parallel over "model", Mamba channels and RWKV6
+heads tensor-parallel (``parallel/fsdp_tp``'s module note).  The gathers'
+backward reduce-scatters each block's gradient, the blocks are all-reduced
+over "pod" and the leaves that do not split over "data" over the batch
+axes; the clip counts each leaf once and AdamW steps each block.
 
 ``make_compressed_dp_step`` is the explicit data-parallel variant: every
 rank of a mesh steps on its batch slice and the gradients are summed over
@@ -348,7 +349,6 @@ def make_train_step(
         return finish(state, grads, metrics)
 
     def placed_step(state, batch):
-        fsdp_tp.check_supported(cfg)
         named = list(state.model.named_parameters())
         params = [p for _, p in named]
         shardings = [state.shardings[name] for name, _ in named]

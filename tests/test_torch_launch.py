@@ -14,10 +14,10 @@
 * ``run_cell`` on reduced archs on a (2, 2) fake mesh (``device="cpu"``):
   status ok, the reference record's keys present, ``argument_bytes`` the
   sum of the rank's inputs and ``reference_argument_bytes`` the specs'
-  arithmetic; a dense arch's train cell runs the 2-D step (``"layout":
-  "2d"``, ``argument_bytes`` equal to ``reference_argument_bytes``), an
-  MoE arch's the data-parallel one (``"dp"``), and so do they on a
-  multi-pod mesh, the batch over ``("pod", "data")``; one full-width cell
+  arithmetic; every train cell, dense or MoE, runs the 2-D step
+  (``"layout": "2d"``, ``argument_bytes`` equal to
+  ``reference_argument_bytes``), on a multi-pod mesh too, the batch over
+  ``("pod", "data")``; the serving cells ``"dp"``; one full-width cell
   (gemma2-2b ``decode_32k``, single mesh) in under 60 s.
 * ``VARIANTS``: the reference's names, every override a field of the
   port's ``ArchConfig``; ``baseline`` < ``decorr_sum`` in FLOPs.
@@ -176,7 +176,7 @@ print(json.dumps(out))
 CELLS = r"""
 import json, time
 from repro_torch.configs import get_config
-from repro_torch.launch import dryrun, perf
+from repro_torch.launch import dryrun, hlo_cost, perf
 out = {"cells": [], "variants": {}}
 for arch, shape, mesh in (("gemma2-2b", "train_4k", (2, 2)), ("gemma2-2b", "decode_32k", (2, 2)),
                           ("rwkv6-3b", "long_500k", (2, 2)), ("llama4-scout-17b-a16e", "train_4k", (2, 2)),
@@ -184,6 +184,14 @@ for arch, shape, mesh in (("gemma2-2b", "train_4k", (2, 2)), ("gemma2-2b", "deco
                           ("gemma2-2b", "train_4k", (2, 2, 2))):
     rec = dryrun.run_cell(arch, shape, len(mesh) == 3, device="cpu", cfg=get_config(arch).reduced(), mesh_shape=mesh)
     out["cells"].append(rec)
+# a train cell of 8 microbatches, analysed whole and at 3 and 4 microbatches extended
+kw = dict(device="cpu", cfg=get_config("llama4-scout-17b-a16e").reduced(), mesh_shape=(2, 2), microbatches=8)
+build = lambda **more: dryrun.build_cell("llama4-scout-17b-a16e", "train_4k", False, **kw, **more)  # noqa: E731
+fn, args, meta = build()
+whole = vars(hlo_cost.analyze(fn, *args))
+fn, args, meta = build()
+out["extended"] = {"whole": whole, "extended": vars(dryrun.analyze_cell(fn, args, meta, lambda runs: build(runs=runs))),
+                   "num_microbatches": meta["num_microbatches"]}
 for v in ("baseline", "decorr_sum", "decorr_sum_b128", "decorr_off_baseline"):
     out["variants"][v] = perf.build_and_analyze("gemma2-2b", "train_4k", perf.VARIANTS[v], device="cpu", reduced=True,
                                                 mesh_shape=(2, 2))
@@ -361,7 +369,7 @@ def test_run_cell_records_the_reference_keys_and_bytes(jobs):
     for rec in cells[:-2]:
         assert rec["status"] == "ok", rec.get("traceback")
         assert REF_RECORD_KEYS <= set(rec), REF_RECORD_KEYS - set(rec)
-        layout = "2d" if (rec["arch"], rec["shape"]) == ("gemma2-2b", "train_4k") else "dp"
+        layout = "2d" if rec["shape"] == "train_4k" else "dp"
         assert rec["layout"] == layout and rec["n_devices"] == 4 and rec["mesh_shape"] == sizes
         assert set(rec["memory"]) == {"argument_bytes", "output_bytes", "temp_bytes", "alias_bytes"}
         assert rec["kernel_launches"] == {}  # the plain route
@@ -377,14 +385,15 @@ def test_run_cell_records_the_reference_keys_and_bytes(jobs):
     assert train["memory"]["alias_bytes"] == state_bytes  # the state, updated in place
     # FSDP's gathers and reduce-scatters over "data", TP's all-reduces over "model"
     assert min(train["collectives"][k] for k in ("all-gather", "reduce-scatter", "all-reduce")) > 0
-    # an MoE arch's train cell: the data-parallel step, parameters (f32) and
-    # moments (the config's bf16) whole
+    # an MoE arch's train cell: the 2-D step too, the rank's blocks of the
+    # parameters (f32) and of two moments of the config's bf16
     moe_cfg = get_config("llama4-scout-17b-a16e").reduced()
     assert moe_cfg.optimizer_moment_dtype == torch.bfloat16
     moe = by[("llama4-scout-17b-a16e", "train_4k", "pod2x2")]
-    state_moe = (4 + 2 + 2) * _param_elems(moe_cfg)
-    assert moe["memory"]["argument_bytes"] == state_moe + 2 * (128 * 4096 * 4) > moe["reference_argument_bytes"]
-    assert moe["collectives"]["all-reduce"] > 0  # the gradients' all-reduce over "data"
+    state_moe = 2 * _reference_layout_bytes(moe_cfg, sizes)  # 4 + 2 + 2 bytes an element: twice the f32 bytes
+    assert moe["memory"]["argument_bytes"] == moe["reference_argument_bytes"] == state_moe + 2 * (128 * 4096 * 4)
+    assert moe["memory"]["alias_bytes"] == state_moe
+    assert min(moe["collectives"][k] for k in ("all-gather", "reduce-scatter", "all-reduce")) > 0
 
     # gemma2 decode: parameters whole, the rank's 64 of 128 cache rows and tokens
     n = _param_elems(cfg)
@@ -394,13 +403,22 @@ def test_run_cell_records_the_reference_keys_and_bytes(jobs):
     # the reference layout: rows over data, the cache's sequence over model
     assert dec["reference_argument_bytes"] == _reference_layout_bytes(cfg, sizes) + kv // 2 + 64 * 4 + 4
 
-    # the multi-pod train cells: the batch over ("pod", "data"), each step's layout
-    for arch, layout in (("gemma2-2b", "2d"), ("llama4-scout-17b-a16e", "dp")):
+    # the multi-pod train cells: the batch over ("pod", "data"), the 2-D step
+    for arch in ("gemma2-2b", "llama4-scout-17b-a16e"):
         multi = by[(arch, "train_4k", "pod2x2x2")]
         assert multi["status"] == "ok", multi.get("traceback")
-        assert multi["layout"] == layout and multi["n_devices"] == 8
-    multi = by[("gemma2-2b", "train_4k", "pod2x2x2")]
-    assert multi["memory"]["argument_bytes"] == multi["reference_argument_bytes"]
+        assert multi["layout"] == "2d" and multi["n_devices"] == 8
+        assert multi["memory"]["argument_bytes"] == multi["reference_argument_bytes"]
+
+
+def test_extended_microbatches_equal_the_whole_steps_analysis(jobs):
+    """A train cell of 8 microbatches analysed at 3 and 4 of them and
+    extended by 4 (``dryrun.analyze_cell``) equals the analysis of all 8:
+    every count, byte and the high-water mark."""
+    rec = jobs["cells"]["extended"]
+    assert rec["num_microbatches"] == 8
+    assert rec["extended"] == rec["whole"]
+    assert rec["whole"]["temp_bytes"] > 0 and rec["whole"]["n_ops"] > 0
 
 
 def test_one_full_width_cell_within_a_minute(jobs):

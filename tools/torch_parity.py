@@ -944,11 +944,12 @@ def _dist_serve_rows(row):
 
 def _fsdp_tp_rows(row):
     """The 2-D (FSDP x TP) LM step: the jobs of ``tests/test_torch_fsdp_tp.py``
-    (the port on 4 gloo ranks a mesh; the reference on one device and, one
-    mesh an arch, its GSPMD step on 4 fake XLA devices) — one row an arch
-    and mesh (loss terms and gathered parameters after 2 AdamW steps against
-    the one-device step on the whole batch), one an arch against GSPMD, and
-    the unplaced data-parallel step over ("pod", "data")."""
+    and ``tests/test_torch_fsdp_tp_moe.py`` (the port on 4 gloo ranks a mesh;
+    the reference on one device and, one mesh an arch, its GSPMD step on 4
+    fake XLA devices) — one row a case and mesh (loss terms and gathered
+    parameters after 2 AdamW steps against the one-device step on the whole
+    batch), one a case against GSPMD, and the unplaced data-parallel step
+    over ("pod", "data")."""
     import json
     import os
     import sys
@@ -956,9 +957,8 @@ def _fsdp_tp_rows(row):
 
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tests"))
     import test_torch_fsdp_tp as tft
+    import test_torch_fsdp_tp_moe as tfm
 
-    with tempfile.TemporaryDirectory() as tmp:
-        runs = tft.run_jobs(tmp)
     out = []
 
     def compare(port, ref, what, module="train/step make_train_step (placed state)"):
@@ -970,21 +970,31 @@ def _fsdp_tp_rows(row):
     def leaves(res, prefix):
         return {k[len(prefix):]: v for k, v in res.items() if k.startswith(prefix)}
 
-    for mesh, shape in tft.MESHES.items():
-        oracle = f"oracle{tft._batch_ranks(shape)}"
-        for arch in tft.ARCHS:
-            compare((runs[mesh][f"{arch}/metrics"], leaves(runs[mesh], f"{arch}/param/")),
-                    (runs[arch][f"{oracle}/metrics"], leaves(runs[arch], f"{oracle}/param/")),
-                    f"{arch} reduced, mesh {tuple(shape)}, 2 microbatches, 2 AdamW steps: loss terms and parameters "
-                    "vs one device")
-    for arch, mesh in tft.GSPMD.items():
-        compare((runs[mesh][f"{arch}/metrics"], leaves(runs[mesh], f"{arch}/param/")),
-                (runs[arch][f"gspmd/{mesh}/metrics"], leaves(runs[arch], f"gspmd/{mesh}/param/")),
-                f"{arch} reduced, mesh {tuple(tft.MESHES[mesh])}: the same vs the reference's GSPMD step")
-    compare((runs["c"]["dp/metrics"], leaves(runs["c"], "dp/param/")),
-            (runs["gemma2-2b"]["oracle2/metrics"], leaves(runs["gemma2-2b"], "oracle2/param/")),
-            "gemma2-2b reduced, unplaced, the batch over (pod 2, data 1): the same vs one device",
-            module="train/step make_train_step(mesh=, data_axis=(\"pod\", \"data\"))")
+    def eps(cases, name):
+        return cases["eps"].get(name, cases["eps"]["*"])
+
+    for cases in (tft.CASES, tfm.CASES):
+        with tempfile.TemporaryDirectory() as tmp:
+            runs = tft.run_jobs(tmp, cases)
+        for mesh, names in cases["runs"].items():
+            oracle = f"oracle{tft._batch_ranks(cases, mesh)}"
+            for name in names:
+                arch, over = cases["variants"][name]
+                compare((runs[mesh][f"{name}/metrics"], leaves(runs[mesh], f"{name}/param/")),
+                        (runs[name][f"{oracle}/metrics"], leaves(runs[name], f"{oracle}/param/")),
+                        f"{arch} reduced{over or ''}, mesh {tuple(cases['meshes'][mesh])}, 2 microbatches, 2 AdamW "
+                        f"steps (eps {eps(cases, name)}): loss terms and parameters vs one device")
+        for name, mesh in cases["gspmd"].items():
+            compare((runs[mesh][f"{name}/metrics"], leaves(runs[mesh], f"{name}/param/")),
+                    (runs[name][f"gspmd/{mesh}/metrics"], leaves(runs[name], f"gspmd/{mesh}/param/")),
+                    f"{name} reduced, mesh {tuple(cases['meshes'][mesh])}: the same vs the reference's GSPMD step")
+        dp = cases["dp"]
+        oracle = f"oracle{tft._batch_ranks(cases, dp['mesh'])}"
+        compare((runs[dp["mesh"]]["dp/metrics"], leaves(runs[dp["mesh"]], "dp/param/")),
+                (runs[dp["case"]][f"{oracle}/metrics"], leaves(runs[dp["case"]], f"{oracle}/param/")),
+                f"{dp['case']} reduced, unplaced, the batch over {tuple(cases['meshes'][dp['mesh']])} of "
+                f"{tft._axes(cases, dp['mesh'])}: the same vs one device",
+                module="train/step make_train_step(mesh=, data_axis=(\"pod\", \"data\"))")
     return out
 
 
