@@ -235,10 +235,32 @@ Phases (any failed check exits non-zero and prints no result):
      every gathered parameter within 5e-4 of its leaf's largest entry, each
      arm's kernels launched forward and backward in the placed steps; median
      step ms and peak allocated bytes (steps 2-3) of both.  Phase ``launch``
-     (e) prints each dry-run cell's layout (three processes started with
-     phase launch): every train cell (gemma2-2b, llama4-scout, rwkv6-3b
-     ``train_4k`` on (16, 16)) is the 2-D step and its argument bytes must
-     equal the specs'.
+     (e) prints each dry-run cell's layout (three processes started before
+     phase lmtrain, so they run beside it): every train cell (gemma2-2b, llama4-scout, rwkv6-3b
+     ``train_4k`` on (16, 16)) and the serving cells gemma2-2b
+     ``prefill_32k`` / ``decode_32k`` and llama4-scout ``decode_32k`` are
+     the 2-D steps, whose argument bytes must equal the specs'; rwkv6's
+     ``long_500k`` stays the DP step.
+  7c. serve2d — the 2-D serving steps (``train/serve`` on
+     ``parallel/fsdp_tp.place_params`` / ``place_caches``: KV caches split by
+     sequence over ``model``): (a) paged_attention with a block ``start`` and
+     its log-sum-exp on each of 16 blocks of 2048 rows of a 32768-row bf16
+     cache (gemma2-2b's heads, softcap 50, 8 slots, lengths spread over the
+     cache), a local (window 4096) and a global layer, the blocks merged by
+     ``merge_partials`` against the plain version over the whole cache
+     (2e-4 of max(1, max |plain|)), each block's LSE against the plain
+     block's; event / device ms of one block call (decode_32k's rank block)
+     and of the merge, with the call's bound, and of its library call,
+     compiled ``flex_attention`` (soft cap as ``score_mod``, lengths, start
+     and window as its block mask), held against the plain version at
+     LIB_TOL on that block and on a local layer's middle block; a block
+     call with no device time fails; (b) on one NCCL rank, a (data
+     1, model 1) mesh, gemma2-2b at full width and depth and llama4-scout at
+     full width (1 of 48 layers), f32: 8 prompts of 512 tokens prefilled
+     into 4096-row caches, then 32 greedy decode steps, placed against
+     unplaced: logits within 1e-4 of max(1, max |logit|) every step, tokens
+     identical under the gap rule, and one ``paged_attention`` launch per
+     attention layer per placed decode step.
   8. report — one JSON ``kernels`` line, the card's name and power limit,
      and the last line ``{"ok": true, "device": {...}}``.
 
@@ -270,6 +292,10 @@ F32_FLOPS_PER_S = 67e12
 # taken relative to the output's largest magnitude — both sum in f32, in a
 # different order, over contractions of up to 512 terms
 KERNEL_TOL = 2e-4
+# paged_attention's library yardstick (compiled ``flex_attention``) vs the
+# plain version on the same q rounded to bf16: flex takes one dtype and
+# rounds the probabilities to bf16 before P @ V (2^-8 relative a term)
+LIB_TOL = 1e-2
 # served embeddings vs the CPU forward: cuBLAS f32 (TF32 off) and the CPU
 # BLAS sum 3072-term products in different orders
 EMBED_TOL = 1e-4
@@ -443,12 +469,18 @@ def _device_events(fn):
     return [(e.name, e.device_time_total) for e in prof.events() if e.device_type == DeviceType.CUDA]
 
 
-def _device_ms(fn, iters: int = 20):
+def _device_ms(fn, iters: int = 20, sessions: int = 3):
     """Mean device time per call of ``fn``: the summed durations of the
-    device work it enqueues (None if the profiler saw no device events)."""
+    device work it enqueues (None if the profiler saw no device events).
+    A profiler session now and then returns no device event at all, for
+    any work (on the H100 about one of ~150 sessions a run, in any phase),
+    so an empty session is taken again, up to ``sessions`` times."""
     fn()
-    events = _device_events(lambda: [fn() for _ in range(iters)])
-    return sum(us for _, us in events) / iters / 1e3 if events else None
+    for _ in range(sessions):
+        events = _device_events(lambda: [fn() for _ in range(iters)])
+        if events:
+            return sum(us for _, us in events) / iters / 1e3
+    return None
 
 
 _OWNER = {sym: kernel for kernel, symbols in DEVICE_KERNELS.items() for sym in symbols}
@@ -796,6 +828,74 @@ def _paged_inputs(dev, gen, lens, dtype, q_gain=1.0, shape=PAGED_SHAPE, nb=0):
     return q, kp, vp, table.to(dev), torch.tensor(lens, dtype=torch.int32, device=dev)
 
 
+_FLEX = {}
+
+
+def _flex_library(q, k, v, lens, *, scale, softcap, window, start=0):
+    """paged_attention's library yardstick where a soft cap or a window
+    applies: ``flex_attention``, compiled (its decode path), on a dense
+    (B, rows, KV, hd) block of the slots' rows — the cap as its
+    ``score_mod``, the lengths, the block's ``start`` and the window as its
+    block mask, GQA by ``enable_gqa``, the log-sum-exp by ``AuxRequest``.
+    flex takes one dtype, so q is rounded to the block's.  The mask, the q
+    cast and the gather of a paged pool are made outside the timed call;
+    ``start`` and the window are tensors, so one compilation serves every
+    block of a shape.  Returns the timed call, with ``call.check()``: (out
+    error relative to max(1, max |plain|), LSE error over the live slots)
+    against the plain version on the rounded q, and ``call.first_s``: the
+    seconds of its first call (the compilation where the shape is new)."""
+    import torch
+    from torch.nn.attention.flex_attention import AuxRequest, create_block_mask, flex_attention
+
+    from repro_torch.kernels.paged_attention.ops import paged_decode_plain
+
+    key = (float(scale), float(softcap))
+    if key not in _FLEX:
+        cap = float(softcap)
+        mod = (lambda s, b, h, qi, ki: cap * torch.tanh(s / cap)) if cap else None
+
+        def run(q4, k4, v4, mask):
+            out, aux = flex_attention(q4, k4, v4, score_mod=mod, block_mask=mask, scale=scale, enable_gqa=True,
+                                      return_aux=AuxRequest(lse=True))
+            return out, aux.lse
+
+        _FLEX[key] = torch.compile(run, dynamic=False)
+    fn = _FLEX[key]
+    b, rows = k.shape[0], k.shape[1]
+    start_t = torch.tensor(start, dtype=torch.int32, device=k.device)
+    window_t = torch.tensor(window or 1 << 30, dtype=torch.int32, device=k.device)
+
+    def live(bi, hi, qi, ki):
+        pos = ki + start_t
+        return (pos < lens[bi]) & (pos >= lens[bi] - window_t)
+
+    mask = create_block_mask(live, b, None, 1, rows, device=k.device)
+    qr = q.to(k.dtype)[:, :, None]
+    k4, v4 = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)  # (B, KV, rows, hd) views, no copy
+
+    def call():
+        return fn(qr, k4, v4, mask)
+
+    def check():
+        out, lse = call()
+        table = torch.arange(b, dtype=torch.int32, device=k.device)[:, None]
+        want, want_lse = paged_decode_plain(qr[:, :, 0].float(), k, v, table, lens, scale=scale, softcap=softcap,
+                                            window=window, start=start, return_lse=True)
+        out, lse = out[:, :, 0].float(), lse[:, :, 0].float()
+        err = float((out - want).abs().max()) / max(1.0, float(want.abs().max()))
+        empty = torch.isinf(want_lse)
+        ok_empty = bool(torch.equal(torch.isinf(lse), empty))
+        lse_err = float((lse - want_lse)[~empty].abs().max()) if bool((~empty).any()) else 0.0
+        return err, lse_err if ok_empty else math.inf
+
+    t0 = time.perf_counter()
+    call()
+    torch.cuda.synchronize()
+    call.first_s = time.perf_counter() - t0
+    call.check = check
+    return call
+
+
 def _paged_cases(cases, dev, gen):
     """paged_attention at the LM path's decode shape (8 slots, 8 query / 4
     kv heads of 256, page 16, lengths as the 24-request workload leaves
@@ -806,8 +906,11 @@ def _paged_cases(cases, dev, gen):
     changes the output (``_softcap_control`` shows by how much).  The
     library yardstick is ``scaled_dot_product_attention`` on the
     pre-gathered, head-expanded dense view (gather excluded from its time),
-    the one PyTorch call that computes the same function — at softcap 0 and
-    window 0 only."""
+    the one PyTorch call that computes the same function, at softcap 0 and
+    window 0; at the JSON line's case (bf16, softcap 50, window 4096) it is
+    compiled ``flex_attention`` on the pre-gathered view (``_flex_library``),
+    held against the plain version at LIB_TOL.  The other capped or
+    windowed cases time no library call."""
     import torch
     import torch.nn.functional as F
 
@@ -815,14 +918,16 @@ def _paged_cases(cases, dev, gen):
     from repro_torch.kernels.paged_attention.ops import paged_decode_plain
     from repro_torch.kernels.paged_attention.ref import gather_pages
 
-    def case(label, lens, dtype, softcap, window, q_gain=1.0, shape=PAGED_SHAPE, nb=0):
+    def case(label, lens, dtype, softcap, window, q_gain=1.0, shape=PAGED_SHAPE, nb=0, flex=False):
         h, kv, hd, page, scale = (shape[k] for k in ("h", "kv", "hd", "page", "scale"))
         b = len(lens)
         nb = max(max(-(-n // page) for n in lens), nb)
         q, kp, vp, table, lens_t = _paged_inputs(dev, gen, lens, dtype, q_gain, shape, nb)
         kw = dict(scale=scale, softcap=softcap, window=window)
         lib = None
-        if not softcap and not window:
+        if flex:
+            lib = _flex_library(q, gather_pages(kp, table), gather_pages(vp, table), lens_t, **kw)
+        elif not softcap and not window:
             kd = gather_pages(kp, table).float().repeat_interleave(h // kv, dim=2).transpose(1, 2).contiguous()
             vd = gather_pages(vp, table).float().repeat_interleave(h // kv, dim=2).transpose(1, 2).contiguous()
             mask = (torch.arange(nb * page, device=dev)[None, :] < lens_t[:, None])[:, None, None, :]
@@ -867,7 +972,8 @@ def _paged_cases(cases, dev, gen):
         verify_case(f"verify {tag} softcap=50 window=4096 (B=40: 8 slots x {DRAFT_K + 1} lanes on one row each)",
                     main_lens, dtype, 50.0, 4096)
     for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
-        case(f"main {tag} softcap=50 window=4096 (B=8,H=8,KV=4,hd=256,page=16)", main_lens, dtype, 50.0, 4096)
+        case(f"main {tag} softcap=50 window=4096 (B=8,H=8,KV=4,hd=256,page=16)", main_lens, dtype, 50.0, 4096,
+             flex=dtype == torch.bfloat16)
         case(f"main {tag} softcap=50 window=0", main_lens, dtype, 50.0, 0)
         case(f"main {tag} softcap=0 window=0", main_lens, dtype, 0.0, 0)
     case("long bf16 softcap=50 window=4096 (B=8, lens to 8192)", long_lens, torch.bfloat16, 50.0, 4096)
@@ -976,10 +1082,17 @@ def phase_kernels(ph: Phase, dev):
         l_ms = _time_ms(lib) if lib is not None else None
         b_ms, by = _bound(nbytes, flops)
         if lib is None:
-            lib_txt, lib_dev = "library_ms=none (no single PyTorch call)", "none"
+            none = "flex_attention timed on the JSON case only" if name == "paged_attention" else "no single PyTorch call"
+            lib_txt, lib_dev = f"library_ms=none ({none})", "none"
         else:
             lib_txt = f"library_ms={l_ms:.5f}" + (" (gather excluded)" if name == "paged_attention" else "")
             lib_dev = _fmt(_device_ms(lib))
+        if hasattr(lib, "check"):
+            l_err, l_lse = lib.check()
+            ph.check(l_err <= LIB_TOL and l_lse <= LIB_TOL,
+                     f"{name} [{label}] flex_attention vs plain: out rel err {l_err:.3g}, LSE err {l_lse:.3g} > {LIB_TOL}")
+            lib_txt += (f" (flex_attention bf16, mask and q cast excluded; out rel err {l_err:.3g} LSE err "
+                        f"{l_lse:.3g}; first call {lib.first_s:.1f}s)")
         print(
             f"[kernel] {name:<10} {label}: max_abs_err={err:.3g} rel={rel:.3g} "
             f"kernel_ms={k_ms:.5f} plain_ms={p_ms:.5f} {lib_txt} "
@@ -4006,6 +4119,215 @@ def phase_fsdp(ph: Phase, dev):
 
 
 # ---------------------------------------------------------------------------
+# phase serve2d: the 2-D serving steps (placed params, KV caches split by
+# sequence over "model", flash-decoding on paged_attention)
+# ---------------------------------------------------------------------------
+
+# (a) gemma2-2b's heads on a decode_32k slot block: 8 slots of a 32768-row
+# cache split into 16 blocks of 2048 rows (a rank's rows on the (16, 16) mesh)
+SERVE2D_ROWS, SERVE2D_BLOCKS = 32768, 16
+SERVE2D_LENS = [32768, 30001, 20480, 16385, 9000, 4097, 2048, 1]
+# (b) the placed steps: 8 prompts of 512 tokens into a 4096-row cache, 32
+# greedy decode steps; gemma2-2b at full depth and llama4-scout 1 of 48 layers
+SERVE2D_SLOTS, SERVE2D_PROMPT, SERVE2D_MAX_LEN, SERVE2D_STEPS = 8, 512, 4096, 32
+SERVE2D_ARCHS = (("gemma2-2b", None), ("llama4-scout-17b-a16e", 1))
+
+
+def _serve2d_blocks(ph, dev, smi):
+    """(a) paged_attention on each 2048-row block of a 32768-row bf16 cache
+    with its ``start`` and LSE, merged by ``merge_partials``, against the
+    plain version over the whole cache; every block's LSE against the plain
+    block's.  Returns the timing line's numbers."""
+    import torch
+
+    from repro_torch.kernels.paged_attention import kernel as K
+    from repro_torch.kernels.paged_attention.ops import paged_decode_plain
+    from repro_torch.parallel.fsdp_tp import merge_partials
+
+    h, kv, hd = PAGED_SHAPE["h"], PAGED_SHAPE["kv"], PAGED_SHAPE["hd"]
+    b, rows = len(SERVE2D_LENS), SERVE2D_ROWS // SERVE2D_BLOCKS
+    gen = torch.Generator(device=dev).manual_seed(SEED + 27)
+    q = torch.randn(b, h, hd, device=dev, generator=gen)
+    k = torch.randn(b, SERVE2D_ROWS, kv, hd, device=dev, generator=gen).to(torch.bfloat16)
+    v = torch.randn(b, SERVE2D_ROWS, kv, hd, device=dev, generator=gen).to(torch.bfloat16)
+    lens = torch.tensor(SERVE2D_LENS, dtype=torch.int32, device=dev)
+    table = torch.arange(b, dtype=torch.int32, device=dev)[:, None]
+    blocks = [(k[:, i * rows:(i + 1) * rows].contiguous(), v[:, i * rows:(i + 1) * rows].contiguous())
+              for i in range(SERVE2D_BLOCKS)]
+    timed = {}
+    for window in (4096, 0):
+        kw = dict(scale=PAGED_SHAPE["scale"], softcap=50.0, window=window)
+        tag = f"[serve2d] (a) {'local window 4096' if window else 'global'}"
+        outs, lses, lse_err = [], [], 0.0
+        for i, (kb, vb) in enumerate(blocks):
+            out, lse = K.paged_decode_attention(q, kb, vb, table, lens, start=i * rows, return_lse=True, **kw)
+            want, want_lse = paged_decode_plain(q, kb, vb, table, lens, start=i * rows, return_lse=True, **kw)
+            empty = torch.isinf(want_lse)
+            ph.check(bool(torch.equal(torch.isinf(lse), empty)) and bool((out[empty] == 0).all()),
+                     f"{tag}: block {i}'s empty slots are not out 0, LSE -inf")
+            if bool((~empty).any()):
+                err = float((lse - want_lse)[~empty].abs().max()) / max(1.0, float(want_lse[~empty].abs().max()))
+                lse_err = max(lse_err, err)
+            outs.append(out)
+            lses.append(lse)
+        whole = paged_decode_plain(q, k, v, table, lens, **kw)
+        got = merge_partials(torch.stack(outs), torch.stack(lses))
+        err, rel = _max_err(got, whole)
+        ph.check(rel <= KERNEL_TOL, f"{tag}: merged blocks vs the whole plain version, rel err {rel:.3g}")
+        ph.check(lse_err <= KERNEL_TOL, f"{tag}: a block's LSE vs the plain block's, rel err {lse_err:.3g}")
+        print(f"{tag}: {SERVE2D_BLOCKS} blocks of {rows} rows, {b} slots, lens {SERVE2D_LENS}, H {h} / KV {kv}, "
+              f"hd {hd}, bf16, softcap 50 | merged vs whole plain: max abs err {err:.3g} rel {rel:.3g} | "
+              f"block LSE rel err {lse_err:.3g} | {smi}", flush=True)
+        del whole, got
+        # the first block at the global layer: every slot but the last live on all its rows
+        if not window:
+            kb, vb = blocks[0]
+            call = lambda: K.paged_decode_attention(q, kb, vb, table, lens, return_lse=True, **kw)  # noqa: E731
+            plain = lambda: paged_decode_plain(q, kb, vb, table, lens, return_lse=True, **kw)  # noqa: E731
+            stacked = (torch.stack(outs), torch.stack(lses))
+            merge = lambda: merge_partials(*stacked)  # noqa: E731
+            live = sum(min(n, rows) for n in SERVE2D_LENS)
+            nbytes = live * kv * hd * 2 * 2 + q.numel() * 4 + b * h * hd * 4 + b * h * 4
+            bound_ms, bound_by = _bound(nbytes, 4.0 * live * h * hd)
+            m_bytes = stacked[0].numel() * 4 + stacked[1].numel() * 4 + b * h * hd * 4
+            # the library call: compiled flex_attention on the same block,
+            # checked on it and on a local layer's block 8 (one compilation)
+            lib = _flex_library(q, kb, vb, lens, **kw)
+            lib_err = [lib.check()]
+            print(f"[serve2d] (a) flex_attention first call {lib.first_s:.1f}s", flush=True)
+            mid = SERVE2D_BLOCKS // 2
+            lib_err.append(_flex_library(q, *blocks[mid], lens, start=mid * rows,
+                                         **dict(kw, window=4096)).check())
+            l_err, l_lse = max(e for e, _ in lib_err), max(e for _, e in lib_err)
+            ph.check(l_err <= LIB_TOL and l_lse <= LIB_TOL,
+                     f"[serve2d] (a) flex_attention vs plain: out rel err {l_err:.3g}, LSE err {l_lse:.3g} > {LIB_TOL}")
+            timed = dict(ms=_time_ms(call), dev_ms=_device_ms(call), plain_ms=_time_ms(plain, iters=10),
+                         bound_ms=bound_ms, bound_by=bound_by, library_ms=_time_ms(lib), library_dev_ms=_device_ms(lib),
+                         merge_ms=_time_ms(merge), merge_dev_ms=_device_ms(merge),
+                         merge_bound_ms=_bound(m_bytes, 0.0)[0])
+            ph.check(timed["dev_ms"] is not None,
+                     "[serve2d] (a) the block call launched paged_attention but shows no device time")
+            print(f"[serve2d] (a) block call at decode_32k's rank block (B {b}, H {h} / KV {kv}, hd {hd}, {rows} rows, "
+                  f"bf16, start 0, LSE): event ms {timed['ms']:.5f} device ms {_fmt(timed['dev_ms'])} plain ms "
+                  f"{timed['plain_ms']:.5f} bound ms {bound_ms:.5f} ({bound_by}) library ms {timed['library_ms']:.5f} "
+                  f"device {_fmt(timed['library_dev_ms'])} (flex_attention compiled, bf16 q, block mask from lens / "
+                  f"start / window, mask and q cast excluded; vs plain out rel err {l_err:.3g} LSE err {l_lse:.3g}) | "
+                  f"merge of {SERVE2D_BLOCKS} blocks: event ms {timed['merge_ms']:.5f} device "
+                  f"ms {_fmt(timed['merge_dev_ms'])} bound ms {timed['merge_bound_ms']:.5f} | {smi}", flush=True)
+    return timed
+
+
+def _serve2d_greedy(cfg, params, caches, prompts):
+    """Prefill ``prompts`` and decode SERVE2D_STEPS greedy tokens with the
+    ``train/serve`` steps; returns (logits of every step (B, V), tokens
+    (B, steps + 1), paged_attention launches of the decode steps)."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.train.serve import make_decode_step, make_prefill_step
+
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+    with torch.no_grad():
+        logits, caches = prefill(params, caches, prompts)
+        rows = [logits[:, 0].float()]
+        toks = [rows[-1].argmax(-1)]
+        kernels.reset_launch_counts()
+        for j in range(SERVE2D_STEPS):
+            logits, caches = decode(params, caches, SERVE2D_PROMPT + j, toks[-1][:, None])
+            rows.append(logits.float())
+            toks.append(rows[-1].argmax(-1))
+        torch.cuda.synchronize()
+        launched = kernels.launch_counts()["paged_attention"]
+    return rows, torch.stack(toks, dim=1), launched
+
+
+def _serve2d_steps(ph, dev, mesh, smi):
+    """(b) the placed steps against the unplaced ones, gemma2 and llama4;
+    returns the placed runs' paged_attention launches."""
+    import torch
+
+    from repro_torch.models import init_caches
+    from repro_torch.parallel.fsdp_tp import place_caches, place_params
+
+    launches = 0
+    for name, depth in SERVE2D_ARCHS:
+        _free()
+        t0 = time.perf_counter()
+        cfg, params = _arch_model(name, depth, torch.float32, dev)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 28)
+        prompts = torch.randint(0, cfg.vocab_size, (SERVE2D_SLOTS, SERVE2D_PROMPT), device=dev, generator=gen)
+        base, base_toks, _ = _serve2d_greedy(cfg, params, init_caches(cfg, SERVE2D_SLOTS, SERVE2D_MAX_LEN, dev),
+                                             prompts)
+        placed = place_caches(init_caches(cfg, SERVE2D_SLOTS, SERVE2D_MAX_LEN, dev), cfg, mesh)
+        rows, toks, launched = _serve2d_greedy(cfg, place_params(params, mesh), placed, prompts)
+        tag = f"[serve2d] (b) {name} {cfg.n_layers} layers"
+        ph.check(all(getattr(leaf, "placement", None) is not None for leafs in placed.values()
+                     for leaf in leafs.values()), f"{tag}: the caches were not placed")
+        # a slot's logits are compared up to its first differing token; a
+        # difference is allowed only where the unplaced top-2 gap is below
+        # twice the logit difference measured before it
+        first = [int(torch.nonzero(base_toks[i] != toks[i])[0]) if bool((base_toks[i] != toks[i]).any())
+                 else SERVE2D_STEPS + 1 for i in range(SERVE2D_SLOTS)]
+        diff = scale = 0.0
+        for j, (a, bb) in enumerate(zip(base, rows)):
+            keep = [i for i in range(SERVE2D_SLOTS) if j <= first[i]]
+            if keep:
+                diff = max(diff, float((a[keep] - bb[keep]).abs().max()))
+                scale = max(scale, float(a[keep].abs().max()))
+        rel = diff / max(1.0, scale)
+        ph.check(rel <= LOGIT_TOL, f"{tag}: placed vs unplaced logits rel err {rel:.3g} > {LOGIT_TOL}")
+        differ = 0
+        for i, t in enumerate(first):
+            if t > SERVE2D_STEPS:
+                continue
+            differ += 1
+            top2 = torch.topk(base[t][i], 2).values
+            gap = float(top2[0] - top2[1])
+            print(f"{tag}: slot {i} first differs at token {t}: unplaced top-2 gap {gap:.4g} vs 2 x logit diff "
+                  f"{2 * diff:.4g} -> {'exempt from here on' if gap < 2 * diff else 'FAIL'}", flush=True)
+            ph.check(gap < 2 * diff, f"{tag}: slot {i} differs at token {t} with top-2 gap {gap}")
+        want = (cfg.n_layers if all(sp.mixer == "attn" for sp in cfg.pattern) else 0) * SERVE2D_STEPS
+        ph.check(launched == want, f"{tag}: paged_attention launched {launched} times in the placed decode, "
+                                   f"not one per attention layer a step ({want})")
+        ph.check(all(bool(torch.isfinite(r).all()) for r in rows), f"{tag}: non-finite logits")
+        launches += launched
+        print(f"{tag} f32, mesh (data 1, model 1) on one NCCL rank: prefill {SERVE2D_SLOTS} x {SERVE2D_PROMPT} into "
+              f"{SERVE2D_MAX_LEN} rows, {SERVE2D_STEPS} greedy decode steps | placed vs unplaced logits max abs err "
+              f"{diff:.3g} rel {rel:.3g}, slots whose tokens differ {differ} | paged_attention launches {launched} | "
+              f"{time.perf_counter() - t0:.1f}s | {smi}", flush=True)
+        del params, placed, base, rows
+    _free()
+    return launches
+
+
+def phase_serve2d(ph: Phase, dev):
+    """(a) the kernel's ``start`` / LSE on a split cache, merged; (b) the
+    placed prefill and decode steps at world size 1 (one NCCL rank) against
+    the unplaced ones.  Returns {kernel: launches} of (b)'s placed decodes."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh_for_devices
+
+    smi = _smi()
+    _serve2d_blocks(ph, dev, smi)
+    _free()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
+    torch.cuda.set_device(dev.index or 0)
+    dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1), rank=0, world_size=1)
+    try:
+        launched = _serve2d_steps(ph, dev, make_mesh_for_devices(1, 1), smi)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"paged_attention": launched}
+
+
+# ---------------------------------------------------------------------------
 # phase launch: the op-level analyzer (launch/hlo_cost) and the roofline join
 # ---------------------------------------------------------------------------
 
@@ -4016,15 +4338,18 @@ LAUNCH_PEAK_TOL = 0.15
 LAUNCH_LM_MAX_PROMPT, LAUNCH_LM_MAX_LEN = 512, 1024
 LAUNCH_TIMED_CALLS = 3
 # (e) and (f) run in processes of their own, one a group of cells (the
-# first also runs (f)), started with phase launch, one thread each at a
-# lower priority: the dry run makes a fake process group of 256 ranks,
+# first also runs (f)), started before phase lmtrain (or with phase
+# launch when it runs alone), one thread each at a lower priority, beside
+# the device-bound phases lmtrain to serve2d: the dry run makes a fake process group of 256 ranks,
 # which must not meet this process's groups.  llama4's train_4k cell
 # dispatches 7 of its 16 microbatches of 48 layers
 # (``launch/dryrun.analyze_cell``), rwkv6's 64 chunks a layer
 LAUNCH_CELLS = ((("gemma2-2b", "train_4k"), ("gemma2-2b", "prefill_32k"), ("gemma2-2b", "decode_32k"),
                  ("rwkv6-3b", "long_500k")),
                 (("rwkv6-3b", "train_4k"),),
-                (("llama4-scout-17b-a16e", "train_4k"),))
+                (("llama4-scout-17b-a16e", "train_4k"), ("llama4-scout-17b-a16e", "decode_32k")))
+# the serving cells that run the 2-D steps (the others stay "dp")
+LAUNCH_2D_SERVING = {("gemma2-2b", "prefill_32k"), ("gemma2-2b", "decode_32k"), ("llama4-scout-17b-a16e", "decode_32k")}
 _LAUNCH_DRYRUN = r"""
 import json, sys
 import torch
@@ -4036,6 +4361,10 @@ if sys.argv[2] == "perf":
     recs = {v: perf.build_and_analyze("gemma2-2b", "train_4k", perf.VARIANTS[v]) for v in ("baseline", "decorr_sum")}
     print("PERF " + json.dumps(recs), flush=True)
 """
+
+
+# the dry-run processes, when ``main`` starts them ahead of phase launch
+_DRYRUN = []
 
 
 def _launch_dryrun_start():
@@ -4311,8 +4640,10 @@ def _launch_dryrun_finish(ph, procs, smi):
         if rec["status"] != "ok":
             print(rec.get("traceback", ""), flush=True)
             continue
-        if rec["shape"] == "train_4k":
+        if rec["shape"] == "train_4k" or (rec["arch"], rec["shape"]) in LAUNCH_2D_SERVING:
             ph.check(rec.get("layout") == "2d", f"[launch] (e) {tag}: layout {rec.get('layout')}, not the 2-D step")
+        else:
+            ph.check(rec.get("layout") == "dp", f"[launch] (e) {tag}: layout {rec.get('layout')}, not the DP step")
         if rec.get("layout") == "2d":
             # the 2-D step holds what the specs' layout holds a rank
             ph.check(rec["memory"]["argument_bytes"] == rec["reference_argument_bytes"],
@@ -4341,7 +4672,7 @@ def phase_launch(ph: Phase, dev):
     """The launch analysis tools and the roofline join; returns the kernels'
     launches of the real calls it made."""
     smi = _smi()
-    procs = _launch_dryrun_start()
+    procs = list(_DRYRUN) or _launch_dryrun_start()
     launches = {}
     try:
         cfg, batch_fn, counts = _launch_train(ph, dev, smi)
@@ -4389,12 +4720,29 @@ def main() -> int:
     fabric = ph.run("fabric", phase_fabric, ph, dev) or {}
     tuned = ph.run("tune", phase_tune, ph, dev) or {}
     archs = ph.run("archs", phase_archs, ph, dev) or {}
-    lmtrain_fwd, lmtrain_bwd = ph.run("lmtrain", phase_lmtrain, ph, dev) or ({}, {})
-    fsdp_fwd, fsdp_bwd = ph.run("fsdp", phase_fsdp, ph, dev) or ({}, {})
-    launch = ph.run("launch", phase_launch, ph, dev) or {}
-    for part in (train_fwd, dist_fwd, obs, lm, fabric, tuned, archs, lmtrain_fwd, fsdp_fwd, launch):
+    # phase launch's dry-run analyses (CPU only, one thread each, niced) run
+    # beside the device-bound phases lmtrain to serve2d
+    _DRYRUN.extend(_launch_dryrun_start())
+    try:
+        lmtrain_fwd, lmtrain_bwd = ph.run("lmtrain", phase_lmtrain, ph, dev) or ({}, {})
+        fsdp_fwd, fsdp_bwd = ph.run("fsdp", phase_fsdp, ph, dev) or ({}, {})
+        serve2d = ph.run("serve2d", phase_serve2d, ph, dev) or {}
+        launch = ph.run("launch", phase_launch, ph, dev) or {}
+    finally:
+        for proc in _DRYRUN:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    parts = dict(service=dict(launches), train=train_fwd, dist=dist_fwd, obs=obs, lm=lm, fabric=fabric, tune=tuned,
+                 archs=archs, lmtrain=lmtrain_fwd, fsdp=fsdp_fwd, serve2d=serve2d, launch=launch)
+    for part in list(parts.values())[1:]:
         for k, v in part.items():
             launches[k] = launches.get(k, 0) + v
+    # the kernels line's launches by phase; phase tune's vary from run to
+    # run: every candidate it measures launches, and which plans it then
+    # tunes follows its measured picks
+    print(f"[chip_smoke] launches by phase: { {p: {k: v for k, v in c.items() if v} for p, c in parts.items()} }",
+          flush=True)
     for part in (dist_bwd, lmtrain_bwd, fsdp_bwd):
         for k, v in part.items():
             train_bwd[k] = train_bwd.get(k, 0) + v

@@ -9,24 +9,35 @@
 //   q       (B, H, hd) f32, H = KV * n_rep (query head h reads kv head h / n_rep)
 //   k, v    (P, page, KV, hd) pages, f32 or bf16 (upcast per element on load)
 //   tables  (B, NB) int32: logical block j of slot b -> physical page
-//   lens    (B,) int32: valid rows per slot (1 <= len <= NB * page)
+//   lens    (B,) int32: valid rows per slot, global (see start)
+//   start   int >= 0: the global row of a table's row 0.  0 for a whole cache
+//           (then 1 <= len <= NB * page); a rank's block of a cache split by
+//           sequence (rows [start, start + NB * page) of each slot) passes its
+//           first row, and lens stay the slots' global lengths
 //   out     (B, H, hd) f32
-// Row t of slot b is live when t < len and, with window > 0, t >= len - window;
+//   lse     (B, H) f32 or NULL: the log-sum-exp of the live rows' s
+// Global row pos = start + t of slot b is live when pos < len and, with
+// window > 0, pos >= len - window (and the table holds it: t < NB * page);
 //   s = scale * q.k;  s = softcap * tanh(s / softcap) when softcap > 0;
-//   out = sum_t softmax(s)_t v_t.
+//   out = sum_t softmax(s)_t v_t;  lse = log sum_t e^(s_t).
+// A slot with no live row in the table gives out 0 and lse -inf, so the
+// blocks of a split cache merge exactly (out = sum_k e^(lse_k - M) out_k /
+// sum_k e^(lse_k - M), M = max lse_k; parallel/fsdp_tp.merge_partials).
 //
 // Bound on an H100: bytes = sum_b rows_b * KV * hd * 2 * sizeof(page dtype)
-// (k and v of the live rows, rows_b = min(len_b, window) or len_b) plus q
-// and out; operations = 4 * sum_b rows_b * H * hd.  Two FLOP per byte of
-// bf16 cache at n_rep = 2: bound by bytes (3.35 TB/s), by ~100x.
+// (k and v of the live rows, rows_b = min(len_b, window) or len_b, cut to
+// the table's rows) plus q, out and lse; operations = 4 * sum_b rows_b * H
+// * hd.  Two FLOP per byte of bf16 cache at n_rep = 2: bound by bytes
+// (3.35 TB/s), by ~100x.
 //
 // Design.  The TPU kernel walks a sequential (slot, block) grid with a
 // scalar-prefetched block table and carries the online-softmax state in
 // VMEM scratch across the block axis.  Hopper has neither the sequential
 // grid nor scalar prefetch, so:
 //   * the grid is (kv head g, slot b, split s): block s takes the live rows
-//     [lo + s CH, lo + (s + 1) CH) of slot b, lo = max(len - window, 0) or
-//     0, and holds the n_rep query rows of g (GQA needs no expansion of the
+//     [lo + s CH, min(lo + (s + 1) CH, hi)) of slot b (table rows: lo =
+//     max(len - window - start, 0) or 0, hi = min(len - start, NB page)),
+//     and holds the n_rep query rows of g (GQA needs no expansion of the
 //     pool).  The split count S = ceil(min(NB page, window or NB page) / CH)
 //     comes from host-known sizes only (the wrapper never reads the lengths),
 //     so a long slot streams through S SMs instead of one; at the LM path's
@@ -52,7 +63,9 @@
 //     paged_combine_kernel (same C entry; one output element a thread, the
 //     partials' loads 8 splits at a time) merges the S partials of each
 //     (slot, kv head) with the same formula, s in order: deterministic, no
-//     atomics.  A chunk with no live row writes M = -1e30, L = 0, A = 0;
+//     atomics.  A chunk with no live row writes M = -1e30, L = 0, A = 0.
+//     The LSE, where asked for, is M + log L of the final state: the
+//     single split's (M, L) or the merged one, -inf where L = 0;
 //   * a trip's rows past the chunk get the reference's -1e30 logit, whose
 //     weight exp(-1e30 - m) is exactly 0.0, as is a neutral partial's: a
 //     masked row carries exactly 0 probability mass (the paged == dense
@@ -88,6 +101,11 @@ namespace {
 
 constexpr int CH = 256;  // rows of a slot one block takes (kernel.py CHUNK)
 constexpr float NEG_INF = -1e30f;
+
+// the LSE of a state with no live row
+__device__ __forceinline__ float minus_inf() { return __int_as_float(0xff800000); }
+// the LSE of a final state (m, l): m + log l, -inf where l = 0
+__device__ __forceinline__ float state_lse(float m, float l) { return l > 0.f ? m + logf(l) : minus_inf(); }
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -127,8 +145,8 @@ template <typename T, int VEC, int NREP, int U, int WARPS, bool FULL>
 __global__ void __launch_bounds__(32 * WARPS) paged_decode_kernel(
     const float* __restrict__ q, const T* __restrict__ k_pages, const T* __restrict__ v_pages,
     const int* __restrict__ tables, const int* __restrict__ lens, float* __restrict__ out,
-    float* __restrict__ part, int kv, int ng, int n_rep, int hd, int page, int nb, float scale,
-    float softcap, int window) {
+    float* __restrict__ part, float* __restrict__ lse, int kv, int ng, int n_rep, int hd, int page, int nb,
+    float scale, float softcap, int window, int start) {
   constexpr int TPB = 32 * WARPS;
   // query rows merged at a time (<= 32 KB of accumulators)
   constexpr int G = NREP < 256 / (WARPS * VEC) ? NREP : 256 / (WARPS * VEC);
@@ -168,14 +186,17 @@ __global__ void __launch_bounds__(32 * WARPS) paged_decode_kernel(
     }
   }
 
-  const int lo = window > 0 ? max(len - window, 0) : 0;
+  // the live rows of the table (rows of the block): [lo, hi)
+  const int lo = window > 0 ? max(len - window - start, 0) : 0;
+  const int hi = min(len - start, nb * page);
   const int r0 = lo + s * CH;
-  const int r1 = min(r0 + CH, len);
+  const int r1 = min(r0 + CH, hi);
   const long long bgs = ((long long)b * kvg + g) * splits + s;
   if (r0 >= r1) {  // no live row (block-uniform): the neutral state
     for (int e = threadIdx.x; e < n_rep * hd; e += TPB) {
       if (splits == 1) {
         out[((long long)b * h_all + g * n_rep) * hd + e] = 0.f;
+        if (lse != nullptr && e % hd == 0) lse[(long long)b * h_all + g * n_rep + e / hd] = minus_inf();
       } else {
         part[part_acc(bgs, n_rep, hd) + e] = 0.f;
         if (e % hd == 0) {
@@ -297,6 +318,7 @@ __global__ void __launch_bounds__(32 * WARPS) paged_decode_kernel(
       const int r = rg + j;
       if (splits == 1) {
         out[((long long)b * h_all + g * n_rep + r) * hd + d] = a / fmaxf(total, 1e-30f);
+        if (lse != nullptr && d == 0) lse[(long long)b * h_all + g * n_rep + r] = state_lse(big, total);
       } else {
         part[part_acc(bgs, n_rep, hd) + (long long)r * hd + d] = a;
         if (d == 0) {
@@ -310,11 +332,13 @@ __global__ void __launch_bounds__(32 * WARPS) paged_decode_kernel(
 
 // One output element (slot b, kv head g, query row r, element d) a thread
 // (grid (KV, B, ceil(n_rep hd / CT))) from the S partial states, s in order:
-// M = max M_s, L = sum L_s e^(M_s - M), out = sum A_s e^(M_s - M) / max(L, 1e-30).
+// M = max M_s, L = sum L_s e^(M_s - M), out = sum A_s e^(M_s - M) / max(L, 1e-30),
+// and lse = M + log L (-inf where L = 0) where lse is not NULL.
 // The partials' loads go out 8 splits at a time.
 constexpr int CT = 128;
 __global__ void __launch_bounds__(CT) paged_combine_kernel(const float* __restrict__ part, float* __restrict__ out,
-                                                           int kv, int n_rep, int hd, int splits) {
+                                                           float* __restrict__ lse, int kv, int n_rep, int hd,
+                                                           int splits) {
   const int e = blockIdx.z * CT + threadIdx.x;  // r * hd + d
   if (e >= n_rep * hd) return;
   const int r = e / hd;
@@ -349,12 +373,13 @@ __global__ void __launch_bounds__(CT) paged_combine_kernel(const float* __restri
     }
   }
   out[bg * n_rep * hd + e] = a / fmaxf(total, 1e-30f);
+  if (lse != nullptr && e % hd == 0) lse[bg * n_rep + r] = state_lse(big, total);
 }
 
 template <typename T, int VEC, int NREP>
 cudaError_t launch(const float* q, const void* k, const void* v, const int* tables, const int* lens,
-                   float* out, float* part, int b, int kv, int ng, int n_rep, int hd, int page, int nb,
-                   int splits, float scale, float softcap, int window, cudaStream_t stream) {
+                   float* out, float* part, float* lse, int b, int kv, int ng, int n_rep, int hd, int page,
+                   int nb, int splits, float scale, float softcap, int window, int start, cudaStream_t stream) {
   // U rows per warp trip while the row registers stay small; 16 warps a
   // block where a thread's registers fit the 128 that 512 threads allow
   // (gemma2's n_rep = 2 at hd = 256), else 8
@@ -365,23 +390,24 @@ cudaError_t launch(const float* q, const void* k, const void* v, const int* tabl
   const T* vp = static_cast<const T*>(v);
   if (hd == 32 * VEC)
     paged_decode_kernel<T, VEC, NREP, U, WARPS, true><<<grid, 32 * WARPS, 0, stream>>>(
-        q, kp, vp, tables, lens, out, part, kv, ng, n_rep, hd, page, nb, scale, softcap, window);
+        q, kp, vp, tables, lens, out, part, lse, kv, ng, n_rep, hd, page, nb, scale, softcap, window, start);
   else
     paged_decode_kernel<T, VEC, NREP, U, WARPS, false><<<grid, 32 * WARPS, 0, stream>>>(
-        q, kp, vp, tables, lens, out, part, kv, ng, n_rep, hd, page, nb, scale, softcap, window);
+        q, kp, vp, tables, lens, out, part, lse, kv, ng, n_rep, hd, page, nb, scale, softcap, window, start);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
-  paged_combine_kernel<<<dim3(kv * ng, b, (n_rep * hd + CT - 1) / CT), CT, 0, stream>>>(part, out, kv * ng, n_rep,
-                                                                                        hd, splits);
+  paged_combine_kernel<<<dim3(kv * ng, b, (n_rep * hd + CT - 1) / CT), CT, 0, stream>>>(part, out, lse, kv * ng,
+                                                                                        n_rep, hd, splits);
   return cudaGetLastError();
 }
 
-#define PA_ARGS q, k, v, tables, lens, out, part, b, kv, ng, n_rep, hd, page, nb, splits, scale, softcap, window, stream
+#define PA_ARGS \
+  q, k, v, tables, lens, out, part, lse, b, kv, ng, n_rep, hd, page, nb, splits, scale, softcap, window, start, stream
 
 template <typename T, int VEC>
 cudaError_t by_nrep(const float* q, const void* k, const void* v, const int* tables, const int* lens,
-                    float* out, float* part, int b, int kv, int ng, int n_rep, int hd, int page, int nb,
-                    int splits, float scale, float softcap, int window, cudaStream_t stream) {
+                    float* out, float* part, float* lse, int b, int kv, int ng, int n_rep, int hd, int page,
+                    int nb, int splits, float scale, float softcap, int window, int start, cudaStream_t stream) {
   // n_rep: the rows of one group (<= 8)
   if (n_rep <= 1) return launch<T, VEC, 1>(PA_ARGS);
   if (n_rep <= 2) return launch<T, VEC, 2>(PA_ARGS);
@@ -392,8 +418,8 @@ cudaError_t by_nrep(const float* q, const void* k, const void* v, const int* tab
 
 template <typename T>
 cudaError_t by_vec(const float* q, const void* k, const void* v, const int* tables, const int* lens,
-                   float* out, float* part, int b, int kv, int ng, int n_rep, int hd, int page, int nb,
-                   int splits, float scale, float softcap, int window, cudaStream_t stream) {
+                   float* out, float* part, float* lse, int b, int kv, int ng, int n_rep, int hd, int page,
+                   int nb, int splits, float scale, float softcap, int window, int start, cudaStream_t stream) {
   if (hd <= 32) return by_nrep<T, 1>(PA_ARGS);
   if (hd <= 64) return by_nrep<T, 2>(PA_ARGS);
   if (hd <= 128) return by_nrep<T, 4>(PA_ARGS);
@@ -408,12 +434,14 @@ extern "C" {
 // k, v: the (P, page, KV, hd) page pools, of the dtype the code names;
 // part: B * KV * splits * n_rep * (hd + 2) floats of scratch where splits > 1
 // (may be NULL where splits == 1); splits * CH must cover every slot's live
-// rows: min(nb * page, window or nb * page)
+// rows: min(nb * page, window or nb * page); start: the global row of a
+// table's row 0 (0 for a whole cache); lse: (B, H) floats, or NULL
 int paged_attention_decode(const float* q, const void* k, const void* v, const int* tables,
                            const int* lens, float* out, float* part, int b, int kv, int n_rep, int hd,
                            int page, int nb, int splits, float scale, float softcap, int window, int dtype,
-                           cudaStream_t stream) {
-  if (b <= 0 || kv <= 0 || n_rep <= 0 || hd <= 0 || page <= 0 || nb <= 0 || splits <= 0 || splits > 65535)
+                           int start, float* lse, cudaStream_t stream) {
+  if (b <= 0 || kv <= 0 || n_rep <= 0 || hd <= 0 || page <= 0 || nb <= 0 || splits <= 0 || splits > 65535 ||
+      start < 0)
     return (int)cudaErrorInvalidValue;
   const long long rows = window > 0 ? std::min((long long)nb * page, (long long)window) : (long long)nb * page;
   if ((long long)splits * CH < rows || (splits > 1 && part == nullptr)) return (int)cudaErrorInvalidValue;
@@ -421,8 +449,8 @@ int paged_attention_decode(const float* q, const void* k, const void* v, const i
   int ng = 1;
   while (n_rep % ng || n_rep / ng > 8) ++ng;
   const int n_grp = n_rep / ng;
-#define PA_GROUP_ARGS q, k, v, tables, lens, out, part, b, kv, ng, n_grp, hd, page, nb, splits, scale, softcap, \
-    window, stream
+#define PA_GROUP_ARGS q, k, v, tables, lens, out, part, lse, b, kv, ng, n_grp, hd, page, nb, splits, scale, \
+    softcap, window, start, stream
   cudaError_t err = dtype == 0   ? by_vec<float>(PA_GROUP_ARGS)
                     : dtype == 1 ? by_vec<__nv_bfloat16>(PA_GROUP_ARGS)
                                  : cudaErrorInvalidValue;

@@ -8,7 +8,11 @@ kernel it replaces, its bound on an H100 and its design: one block per
 an online softmax; with more than one split a second pass of the same C
 entry merges the splits' partial states in a fixed order.  The split count
 (``split_count``) comes from the table's width, the page size and the
-window alone, so the wrapper never reads the lengths on the host.
+window alone, so the wrapper never reads the lengths on the host.  The pool
+may be one block of a longer cache split by sequence (a rank's rows,
+``models/attention``'s placed decode): ``start`` names the block's first
+global row, and the optional log-sum-exp output lets the blocks' partial
+softmaxes be merged exactly (``parallel/fsdp_tp.merge_partials``).
 
 The wrapper checks device, dtypes, shapes and contiguity, runs the plain
 version (``ops.paged_decode_plain``) for CPU tensors and launches the
@@ -63,14 +67,22 @@ def paged_decode_attention(
     scale: float,
     softcap: float = 0.0,
     window: int = 0,
-) -> Tensor:
+    start: int = 0,
+    return_lse: bool = False,
+):
     """One decode step of GQA attention over block-table pages.
 
     q: (B, H, hd) f32; k/v_pages: (P, page, KV, hd) f32 or bf16, H a
     multiple of KV (never head-expanded); block_tables: (B, NB) int32;
-    lens: (B,) int32 valid rows per slot, 1 <= len <= NB * page (rows at ``pos >= len``,
-    and with ``window > 0`` rows at ``pos < len - window``, carry no
-    probability mass).  Returns (B, H, hd) f32.
+    lens: (B,) int32 valid rows per slot (rows at ``pos >= len``, and
+    with ``window > 0`` rows at ``pos < len - window``, carry no
+    probability mass; for a whole cache 1 <= len <= NB * page).  Row t of
+    a slot's table is global row ``pos = start + t`` (``start`` >= 0, 0 for
+    a whole cache, and ``lens`` stay global): the live rows are
+    [max(start, len - window), min(start + NB * page, len)).  Returns
+    (B, H, hd) f32, and with ``return_lse`` also the (B, H) f32 log-sum-exp
+    of the scaled, capped scores of those rows; a slot with none gives out
+    0 and LSE -inf.
     """
     if q.dim() != 3 or k_pages.dim() != 4:
         raise ValueError(f"paged_attention: expected q (B, H, hd) and pages (P, page, KV, hd), got "
@@ -79,9 +91,13 @@ def paged_decode_attention(
     p_total, page, kv, hd_k = k_pages.shape
     if hd_k != hd or h % kv:
         raise ValueError(f"paged_attention: q {tuple(q.shape)} does not match pages {tuple(k_pages.shape)}")
+    start = int(start)
+    if start < 0:
+        raise ValueError(f"paged_attention: start must be >= 0, got {start}")
     if route(q, k_pages, v_pages, block_tables, lens) == "cpu":
         return paged_decode_plain(
-            q, k_pages, v_pages, block_tables, lens, scale=scale, softcap=softcap, window=window
+            q, k_pages, v_pages, block_tables, lens, scale=scale, softcap=softcap, window=window, start=start,
+            return_lse=return_lse,
         )
     n_rep = h // kv
     nb = block_tables.shape[-1]
@@ -95,6 +111,7 @@ def paged_decode_attention(
     if not is_fake(k_pages) and (k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16):
         raise ValueError("paged_attention: page pools must start on a 16-byte boundary (the kernel's vector loads)")
     out = torch.empty((b, h, hd), dtype=torch.float32, device=q.device)
+    lse = torch.empty((b, h), dtype=torch.float32, device=q.device) if return_lse else None
     if b:
         window = int(window or 0)
         splits = split_count(nb, page, window)
@@ -105,10 +122,10 @@ def paged_decode_attention(
         if build.launch(
             FAMILY, "decode", q.device, q, k_pages, v_pages, block_tables, lens, out, part,
             b, kv, n_rep, hd, page, nb, splits, float(scale), float(softcap or 0.0), window,
-            PAGE_DTYPES[k_pages.dtype],
+            PAGE_DTYPES[k_pages.dtype], start, lse,
         ):
             count_launch(paged_decode_attention)
-    return out
+    return (out, lse) if return_lse else out
 
 
 paged_decode_attention.launches = 0

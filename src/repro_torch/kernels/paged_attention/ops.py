@@ -52,13 +52,18 @@ def paged_decode_plain(
     scale: float,
     softcap: float = 0.0,
     window: int = 0,
-) -> Tensor:
+    start: int = 0,
+    return_lse: bool = False,
+):
     """Gather, expand GQA heads (query head h reads kv head h // n_rep) and
     run the masked softmax in f32: what the kernel computes, materialized.
     q: (B, H, hd); pages: (P, page, KV, hd) in any float dtype (upcast per
-    element); returns (B, H, hd) f32."""
+    element); returns (B, H, hd) f32.  The pool may be one block of a
+    longer cache whose row 0 is global row ``start`` (``lens`` global);
+    ``return_lse`` adds the (B, H) f32 log-sum-exp of the block's live
+    scores (-inf, and out 0, where a slot has none): ``ref.paged_decode_ref``."""
     n_rep = q.shape[1] // k_pages.shape[2]
     return R.paged_decode_ref(
         q, _expand_heads(k_pages, n_rep), _expand_heads(v_pages, n_rep), block_tables, lens,
-        scale=scale, softcap=softcap, window=window,
+        scale=scale, softcap=softcap, window=window, start=start, return_lse=return_lse,
     )

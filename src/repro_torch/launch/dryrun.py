@@ -23,9 +23,15 @@ both AdamW moments under the specs' layout, FSDP over ``data``, TP and the
 MoE experts over ``model``, the batch over ``("pod", "data")``), recorded
 as ``"layout": "2d"``; its ``argument_bytes`` then equal
 ``reference_argument_bytes``, what the specs' 2-D layout holds a rank.  The
-prefill and decode cells run the one-device serving steps of
-``train/serve`` on the rank's block of the batch: ``"layout": "dp"``, with
-``reference_argument_bytes`` beside the port's ``argument_bytes``.
+prefill and decode cells of the attention-only archs run the 2-D serving
+steps of ``train/serve`` on the rank's blocks of the parameters
+(``fsdp_tp.place_params``), of the KV caches (``place_caches``: the slots
+over ``("pod", "data")``, the rows over ``model``) and of the prompts:
+``"layout": "2d"`` too, the argument bytes the specs'.  jamba's and
+rwkv6's serving cells (Mamba and RWKV6 state, whose own layout is not
+ported yet) run the one-device steps on the rank's block of the batch:
+``"layout": "dp"``, with ``reference_argument_bytes`` beside the port's
+``argument_bytes``.
 
 ``--device`` defaults to ``cuda`` (fake CUDA tensors: the kernel route, each
 hand-written kernel's launches counted; a machine without CUDA raises, as
@@ -51,7 +57,6 @@ from repro_torch.configs import get_config, list_archs
 from repro_torch.launch import hlo_cost
 from repro_torch.launch import specs as S
 from repro_torch.launch.mesh import _make_mesh, make_production_mesh
-from repro_torch.models.transformer import forward, logits_from_hidden
 from repro_torch.optim.optimizers import adamw, warmup_cosine
 from repro_torch.parallel import fsdp_tp
 from repro_torch.train.serve import make_decode_step, make_prefill_step
@@ -190,10 +195,19 @@ def build_cell(arch: str, shape_name: str, multi_pod: bool, device=None, *, cfg=
         return step, (state, block), meta
 
     caches = S.cache_specs(cfg, shape.global_batch, shape.seq_len, mesh, device=dev)
-    rows = S.local_shape((shape.global_batch,), S._batch_spec(mesh, shape.global_batch))[0]
-    with S.fake_mode():
-        local_caches = S._map_tree(caches, lambda p, t: torch.empty(
-            (t.shape[0], rows) + tuple(t.shape[2:]), dtype=t.dtype, device=t.device))
+    placed = all(spec.mixer == "attn" for spec in cfg.pattern)
+    if placed:
+        # the 2-D serving steps on the rank's blocks of the parameters and
+        # of the KV caches (rows over "model"), the slots over the batch axes
+        meta["layout"] = "2d"
+        with S.fake_mode():
+            step_params, local_caches = fsdp_tp.place_params(params, mesh), fsdp_tp.place_caches(caches, cfg, mesh)
+    else:
+        step_params = params
+        rows = S.local_shape((shape.global_batch,), S._batch_spec(mesh, shape.global_batch))[0]
+        with S.fake_mode():
+            local_caches = S._map_tree(caches, lambda p, t: torch.empty(
+                (t.shape[0], rows) + tuple(t.shape[2:]), dtype=t.dtype, device=t.device))
 
     if shape.kind == "prefill":
         toks = S.batch_specs(cfg, shape, mesh, device=dev)
@@ -203,12 +217,9 @@ def build_cell(arch: str, shape_name: str, multi_pod: bool, device=None, *, cfg=
 
         @torch.no_grad()
         def fn(params, caches, inputs):
-            if "embeds" in inputs:  # a frontend's embeddings: the step's forward, fed them
-                out = forward(params, cfg, caches=caches, cache_len=0, head=False, **inputs)
-                return logits_from_hidden(params, cfg, out.hidden[:, -1:]), out.caches
-            return prefill(params, caches, inputs["tokens"])
+            return prefill(params, caches, **inputs)
 
-        return fn, (params, local_caches, _rank_block(toks, batch_axes, mesh)), meta
+        return fn, (step_params, local_caches, _rank_block(toks, batch_axes, mesh)), meta
 
     # decode: one new token against a seq_len cache
     toks = S.decode_token_specs(cfg, shape.global_batch, mesh, device=dev)
@@ -216,14 +227,20 @@ def build_cell(arch: str, shape_name: str, multi_pod: bool, device=None, *, cfg=
     meta["reference_argument_bytes"] = _local_bytes((params, caches, cache_len, toks))
     decode = make_decode_step(cfg)
 
+    if placed:
+        # the reference's scalar position, a tensor whose value the host
+        # never reads (each rank's write of the new row is masked on the device)
+        @torch.no_grad()
+        def fn(params, caches, cache_len, inputs):
+            return decode(params, caches, cache_len, **inputs)
+
+        return fn, (step_params, local_caches, cache_len, _rank_block(toks, batch_axes, mesh)), meta
+
     @torch.no_grad()
     def fn(params, caches, inputs):
-        if "embeds" in inputs:
-            out = forward(params, cfg, caches=caches, cache_len=shape.seq_len - 1, **inputs)
-            return out.logits[:, 0], out.caches
-        return decode(params, caches, shape.seq_len - 1, inputs["tokens"])
+        return decode(params, caches, shape.seq_len - 1, **inputs)
 
-    return fn, (params, local_caches, _rank_block(toks, batch_axes, mesh)), meta
+    return fn, (step_params, local_caches, _rank_block(toks, batch_axes, mesh)), meta
 
 
 # a train step of more microbatches is analysed at 3 and 4 of them and

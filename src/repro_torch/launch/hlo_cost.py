@@ -430,7 +430,10 @@ class _Recorder(TorchDispatchMode):
             self.n_ops += 1
             self._track(outs)
             if coll is not None:
-                self.coll[coll] += sum(_nbytes(t) for t in outs) * _COLL_FACTOR[coll]
+                # an op that returns only its work handle (``alltoall_base_``)
+                # wrote its result into its first operand
+                moved = outs or [a for a in args[:1] if isinstance(a, Tensor)]
+                self.coll[coll] += sum(_nbytes(t) for t in moved) * _COLL_FACTOR[coll]
             if flop is None and nbytes is None:
                 return out
             flat_args = tree_flatten((args, kwargs))[0]

@@ -13,9 +13,11 @@ Every spec of one process comes from one fake mode (``fake_mode()``), so
 The sharding rules are the reference's, on the port's parameter paths (the
 tree's keys, e.g. ``("blocks", "pos0", "attn", "wq")``): "data" is the FSDP
 axis, "model" the TP / EP axis.  ``parallel/fsdp_tp.place_train_state``
-places a train state by them, and the dense archs' LM step runs on the
-blocks (the 2-D step); ``launch/dryrun`` records what the layout holds
-beside what the port's step holds.
+places a train state by them (the 2-D train step runs on the blocks), and
+``place_params`` / ``place_caches`` place the serving steps' parameters and
+KV caches (``cache_sharding``: the caches' rows over "model");
+``launch/dryrun`` records what the layout holds beside what the port's
+step holds.
 """
 
 from __future__ import annotations
@@ -298,29 +300,35 @@ def decode_token_specs(cfg: ArchConfig, batch: int, mesh, device="cpu") -> Dict[
     return {"tokens": _sds((batch, 1), torch.int32, _batch_spec(mesh, batch, (None,)), device)}
 
 
+def cache_sharding(cfg: ArchConfig, path, shape, mesh) -> NamedSharding:
+    """The placement of the decode-state leaf at ``path`` ((pattern
+    position, leaf name)) of ``shape`` ((stack, batch, ...)): its logical
+    axes (``cache_shardings_logical``; attention KV sequence-split over
+    ``model``) on ``mesh``, the batch unsplit where it does not divide
+    over the batch axes, and the whole leaf where the spec does not
+    divide.  ``cache_specs`` and ``parallel/fsdp_tp.place_caches`` both
+    place by it."""
+    sizes = mesh_sizes(mesh)
+    with sharding_context(mesh):
+        axes = list(cache_shardings_logical(cfg).get(path[0], {}).get(path[-1], (None,) * len(shape)))
+        # batch axis: only shard when divisible
+        n = 1
+        for a in _batch_axes(mesh):
+            n *= sizes[a]
+        batch = shape[1]
+        if "batch" in axes and (batch % n != 0 or batch < n):
+            axes[axes.index("batch")] = None
+        spec = logical_to_spec(axes)
+    if not _divisible(shape, spec, mesh):
+        spec = ()
+    return NamedSharding(mesh, spec)
+
+
 def cache_specs(cfg: ArchConfig, batch: int, max_len: int, mesh, device="cpu"):
     """Decode-state specs; attention KV seq-sharded over model."""
     with fake_mode():
         caches = init_caches(cfg, batch, max_len, device=device)
-    sizes = mesh_sizes(mesh)
-    with sharding_context(mesh):
-        logical = cache_shardings_logical(cfg)
-
-        def place(path, t):
-            pos, name = path[0], path[-1]
-            axes = list(logical.get(pos, {}).get(name, (None,) * t.dim()))
-            # batch axis: only shard when divisible
-            n = 1
-            for a in _batch_axes(mesh):
-                n *= sizes[a]
-            if "batch" in axes and (batch % n != 0 or batch < n):
-                axes[axes.index("batch")] = None
-            spec = logical_to_spec(axes)
-            if not _divisible(t.shape, spec, mesh):
-                spec = ()
-            return _placed(t, NamedSharding(mesh, spec))
-
-        return _map_tree(caches, place)
+    return _map_tree(caches, lambda path, t: _placed(t, cache_sharding(cfg, path, t.shape, mesh)))
 
 
 def scalar_spec(mesh, dtype=torch.int32, device="cpu") -> Tensor:

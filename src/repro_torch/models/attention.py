@@ -12,12 +12,29 @@ work is the causal half and no (S, S) score matrix is built.  It is plain
 PyTorch, as the reference's is plain JAX (no Pallas kernel there); SDPA
 cannot stand in, since it cannot apply gemma's logit softcap.  Qwen2-VL's
 M-RoPE rotates by three position streams ((3, B, S) positions).
+
+On placed parameters and caches (``parallel/fsdp_tp``: heads over
+``model``, each dense cache's rows over ``model``, the reference's
+``kv_seq`` layout) a prefill writes each rank's block of rows and a decode
+attends each rank's rows with the paged-attention kernel and merges the
+ranks' partial softmaxes by their log-sum-exps (``_placed_decode``), where
+the reference's GSPMD partitioner derives the same merge from its sharding
+annotations.
+
+A one-token decode over an unplaced dense cache keeps ``_decode_attention``
+(plain PyTorch on every device, as the reference's dense decode is plain
+JAX with no Pallas kernel).  ``_placed_decode`` on unplaced leaves would do
+the same work through the kernel, but with q in f32 where
+``_decode_attention`` scores in the compute dtype: the dense engine's
+outputs would move, and with them the paged plain route's bit-for-bit
+identity to the dense engine (``_paged_decode``) that the tests and the
+GPU smoke hold.  Merging the two decodes is a planned simplification.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -344,20 +361,27 @@ def _offset_prefill_attention(q, cache_k, cache_v, offset: int, cfg: ArchConfig,
     return _softmax_attend(scores, mask[None, None], v, q.dtype)
 
 
-def _scoring_attention(params, x: Tensor, cfg: ArchConfig, spec: BlockSpec, positions: Tensor,
-                       cache: Optional[Dict[str, Tensor]] = None) -> Tensor:
-    """The forward over the full sequence (a prefill writes k / v into rows
-    [0, S) of ``cache`` first).  On placed blocks (``parallel/fsdp_tp``, the
-    2-D train step) each weight is gathered over ``data``; with ``wo`` split
-    over ``model`` (row-parallel, its output all-reduced over ``model``) a
-    rank computes its q heads where whole q heads fall on each rank, and its
-    kv heads where whole kv heads do too (a rank's q heads then read exactly
-    its kv heads).  A leaf that does not split on a head boundary is
-    gathered over ``model`` and computed whole: whole q heads give whole
-    outputs, of which the rank keeps the columns of its ``wo`` rows; whole
-    kv heads are indexed by the rank's q heads.  A whole leaf passes through
-    every gather."""
-    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+class _Heads(NamedTuple):
+    """How a layer's heads lie on this rank (``_heads``)."""
+
+    tp: bool  # wo split over "model" (row-parallel, its output all-reduced)
+    m: int  # "model" ranks (1 without tp)
+    idx: int  # this rank's index along "model"
+    q_split: bool  # this rank computes its h / m q heads
+    kv_split: bool  # and its kv / m kv heads
+    hl: int  # q heads computed here
+    kvl: int  # kv heads computed here
+    weight: Callable[[str], Tensor]  # the leaf a product reads
+
+
+def _heads(params, cfg: ArchConfig) -> _Heads:
+    """On placed blocks (``parallel/fsdp_tp``) each weight is gathered over
+    ``data``; with ``wo`` split over ``model`` a rank computes its q heads
+    where whole q heads fall on each rank, and its kv heads where whole kv
+    heads do too (a rank's q heads then read exactly its kv heads).  A leaf
+    that does not split on a head boundary is gathered over ``model`` and
+    computed whole.  A whole leaf passes through every gather."""
+    h, kv = cfg.n_heads, cfg.n_kv_heads
     cd = cfg.compute_dtype
     model = fsdp_tp.MODEL
     tp = fsdp_tp.split_over(params["wo"], model)
@@ -365,35 +389,144 @@ def _scoring_attention(params, x: Tensor, cfg: ArchConfig, spec: BlockSpec, posi
     idx = shd.axis_index(model) if tp else 0
     q_split = tp and h % m == 0 and fsdp_tp.split_over(params["wq"], model)
     kv_split = q_split and kv % m == 0 and fsdp_tp.split_over(params["wk"], model)
-    if tp:
-        x = fsdp_tp.enter_tp(x)
     split = {"wq": q_split, "bq": q_split, "wk": kv_split, "bk": kv_split, "wv": kv_split, "bv": kv_split,
              "wo": tp}
 
     def weight(name):
         return fsdp_tp.gather(params[name], model=not split[name], repeated=not tp, tp=tp).to(cd)
 
-    hl = h // m if q_split else h
-    kvl = kv // m if kv_split else kv
-    q, k, v = _project_qkv(params, x, cfg, positions, weight=weight, heads=(hl, kvl))
-    if q_split and not kv_split:
-        # whole kv heads: the ones this rank's q heads read, one a q head
-        sel = torch.div(idx * hl + torch.arange(hl, device=q.device), h // kv, rounding_mode="floor")
-        k, v = k.index_select(2, sel), v.index_select(2, sel)
+    return _Heads(tp, m, idx, q_split, kv_split, h // m if q_split else h, kv // m if kv_split else kv, weight)
+
+
+def _seq_block(cache_k: Tensor) -> Tuple[int, int]:
+    """(model ranks, this rank's index) of a cache layer (B, L, KV, hd)
+    split by sequence over ``model`` (``parallel/fsdp_tp.place_caches``);
+    (1, 0) for a whole one."""
+    if fsdp_tp.split_dim(cache_k, fsdp_tp.MODEL) != 1:
+        return 1, 0
+    return shd.axis_size(fsdp_tp.MODEL), shd.axis_index(fsdp_tp.MODEL)
+
+
+def _write_prefill(cache, k: Tensor, v: Tensor, lay: _Heads) -> None:
+    """Write a prompt's k / v (B, S, heads, hd) into rows [0, S) of the
+    cache, in place.  A cache split by sequence over ``model`` takes this
+    rank's rows [idx Lr, (idx + 1) Lr) of them, all kv heads (an all-to-all
+    over ``model`` where the kv heads are split over it); a later rank's
+    block past the prompt stays unwritten.  A whole cache on split kv heads
+    takes every rank's heads."""
+    ck, cv = cache["k"], cache["v"]
+    ranks, idx = _seq_block(ck)
+    rows = ck.shape[1]
+    if lay.kv_split and ranks == 1 and lay.m > 1:
+        (group,) = shd.axis_groups(fsdp_tp.MODEL)
+        k, v = fsdp_tp.gather_dim(k, 2, group), fsdp_tp.gather_dim(v, 2, group)
+    elif lay.kv_split:
+        k, v = fsdp_tp.all_to_all_heads_to_seq(k, rows), fsdp_tp.all_to_all_heads_to_seq(v, rows)
+    elif ranks > 1:
+        k, v = k[:, idx * rows:(idx + 1) * rows], v[:, idx * rows:(idx + 1) * rows]
+    n = k.shape[1]
+    ck[:, :n] = k
+    cv[:, :n] = v
+
+
+def _scoring_attention(params, x: Tensor, cfg: ArchConfig, spec: BlockSpec, positions: Tensor,
+                       cache: Optional[Dict[str, Tensor]] = None) -> Tensor:
+    """The forward over the full sequence (a prefill writes k / v into rows
+    [0, S) of ``cache`` first, ``_write_prefill``).  On placed blocks
+    (``parallel/fsdp_tp``: the 2-D train step, the placed serving steps)
+    each rank computes the heads ``_heads`` gives it, with ``wo``
+    row-parallel: whole q heads give whole outputs, of which the rank keeps
+    the columns of its ``wo`` rows; whole kv heads are indexed by the
+    rank's q heads."""
+    h, hd = cfg.n_heads, cfg.hd
+    lay = _heads(params, cfg)
+    if lay.tp:
+        x = fsdp_tp.enter_tp(x)
+    q, k, v = _project_qkv(params, x, cfg, positions, weight=lay.weight, heads=(lay.hl, lay.kvl))
     b, s = x.shape[:2]
     if cache is not None:
-        cache["k"][:, :s] = k
-        cache["v"][:, :s] = v
+        _write_prefill(cache, k, v, lay)
+    if lay.q_split and not lay.kv_split:
+        # whole kv heads: the ones this rank's q heads read, one a q head
+        sel = torch.div(lay.idx * lay.hl + torch.arange(lay.hl, device=q.device), h // cfg.n_kv_heads,
+                        rounding_mode="floor")
+        k, v = k.index_select(2, sel), v.index_select(2, sel)
     if s > cfg.attn_chunk_threshold and s % cfg.attn_chunk_size == 0:
         out = _chunked_attention(q, k, v, cfg, spec, cfg.attn_chunk_size)
     else:
         out = _full_attention(q, k, v, cfg, spec)
-    out = out.reshape(b, s, hl * hd)
-    if tp and not q_split:
-        cols = h * hd // m
-        out = out[..., idx * cols:(idx + 1) * cols]
-    out = out @ weight("wo")
-    return fsdp_tp.exit_tp(out) if tp else out
+    out = out.reshape(b, s, lay.hl * hd)
+    return _row_parallel_out(out, lay, h * hd)
+
+
+def _row_parallel_out(out: Tensor, lay: _Heads, width: int) -> Tensor:
+    """``out @ wo``: with ``wo`` split over ``model`` by rows, the columns
+    of ``out`` (whole heads, ``width`` wide, or already this rank's) that
+    meet this rank's rows, the product all-reduced over ``model``."""
+    if lay.tp and out.shape[-1] == width:
+        cols = width // lay.m
+        out = out[..., lay.idx * cols:(lay.idx + 1) * cols]
+    out = out @ lay.weight("wo")
+    return fsdp_tp.exit_tp(out) if lay.tp else out
+
+
+def _placed_decode(params, x: Tensor, cfg: ArchConfig, spec: BlockSpec, positions: Tensor, cache, cache_len):
+    """Single-token decode on placed blocks and a dense cache split by
+    sequence over ``model`` (flash-decoding).  The rank whose block holds
+    row ``cache_len`` (per slot where it is (B,)) writes the new token's k
+    / v, every kv head; each rank attends its rows for every q head (q
+    all-gathered over ``model`` where the heads are split) with the
+    paged-attention kernel on its block viewed as one page a slot (no
+    copy; the plain version for CPU tensors), which also returns the
+    block's log-sum-exp; the ranks' (out, LSE) are all-gathered and merged
+    exactly (``fsdp_tp.merge_partials``), and the rank finishes with the
+    columns of its ``wo`` rows.  Positions stay global."""
+    h, hd = cfg.n_heads, cfg.hd
+    lay = _heads(params, cfg)
+    if lay.tp:
+        x = fsdp_tp.enter_tp(x)
+    q, k, v = _project_qkv(params, x, cfg, positions, weight=lay.weight, heads=(lay.hl, lay.kvl))
+    if lay.m > 1 and (lay.q_split or lay.kv_split):
+        (group,) = shd.axis_groups(fsdp_tp.MODEL)
+        q = fsdp_tp.gather_dim(q, 2, group) if lay.q_split else q  # every q head
+        if lay.kv_split:  # the new token's every kv head
+            k, v = fsdp_tp.gather_dim(k, 2, group), fsdp_tp.gather_dim(v, 2, group)
+    ck, cv = cache["k"], cache["v"]
+    ranks, idx = _seq_block(ck)
+    b, rows = ck.shape[:2]
+    start = idx * rows
+    kw, vw = k[:, 0].to(ck.dtype), v[:, 0].to(cv.dtype)
+    if torch.is_tensor(cache_len):
+        # per slot ((B,), or a 0-d tensor for every slot): no host read
+        local = cache_len.long().reshape(-1).expand(b) - start
+        own = ((local >= 0) & (local < rows))[:, None, None]
+        lanes = torch.arange(b, device=x.device)
+        at = local.clamp(0, rows - 1)
+        # a slot whose row lies on another rank rewrites the row it reads
+        ck[lanes, at] = torch.where(own, kw, ck[lanes, at])
+        cv[lanes, at] = torch.where(own, vw, cv[lanes, at])
+        lens = (local + (start + 1)).to(torch.int32)
+    else:
+        pos = int(cache_len)
+        if start <= pos < start + rows:
+            ck[:, pos - start] = kw
+            cv[:, pos - start] = vw
+        lens = torch.full((b,), pos + 1, dtype=torch.int32, device=x.device)
+    tables = torch.arange(b, dtype=torch.int32, device=x.device)[:, None]
+    res = paged_decode_attention(
+        q[:, 0].float().contiguous(), ck, cv, tables, lens,
+        scale=_scale(cfg, hd),
+        softcap=cfg.attn_softcap or 0.0,
+        window=cfg.window_size if spec.attn_type == "local" else 0,
+        start=start, return_lse=ranks > 1,
+    )
+    if ranks > 1:
+        out, lse = res
+        out = fsdp_tp.merge_partials(fsdp_tp.gather_blocks(out), fsdp_tp.gather_blocks(lse))
+    else:
+        out = res
+    out = out.to(q.dtype).reshape(b, 1, h * hd)
+    return _row_parallel_out(out, lay, h * hd)
 
 
 # ---------------------------------------------------------------------------
@@ -425,11 +558,19 @@ def attn_apply(
       already written (incremental prefill).
 
     The scoring forward and the prefill take ``_scoring_attention``, which
-    also runs placed blocks (``parallel/fsdp_tp``, the 2-D train step).
+    also runs placed blocks (``parallel/fsdp_tp``: the 2-D train step, the
+    placed prefill); a one-token decode on placed blocks or a placed dense
+    cache takes ``_placed_decode``.
     """
     b, s, _ = x.shape
     if cache is None or (s > 1 and not chunked):
         return _scoring_attention(params, x, cfg, spec, positions, cache), cache
+    placed = fsdp_tp.placement(params["wo"]) is not None
+    if s == 1 and "k" in cache and (placed or fsdp_tp.placement(cache["k"]) is not None):
+        return _placed_decode(params, x, cfg, spec, positions, cache, cache_len), cache
+    if placed:
+        raise ValueError("placed parameters serve from dense caches (prefill and one-token decode): "
+                         "the paged and chunked paths take whole ones")
     h, hd = cfg.n_heads, cfg.hd
     cd = cfg.compute_dtype
     q, k, v = _project_qkv(params, x, cfg, positions)

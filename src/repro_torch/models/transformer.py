@@ -215,6 +215,13 @@ def layer_params(params: Dict[str, Any], name: str, r: int) -> Dict[str, Any]:
 # ---------------------------------------------------------------------------
 
 
+def layer_caches(caches: Dict[str, Any], name: str, r: int) -> Dict[str, Tensor]:
+    """Views of layer ``r`` of pattern position ``name``'s cache leaves (no
+    copies; written in place); a placed block's view carries its placement
+    (``parallel/fsdp_tp.place_caches``)."""
+    return {k: fsdp_tp.layer_view(v, v[r]) for k, v in caches[name].items()}
+
+
 def _position_cache(cfg: ArchConfig, spec: BlockSpec, batch: int, device) -> Dict[str, Tensor]:
     """A recurrent position's per-slot state (None for attention)."""
     if spec.mixer == "mamba":
@@ -437,7 +444,7 @@ def forward(
     for r in range(cfg.repeats):
         for pos, spec in enumerate(cfg.pattern):
             name = f"pos{pos}"
-            cache = None if caches is None else {k: v[r] for k, v in caches[name].items()}
+            cache = None if caches is None else layer_caches(caches, name, r)
             x, new, a = block(
                 layer_params(params, name, r), x, cfg, spec, positions, cache, cache_len, block_tables, impl,
                 chunked_prefill,

@@ -40,6 +40,19 @@ head, ``models/moe``'s experts, ``models/ssm``'s Mamba channels and RWKV6
 heads) reads ``placement``; a tensor without one is a whole leaf.  Every
 arch of ``configs`` runs this layout.
 
+Serving runs the same layout without gradients (``torch.no_grad``):
+``place_params`` places the parameters alone and ``place_caches`` each
+dense KV cache by ``models/transformer.cache_shardings_logical`` (the
+batch over ``("pod", "data")``, the sequence over ``model``), so a
+``model`` rank holds rows [idx Lr, (idx + 1) Lr) of every slot, all kv
+heads.  A prefill moves its k / v rows to their ranks
+(``all_to_all_heads_to_seq`` where the kv heads are split over ``model``),
+and a decode attends each rank's rows and merges the ranks' partial
+softmaxes exactly (``merge_partials``, after an all-gather of each block's
+output and log-sum-exp): flash-decoding, the merge GSPMD derives for the
+reference's sequence-split softmax (``models/attention``).  These
+collectives are forward-only and skip an axis of size 1.
+
 Inside a TP region (its input entered with ``enter_tp``) every value is a
 share of the region's output, which ``exit_tp`` sums: a leaf the region
 reads whole gets ``gather(..., tp=True)`` (its share's gradient summed over
@@ -262,6 +275,103 @@ def vocab_start(w: Tensor, transpose: bool) -> Optional[int]:
 
 def _shard_groups(sharding: NamedSharding):
     return tuple(sharding.mesh.get_group(name) for e in sharding.spec if e is not None for name in _names(e))
+
+
+def _placed_leaf(x: Tensor, sharding: NamedSharding) -> Tensor:
+    """This rank's block of ``x`` under ``sharding``: a new tensor object
+    (sharing ``x``'s storage where the block is the whole leaf) carrying
+    ``placement`` and ``shard_groups``, so ``x`` itself stays unplaced.  A
+    block of leading rows (a contiguous view) is copied out, so that it
+    holds only its own bytes."""
+    block = sharding.local(x.detach())
+    if block.untyped_storage().nbytes() > block.numel() * block.element_size():
+        block = block.clone()
+    block.placement = sharding
+    block.shard_groups = _shard_groups(sharding)
+    return block
+
+
+def place_params(params: Dict, mesh) -> Dict:
+    """This rank's block of every leaf of the parameter tree ``params``
+    (``init_params`` / ``params_from_jax``) under ``launch/specs.
+    param_sharding`` on ``mesh``: the parameter half of
+    ``place_train_state``, for the serving steps (``train/serve``), which
+    follow the blocks' placements.  ``params`` stays as it was."""
+    from repro_torch.launch.specs import _map_tree, param_sharding
+
+    return _map_tree(params, lambda path, x: _placed_leaf(x, param_sharding(path, x, mesh)))
+
+
+def place_caches(caches: Dict, cfg, mesh) -> Dict:
+    """This rank's block of every leaf of the dense decode state ``caches``
+    (``models.init_caches``, every slot) under ``launch/specs.
+    cache_sharding``: an attention cache's slots over ``("pod", "data")``
+    and its rows over ``model``; the batch stays whole where it does not
+    split over the batch axes, and a leaf whose split does not divide stays
+    whole.  A block that is the whole leaf shares its storage: use only the
+    placed caches afterwards (the steps write them in place)."""
+    from repro_torch.launch.specs import _map_tree, cache_sharding
+
+    return _map_tree(caches, lambda path, x: _placed_leaf(x, cache_sharding(cfg, path, x.shape, mesh)))
+
+
+def tree_mesh(tree):
+    """The mesh of the first placed leaf of ``tree`` (a dict of tensors), or None."""
+    for v in tree.values():
+        found = tree_mesh(v) if isinstance(v, dict) else getattr(placement(v), "mesh", None)
+        if found is not None:
+            return found
+    return None
+
+
+# ---------------------------------------------------------------------------
+# Serving collectives (forward only)
+# ---------------------------------------------------------------------------
+
+
+def all_to_all_heads_to_seq(x: Tensor, rows: int, axis: str = MODEL) -> Tensor:
+    """(B, S, h, hd), this rank's h heads of rows [0, S) -> (B, n, m h, hd):
+    every rank's heads (in rank order) of this rank's sequence block, rows
+    [idx rows, idx rows + n) with n = min(rows, S - idx rows) (0 past the
+    prompt), over ``axis`` (m ranks, this rank idx).  S <= m rows: the
+    prompt is padded to m blocks of ``rows`` and every rank sends block j
+    to rank j.  Forward only."""
+    m, idx = shd.axis_size(axis), shd.axis_index(axis)
+    n = max(0, min(rows, x.shape[1] - idx * rows))
+    if m == 1:
+        return x[:, :n]
+    b, s, h, hd = x.shape
+    if s > m * rows:
+        raise ValueError(f"{s} rows do not fit {m} blocks of {rows}")
+    pad = x.new_zeros((b, m * rows, h, hd))
+    pad[:, :s] = x
+    send = pad.reshape(b, m, rows, h, hd).movedim(1, 0).contiguous()  # (m, B, rows, h, hd)
+    recv = torch.empty_like(send)  # (source rank, B, rows, h, hd)
+    (group,) = shd.axis_groups(axis)
+    dist.all_to_all_single(recv, send, group=group)
+    return recv.permute(1, 2, 0, 3, 4).reshape(b, rows, m * h, hd)[:, :n]
+
+
+def gather_blocks(x: Tensor, axis: str = MODEL) -> Tensor:
+    """(m, *x.shape): every rank's ``x`` over ``axis``, stacked in rank
+    order (``x[None]`` on an axis of size 1).  Forward only."""
+    if shd.axis_size(axis) == 1:
+        return x[None]
+    (group,) = shd.axis_groups(axis)
+    return gather_dim(x[None], 0, group)
+
+
+def merge_partials(out: Tensor, lse: Tensor) -> Tensor:
+    """The softmax-weighted sum of m blocks' partial attention outputs:
+    ``out`` (m, B, H, hd), each block's softmax over its own rows, and
+    ``lse`` (m, B, H), the log-sum-exp of its scores (-inf for a block
+    with no live row): out = sum_k e^(lse_k - M) out_k / sum_k e^(lse_k -
+    M), M = max_k lse_k — the softmax over every block's rows at once."""
+    big = lse.amax(dim=0)
+    big = torch.where(torch.isfinite(big), big, torch.zeros_like(big))
+    w = torch.exp(lse - big)  # (m, B, H): 0 for an empty block
+    total = w.sum(dim=0)
+    return (out * w[..., None]).sum(dim=0) / torch.clamp(total, min=1e-30)[..., None]
 
 
 def place_train_state(state, mesh):

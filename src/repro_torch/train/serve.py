@@ -13,25 +13,85 @@ functions return the caches they were handed, written in place.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.models.common import ArchConfig
-from repro_torch.models.transformer import forward, init_caches, is_paged, logits_from_hidden
+from repro_torch.models.transformer import forward, init_caches, is_paged, logits_from_hidden, vocab_start
+from repro_torch.parallel import fsdp_tp
+from repro_torch.parallel import sharding as shd
 
 Tensor = torch.Tensor
 
 
-def make_prefill_step(cfg: ArchConfig):
-    """Prefill (B, S) prompts ((B, S, n_codebooks) codes for audio) from
-    row 0; returns (last-row logits (B, 1, V), caches).  Only the last row
-    goes through the LM head."""
+def _placed_layout(cfg: ArchConfig, params, caches):
+    """(mesh, the axes a cache's slots split over or None) where ``params``
+    or ``caches`` are placed blocks (``parallel/fsdp_tp.place_params`` /
+    ``place_caches``), else None."""
+    mesh = fsdp_tp.tree_mesh(params) or fsdp_tp.tree_mesh(caches or {})
+    if mesh is None:
+        return None
+    if any(spec.mixer != "attn" for spec in cfg.pattern):
+        raise NotImplementedError(f"{cfg.name}: the placed serving steps run attention-only patterns "
+                                  "(Mamba / RWKV6 state keeps the data-parallel layout)")
+    axes = None
+    for leafs in (caches or {}).values():
+        pl = fsdp_tp.placement(leafs["k"]) if "k" in leafs else None
+        if pl is not None and len(pl.spec) > 1:
+            axes = pl.spec[1]
+            break
+    return mesh, axes
 
-    def prefill(params, caches, tokens, impl=None):
-        out = forward(params, cfg, tokens, caches=caches, cache_len=0, impl=impl, head=False)
-        return logits_from_hidden(params, cfg, out.hidden[:, -1:]), out.caches
+
+@contextlib.contextmanager
+def _serving(layout):
+    """What a placed step runs under: no gradients, the blocks' mesh, and
+    the slots' batch axes as the data-parallel axis (an MoE layer routes
+    the whole batch, as GSPMD does the reference's global array)."""
+    if layout is None:
+        yield
+        return
+    mesh, axes = layout
+    with torch.no_grad(), shd.sharding_context(mesh) if mesh is not shd.current_mesh() else contextlib.nullcontext():
+        with shd.data_parallel(axes):
+            yield
+
+
+def _whole_vocab(params, cfg: ArchConfig, logits: Tensor) -> Tensor:
+    """Logits of every vocabulary column: a placed head split over
+    ``model`` gives this rank's columns of the flat (n_codebooks x)
+    vocabulary, all-gathered here (audio: reshaped to (…, n_codebooks, V));
+    a whole head's logits pass through."""
+    if vocab_start(params, cfg) is None:
+        return logits
+    if shd.axis_size(fsdp_tp.MODEL) > 1:
+        (group,) = shd.axis_groups(fsdp_tp.MODEL)
+        logits = fsdp_tp.gather_dim(logits, logits.dim() - 1, group)
+    if cfg.frontend == "audio_codes":
+        logits = logits.reshape(*logits.shape[:-1], cfg.n_codebooks, cfg.vocab_size)
+    return logits
+
+
+def make_prefill_step(cfg: ArchConfig):
+    """Prefill (B, S) prompts ((B, S, n_codebooks) codes for audio; or
+    (B, S, d) ``embeds`` and M-RoPE ``positions`` for a vision frontend)
+    from row 0; returns (last-row logits (B, 1, V), caches).  Only the last
+    row goes through the LM head.
+
+    On placed blocks (``parallel/fsdp_tp.place_params`` and
+    ``place_caches``: the reference's 2-D serving layout) each rank passes
+    its block of the prompts (its slots of the caches' batch axes) and gets
+    its slots' logits over the whole vocabulary."""
+
+    def prefill(params, caches, tokens=None, impl=None, *, embeds=None, positions=None):
+        layout = _placed_layout(cfg, params, caches)
+        with _serving(layout):
+            out = forward(params, cfg, tokens, positions=positions, caches=caches, cache_len=0, impl=impl,
+                          head=False, embeds=embeds)
+            return _whole_vocab(params, cfg, logits_from_hidden(params, cfg, out.hidden[:, -1:])), out.caches
 
     return prefill
 
@@ -43,14 +103,24 @@ def make_decode_step(cfg: ArchConfig, return_hidden: bool = False):
     attention path when the caches are page pools; ``impl`` picks its route
     (``models.attention.use_kernel``).  With ``return_hidden`` the step also
     yields the final hidden state of the new token — the decorrelation
-    probe's sampling target for in-flight slots."""
+    probe's sampling target for in-flight slots.  A vision frontend passes
+    ``embeds`` (B, 1, d) and ``positions`` (3, B, 1).
 
-    def decode(params, caches, cache_len, tokens, block_tables=None, impl=None):
-        out = forward(params, cfg, tokens, caches=caches, cache_len=cache_len,
-                      block_tables=block_tables, impl=impl)
+    On placed blocks (see ``make_prefill_step``) each rank passes its slots'
+    tokens and global ``cache_len``; every rank attends its rows of the
+    dense caches and the ranks' partial softmaxes are merged
+    (``models/attention._placed_decode``)."""
+
+    def decode(params, caches, cache_len, tokens=None, block_tables=None, impl=None, *, embeds=None,
+               positions=None):
+        layout = _placed_layout(cfg, params, caches)
+        with _serving(layout):
+            out = forward(params, cfg, tokens, positions=positions, caches=caches, cache_len=cache_len,
+                          block_tables=block_tables, impl=impl, embeds=embeds)
+            logits = _whole_vocab(params, cfg, out.logits[:, 0])
         if return_hidden:
-            return out.logits[:, 0], out.hidden[:, 0], out.caches
-        return out.logits[:, 0], out.caches
+            return logits, out.hidden[:, 0], out.caches
+        return logits, out.caches
 
     return decode
 

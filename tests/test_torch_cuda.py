@@ -360,6 +360,56 @@ def test_paged_attention_split_edges_match_plain(dev, dtype, h, kv, hd, page, le
     assert torch.equal(K.paged_decode_attention(q, kp, vp, table, lens_t, **kw), got)
 
 
+# a dense (B, L, KV, hd) cache split into blocks of rows, one page a slot
+# (the placed decode's view): blocks of 512 rows (two chunks each) and of
+# 64, a window crossing blocks, slots whose blocks are all empty past their
+# length, n_rep 1 and 2
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize(
+    "h,kv,hd,rows,blocks,lens,softcap,window",
+    [(8, 4, 256, 512, 4, [1, 300, 1025, 2048, 700, 1500], 50.0, 0),
+     (8, 4, 256, 512, 4, [1, 300, 1025, 2048, 700, 1500], 50.0, 600),
+     (4, 4, 128, 64, 8, [1, 64, 65, 200, 512, 3], 0.0, 100)],
+    ids=["global-nrep2", "window-nrep2", "small-blocks-nrep1"],
+)
+def test_paged_attention_blocks_with_start_and_lse_match_plain(dev, dtype, h, kv, hd, rows, blocks, lens, softcap,
+                                                               window):
+    from repro_torch.kernels.paged_attention import kernel as K
+    from repro_torch.kernels.paged_attention.ops import paged_decode_plain
+    from repro_torch.parallel.fsdp_tp import merge_partials
+
+    b = len(lens)
+    gen = torch.Generator().manual_seed(3)
+    q = torch.randn(b, h, hd, generator=gen).to(dev)
+    k = torch.randn(b, rows * blocks, kv, hd, generator=gen).to(dtype).to(dev)
+    v = torch.randn(b, rows * blocks, kv, hd, generator=gen).to(dtype).to(dev)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+    table = torch.arange(b, dtype=torch.int32, device=dev)[:, None]
+    kw = dict(scale=hd ** -0.5, softcap=softcap, window=window)
+    outs, lses = [], []
+    for i in range(blocks):
+        kb = k[:, i * rows:(i + 1) * rows].contiguous()
+        vb = v[:, i * rows:(i + 1) * rows].contiguous()
+        before = K.paged_decode_attention.launches
+        out, lse = K.paged_decode_attention(q, kb, vb, table, lens_t, start=i * rows, return_lse=True, **kw)
+        want, want_lse = paged_decode_plain(q, kb, vb, table, lens_t, start=i * rows, return_lse=True, **kw)
+        torch.cuda.synchronize()
+        assert K.paged_decode_attention.launches == before + 1
+        tol = 2e-4 * max(1.0, float(want.abs().max()))
+        torch.testing.assert_close(out, want, rtol=0.0, atol=tol)
+        empty = torch.isinf(want_lse)
+        assert torch.equal(torch.isinf(lse), empty) and bool((lse[empty] < 0).all())
+        assert bool((out[empty] == 0).all())
+        if bool((~empty).any()):  # a block past every slot's length has no live row at all
+            torch.testing.assert_close(lse[~empty], want_lse[~empty], rtol=0.0,
+                                       atol=2e-4 * max(1.0, float(want_lse[~empty].abs().max())))
+        outs.append(out)
+        lses.append(lse)
+    whole = paged_decode_plain(q, k.contiguous(), v.contiguous(), table, lens_t, **kw)
+    got = merge_partials(torch.stack(outs), torch.stack(lses))
+    torch.testing.assert_close(got, whole, rtol=0.0, atol=2e-4 * max(1.0, float(whole.abs().max())))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("softcap,window", [(30.0, 0), (50.0, 0), (50.0, 9)])
 def test_paged_attention_softcap_at_large_scores(dev, dtype, softcap, window):

@@ -17,8 +17,11 @@
   arithmetic; every train cell, dense or MoE, runs the 2-D step
   (``"layout": "2d"``, ``argument_bytes`` equal to
   ``reference_argument_bytes``), on a multi-pod mesh too, the batch over
-  ``("pod", "data")``; the serving cells ``"dp"``; one full-width cell
-  (gemma2-2b ``decode_32k``, single mesh) in under 60 s.
+  ``("pod", "data")``; every prefill / decode cell of the eight
+  attention-only archs runs the 2-D serving steps on (2, 2) and (1, 4)
+  (``"layout": "2d"``, the argument bytes the specs'), jamba's and rwkv6's
+  the one-device steps (``"dp"``); one full-width cell (gemma2-2b
+  ``decode_32k``, single mesh, 2-D) in under 60 s.
 * ``VARIANTS``: the reference's names, every override a field of the
   port's ``ArchConfig``; ``baseline`` < ``decorr_sum`` in FLOPs.
 """
@@ -202,11 +205,33 @@ print(json.dumps(out))
 """
 
 
-def _run(code: str, env_extra=None, timeout=600):
+# every serving cell of some archs on (2, 2) and (1, 4), reduced: {arch: {cell: record's layout and bytes}}
+SERVE_CELLS = r"""
+import json, sys
+from repro_torch.configs import get_config
+from repro_torch.launch import dryrun
+out = {}
+for arch in sys.argv[1:]:
+    for shape in ("prefill_32k", "decode_32k"):
+        for mesh in ((2, 2), (1, 4)):
+            rec = dryrun.run_cell(arch, shape, False, device="cpu", cfg=get_config(arch).reduced(), mesh_shape=mesh)
+            out.setdefault(arch, {})[f"{shape}/{mesh[0]}x{mesh[1]}"] = {
+                k: rec.get(k) for k in ("status", "layout", "reference_argument_bytes", "collectives", "traceback")}
+            out[arch][f"{shape}/{mesh[0]}x{mesh[1]}"]["memory"] = rec.get("memory")
+print(json.dumps(out))
+"""
+# the attention-only archs, whose serving cells run the 2-D steps, in the
+# subprocesses they share; the recurrent archs' cells stay data-parallel
+SERVE_2D = (("gemma2-2b", "nemotron-4-340b"), ("codeqwen1.5-7b", "musicgen-large"),
+            ("qwen2-vl-2b", "qwen1.5-110b"), ("llama4-scout-17b-a16e", "arctic-480b"))
+SERVE_DP = ("jamba-v0.1-52b", "rwkv6-3b")
+
+
+def _run(code: str, env_extra=None, timeout=600, args=()):
     env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu", **(env_extra or {}))
     env.pop("XLA_FLAGS", None)
-    return subprocess.Popen([sys.executable, "-c", code], env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                            text=True)
+    return subprocess.Popen([sys.executable, "-c", code, *args], env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
 
 
 def _result(proc, timeout=600):
@@ -220,6 +245,10 @@ def jobs():
     """Every subprocess at once: the reference's and the port's specs on the
     production meshes, the port's cells and variants."""
     procs = {"ref": _run(REF_SPECS), "port": _run(PORT_SPECS), "cells": _run(CELLS)}
+    for i, archs in enumerate(SERVE_2D):
+        procs[f"serve{i}"] = _run(SERVE_CELLS, args=archs)
+    procs["serve_dp"] = _run(SERVE_CELLS.replace('("prefill_32k", "decode_32k")', '("decode_32k",)'),
+                             args=SERVE_DP)
     return {k: _result(p) for k, p in procs.items()}
 
 
@@ -369,7 +398,7 @@ def test_run_cell_records_the_reference_keys_and_bytes(jobs):
     for rec in cells[:-2]:
         assert rec["status"] == "ok", rec.get("traceback")
         assert REF_RECORD_KEYS <= set(rec), REF_RECORD_KEYS - set(rec)
-        layout = "2d" if rec["shape"] == "train_4k" else "dp"
+        layout = "2d" if rec["shape"] == "train_4k" or rec["arch"] not in SERVE_DP else "dp"
         assert rec["layout"] == layout and rec["n_devices"] == 4 and rec["mesh_shape"] == sizes
         assert set(rec["memory"]) == {"argument_bytes", "output_bytes", "temp_bytes", "alias_bytes"}
         assert rec["kernel_launches"] == {}  # the plain route
@@ -395,13 +424,18 @@ def test_run_cell_records_the_reference_keys_and_bytes(jobs):
     assert moe["memory"]["alias_bytes"] == state_moe
     assert min(moe["collectives"][k] for k in ("all-gather", "reduce-scatter", "all-reduce")) > 0
 
-    # gemma2 decode: parameters whole, the rank's 64 of 128 cache rows and tokens
-    n = _param_elems(cfg)
+    # gemma2 decode, the 2-D step: the rank's parameter blocks, its 64 of
+    # 128 slots of the cache and half their rows (the sequence over
+    # model), its 64 tokens and the position
     dec = by[("gemma2-2b", "decode_32k", "pod2x2")]
     kv = cfg.repeats * 64 * 32768 * cfg.n_kv_heads * cfg.hd * 4 * 2 * len(cfg.pattern)
-    assert dec["memory"]["argument_bytes"] == 4 * n + kv + 64 * 4
-    # the reference layout: rows over data, the cache's sequence over model
-    assert dec["reference_argument_bytes"] == _reference_layout_bytes(cfg, sizes) + kv // 2 + 64 * 4 + 4
+    want = _reference_layout_bytes(cfg, sizes) + kv // 2 + 64 * 4 + 4
+    assert dec["memory"]["argument_bytes"] == dec["reference_argument_bytes"] == want
+    # the merge's all-gathers and the TP all-reduces over model
+    assert min(dec["collectives"][k] for k in ("all-gather", "all-reduce")) > 0
+    # rwkv6's long_500k stays data-parallel: its parameters whole
+    long = by[("rwkv6-3b", "long_500k", "pod2x2")]
+    assert long["memory"]["argument_bytes"] > long["reference_argument_bytes"]
 
     # the multi-pod train cells: the batch over ("pod", "data"), the 2-D step
     for arch in ("gemma2-2b", "llama4-scout-17b-a16e"):
@@ -426,8 +460,45 @@ def test_one_full_width_cell_within_a_minute(jobs):
     assert rec["status"] == "ok", rec.get("traceback")
     assert secs < 60.0
     assert rec["n_devices"] == 256 and rec["mesh_shape"] == {"data": 16, "model": 16}
-    assert rec["memory"]["argument_bytes"] > rec["reference_argument_bytes"] > 0
+    assert rec["layout"] == "2d"
+    assert rec["memory"]["argument_bytes"] == rec["reference_argument_bytes"] > 0
     assert rec["roofline"]["dominant"] == "memory"
+
+
+def _serve_cells(jobs):
+    out = {}
+    for k, v in jobs.items():
+        if k.startswith("serve"):
+            out.update(v)
+    return out
+
+
+@pytest.mark.parametrize("arch", [a for pair in SERVE_2D for a in pair])
+def test_serving_cells_run_the_2d_steps(jobs, arch):
+    """Every prefill / decode cell of the attention-only archs, on (2, 2)
+    and (1, 4): the 2-D serving steps, holding what the specs' layout holds
+    a rank; where the kv heads split over model (2 reduced kv heads on (2,
+    2)) the prefill moves its rows by an all-to-all."""
+    cells = _serve_cells(jobs)[arch]
+    assert set(cells) == {f"{s}/{m}" for s in ("prefill_32k", "decode_32k") for m in ("2x2", "1x4")}
+    for name, rec in cells.items():
+        assert rec["status"] == "ok", (name, rec["traceback"])
+        assert rec["layout"] == "2d", name
+        assert rec["memory"]["argument_bytes"] == rec["reference_argument_bytes"] > 0, name
+    assert cells["prefill_32k/2x2"]["collectives"]["all-to-all"] > 0
+    assert cells["prefill_32k/1x4"]["collectives"]["all-to-all"] == 0  # 2 kv heads on 4 ranks: computed whole
+
+
+@pytest.mark.parametrize("arch", SERVE_DP)
+def test_recurrent_serving_cells_stay_data_parallel(jobs, arch):
+    """jamba's and rwkv6's serving cells (Mamba / RWKV6 state) run the
+    one-device steps on the rank's slots: ``"dp"``, more bytes than the
+    specs' layout holds."""
+    for mesh in ("2x2", "1x4"):
+        rec = _serve_cells(jobs)[arch][f"decode_32k/{mesh}"]
+        assert rec["status"] == "ok", rec["traceback"]
+        assert rec["layout"] == "dp"
+        assert rec["memory"]["argument_bytes"] > rec["reference_argument_bytes"] > 0
 
 
 # ---------------------------------------------------------------------------

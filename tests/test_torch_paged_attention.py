@@ -13,6 +13,14 @@ its scratch) and counts the launches, alone and inside the paged engine.
 The split count is shown to come from the table's sizes and the window
 alone, and the kernel's merge of per-chunk softmax states (empty chunks
 included) to equal the plain masked softmax.
+
+A dense cache split by sequence into blocks (a rank's rows of the placed
+decode): ``paged_decode_plain`` on each block with its ``start`` and its
+log-sum-exp, merged by ``parallel/fsdp_tp.merge_partials``, equals the
+reference's Pallas kernel (interpret mode) over the whole cache as pages and
+the reference model's ``_decode_attention`` (windowed and global layers,
+blocks with no live row, n_rep 1 and 2); the wrapper's CUDA branch passes
+``start`` and the LSE buffer to the C entry.
 """
 
 import numpy as np
@@ -23,10 +31,12 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels.paged_attention import ops as rops  # noqa: E402
+from repro.kernels.paged_attention.kernel import paged_decode_kernel_call  # noqa: E402
 from repro_torch import kernels  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.paged_attention import kernel as K  # noqa: E402
 from repro_torch.kernels.paged_attention.ops import paged_decode_plain  # noqa: E402
+from repro_torch.parallel.fsdp_tp import merge_partials  # noqa: E402
 
 CASES = [(0.0, 0), (30.0, 0), (0.0, 7), (50.0, 9)]
 
@@ -84,8 +94,9 @@ def test_wrapper_cpu_route_is_the_plain_version_and_counts_nothing():
 
 def _fake_launch(family, name, device, *args):
     assert (family, name) == ("paged_attention", "decode")
-    q, kp, vp, tables, lens, out, part, b, kv, n_rep, hd, page, nb, splits, scale, softcap, window, code = args
-    assert all(isinstance(v, int) for v in (b, kv, n_rep, hd, page, nb, splits, window, code))
+    (q, kp, vp, tables, lens, out, part, b, kv, n_rep, hd, page, nb, splits, scale, softcap, window, code, start,
+     lse) = args
+    assert all(isinstance(v, int) for v in (b, kv, n_rep, hd, page, nb, splits, window, code, start))
     assert isinstance(scale, float) and isinstance(softcap, float)
     # enough CHUNK-row splits for the most live rows a slot can hold, and the
     # partial states' scratch exactly where there is more than one
@@ -102,7 +113,14 @@ def _fake_launch(family, name, device, *args):
     assert tables.dtype == lens.dtype == torch.int32 and tables.shape == (b, nb) and lens.shape == (b,)
     assert tables.is_contiguous() and lens.is_contiguous()
     assert out.dtype == torch.float32 and out.shape == q.shape
-    out.copy_(paged_decode_plain(q, kp, vp, tables, lens, scale=scale, softcap=softcap, window=window))
+    kw = dict(scale=scale, softcap=softcap, window=window, start=start)
+    if lse is None:
+        out.copy_(paged_decode_plain(q, kp, vp, tables, lens, **kw))
+    else:
+        assert lse.dtype == torch.float32 and lse.shape == q.shape[:2] and lse.is_contiguous()
+        got, got_lse = paged_decode_plain(q, kp, vp, tables, lens, return_lse=True, **kw)
+        out.copy_(got)
+        lse.copy_(got_lse)
     return True  # launched: the wrapper counts it
 
 
@@ -254,3 +272,104 @@ def test_paged_engine_kernel_route_launches_once_per_layer_per_tick(cuda_branch)
     assert ticks["plain"][1] == 0
     for a, b in zip(outs["kernel"], outs["plain"]):
         np.testing.assert_array_equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# a cache split by sequence: blocks with their start and log-sum-exp
+# ---------------------------------------------------------------------------
+
+
+def _dense(seed, b, h, kv, hd, length):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, h, hd)).astype(np.float32)
+    k = rng.standard_normal((b, length, kv, hd)).astype(np.float32)
+    v = rng.standard_normal((b, length, kv, hd)).astype(np.float32)
+    return q, k, v
+
+
+def _blocks_merged(q, k, v, lens, blocks, **kw):
+    """Each block of rows a one-page-a-slot pool with its start and LSE,
+    merged; and the blocks' LSEs."""
+    b, length = k.shape[:2]
+    rows = length // blocks
+    table = torch.arange(b, dtype=torch.int32)[:, None]
+    outs, lses = [], []
+    for i in range(blocks):
+        out, lse = paged_decode_plain(q, k[:, i * rows:(i + 1) * rows].contiguous(),
+                                      v[:, i * rows:(i + 1) * rows].contiguous(), table, lens,
+                                      start=i * rows, return_lse=True, **kw)
+        outs.append(out)
+        lses.append(lse)
+    return merge_partials(torch.stack(outs), torch.stack(lses)), torch.stack(lses)
+
+
+@pytest.mark.parametrize("softcap,window", [(0.0, 0), (50.0, 0), (30.0, 12), (50.0, 20)],
+                         ids=["global", "global-capped", "window12", "window20"])
+@pytest.mark.parametrize("h,kv", [(4, 4), (4, 2)], ids=["nrep1", "nrep2"])
+@pytest.mark.parametrize("blocks", [2, 4])
+def test_blocks_with_start_and_lse_merge_to_the_reference(softcap, window, h, kv, blocks):
+    """Blocks of a 32-row cache (8 or 16 rows each): lengths 1 (every later
+    block empty), 8, 9, 17, 30 and 32, windows that end a slot's live rows
+    inside a later block than they start; the merge equals the reference's
+    Pallas kernel over the whole cache (pages of 8 rows) and its model's
+    ``_decode_attention``, and an empty block gives out 0 and LSE -inf."""
+    from repro.models.attention import _decode_attention
+    from repro.models.common import BlockSpec
+
+    lens_np = np.array([1, 8, 9, 17, 30, 32], np.int32)
+    b, hd, length = len(lens_np), 16, 32
+    q, k, v = _dense(7, b, h, kv, hd, length)
+    kw = dict(scale=0.25, softcap=softcap, window=window)
+    lens = torch.from_numpy(lens_np)
+    got, lses = _blocks_merged(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), lens, blocks, **kw)
+
+    page = 8
+    pages = lambda x: jnp.asarray(x.reshape(b * length // page, page, kv, hd))  # noqa: E731
+    table = jnp.asarray(np.arange(b * length // page, dtype=np.int32).reshape(b, length // page))
+    want = np.asarray(paged_decode_kernel_call(jnp.asarray(q), pages(k), pages(v), table, jnp.asarray(lens_np), **kw))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
+
+    cfg = type("Cfg", (), dict(attn_scale=0.25, attn_softcap=softcap or None, window_size=window))()
+    spec = BlockSpec(mixer="attn", attn_type="local" if window else "global")
+    dec = _decode_attention(jnp.asarray(q)[:, None], jnp.asarray(k), jnp.asarray(v), jnp.asarray(lens_np), cfg, spec)
+    np.testing.assert_allclose(got.numpy(), np.asarray(dec)[:, 0], rtol=0, atol=1e-5)
+
+    # the slot of length 1 has no live row past the first block
+    rows = length // blocks
+    empty = torch.isinf(lses)
+    assert bool(empty[1:, 0].all()) and not bool(empty[0, 0].any())
+    start = torch.arange(blocks)[:, None] * rows
+    live_lo = (lens - window).clamp(min=0) if window else torch.zeros_like(lens)
+    assert torch.equal(empty.all(-1), (start >= lens) | (start + rows <= live_lo))
+
+
+def test_block_at_start_zero_without_lse_is_the_whole_plain_version():
+    """``start`` 0 and no LSE: the same numbers as before, bit for bit; a
+    block's output and LSE agree with one softmax over its own rows."""
+    xs = [torch.from_numpy(x) for x in _inputs(seed=6)]
+    kw = dict(scale=0.25, softcap=50.0, window=9)
+    base = paged_decode_plain(*xs, **kw)
+    assert torch.equal(paged_decode_plain(*xs, start=0, **kw), base)
+    out, lse = paged_decode_plain(*xs, return_lse=True, **kw)
+    assert torch.equal(out, base)
+    q, kp, vp, bt, lens = xs
+    kd = kp[bt.long()].reshape(3, -1, 2, 16).repeat_interleave(2, dim=2)
+    s = 50.0 * torch.tanh(torch.einsum("bhd,bthd->bht", q, kd) * 0.25 / 50.0)
+    t = torch.arange(kd.shape[1])
+    live = (t[None] < lens[:, None]) & (t[None] >= lens[:, None] - 9)
+    want = torch.logsumexp(torch.where(live[:, None], s, float("-inf")), dim=-1)
+    torch.testing.assert_close(lse, want, rtol=0, atol=1e-5)
+
+
+def test_cuda_branch_passes_start_and_the_lse_buffer(cuda_branch):
+    q, k, v = (torch.from_numpy(x) for x in _dense(8, 3, 4, 2, 16, 32))
+    lens = torch.tensor([1, 17, 32], dtype=torch.int32)
+    table = torch.arange(3, dtype=torch.int32)[:, None]
+    kb, vb = k[:, 16:].contiguous(), v[:, 16:].contiguous()
+    kw = dict(scale=0.25, softcap=30.0, window=20, start=16)
+    got, lse = K.paged_decode_attention(q, kb, vb, table, lens, return_lse=True, **kw)
+    want, want_lse = paged_decode_plain(q, kb, vb, table, lens, return_lse=True, **kw)
+    assert torch.equal(got, want) and torch.equal(lse, want_lse)
+    assert kernels.launch_counts()["paged_attention"] == 1
+    with pytest.raises(ValueError, match="start"):
+        K.paged_decode_attention(q, kb, vb, table, lens, scale=0.25, start=-1)

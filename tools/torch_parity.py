@@ -10,7 +10,7 @@ Run from the repo root:
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tools/torch_parity.py
 
-``--only dist_serve,fsdp_tp,obs,fabric,tune,launch`` prints the rows of the named sections
+``--only dist_serve,fsdp_tp,serve2d,obs,fabric,tune,launch`` prints the rows of the named sections
 alone (the section functions' names without ``_rows``; the base rows run
 only without it).
 """
@@ -125,6 +125,7 @@ def _rows():
     out.extend(_dist_rows(row))
     out.extend(_dist_serve_rows(row))
     out.extend(_fsdp_tp_rows(row))
+    out.extend(_serve2d_rows(row))
     out.extend(_obs_rows(row))
     return out
 
@@ -998,6 +999,39 @@ def _fsdp_tp_rows(row):
     return out
 
 
+def _serve2d_rows(row):
+    """The 2-D serving steps: the jobs of ``tests/test_torch_serve2d.py``
+    (the port's placed prefill and 12 decode steps on 4 gloo ranks a mesh;
+    the reference's one-device and GSPMD steps on 4 fake XLA devices) — a
+    row a case and mesh against each (the logits of every step), and one
+    for the gathered caches against the one-device steps'."""
+    import os
+    import sys
+    import tempfile
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tests"))
+    import test_torch_serve2d as ts
+
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = ts.run_jobs(tmp)
+    out = []
+    module = "train/serve make_prefill_step / make_decode_step (placed params and caches)"
+    for key, arch, mesh in ts.cells():
+        port, ref = runs[mesh], runs[arch]
+        shape = tuple(ts.CASES["meshes"][mesh])
+        what = f"{key} reduced, mesh {shape}, prefill 16 + 12 decode steps"
+        for oracle, name in (("one", "one device"), ("gspmd", "GSPMD")):
+            want = ts._reference_key(key, oracle, mesh)
+            out.append(row(module, f"{what}: logits vs {name}",
+                           [port[f"{key}/logits/{s}"] for s in ts._steps()],
+                           [ref[f"{want}/logits/{s}"] for s in ts._steps()]))
+        names = sorted(k.split("/cache/")[1] for k in port if k.startswith(f"{key}/cache/"))
+        want = ts._reference_key(key, "one", mesh)
+        out.append(row("models/attention _write_prefill / _placed_decode", f"{what}: gathered caches vs one device",
+                       [port[f"{key}/cache/{n}"] for n in names], [ref[f"{want}/cache/{n}"] for n in names]))
+    return out
+
+
 def _obs_rows(row):
     """Slice 6a: the same operations on ``repro.obs`` and
     ``repro_torch.obs`` (``tests/test_torch_obs.py``): the exposition, the
@@ -1290,8 +1324,8 @@ def _launch_rows(row):
     return out
 
 
-SECTIONS = {"dist_serve": _dist_serve_rows, "fsdp_tp": _fsdp_tp_rows, "obs": _obs_rows, "fabric": _fabric_rows, "tune": _tune_rows,
-            "launch": _launch_rows}
+SECTIONS = {"dist_serve": _dist_serve_rows, "fsdp_tp": _fsdp_tp_rows, "serve2d": _serve2d_rows, "obs": _obs_rows,
+            "fabric": _fabric_rows, "tune": _tune_rows, "launch": _launch_rows}
 
 
 def main(argv=None) -> None:
