@@ -26,7 +26,9 @@ Phases (any failed check exits non-zero and prints no result):
      against its plain PyTorch version on the same inputs.  Prints max error, kernel / plain / library time and
      the bound; a cmatmul line names its library yardstick: complex ``@``,
      or, for the real-input stage and the vjp's Re-only output, the one real
-     ``matmul`` that computes the same function.
+     ``matmul`` that computes the same function; a paged_attention line with
+     a soft cap (the JSON, long and verify cases) compiled
+     ``flex_attention``.
      Then the gradient of the regularizer at the paper's width (n = 256,
      d = 8192; b = 128 and ungrouped, q = 2) on the kernel route against the
      ``impl="plain"`` route (``[grad]`` lines).  paged_attention also runs
@@ -158,8 +160,8 @@ Phases (any failed check exits non-zero and prints no result):
      slot's 5 lanes on one table row), and at the full head geometry of
      every other attention arch (``arch ...`` labels: 8 slots, page 16,
      lengths up to 2048, f32 and bf16; n_rep 1 to 12, hd 64 to 192).
-  5b. fabric — the serving fabric over gemma2-2b at full width and depth,
-     f32 (``init_params(seed=0)``, the weights shared read-only by every
+  5b. fabric — the serving fabric over gemma2-2b at full width, 8 of 26
+     layers, f32 (``init_params(seed=0)``, the weights shared read-only by every
      replica), the reference gate's load (12 requests, prompts 4 / 8 / 14,
      8 / 16 new tokens), 4 slots a replica, page 16: (a) a 2-replica
      fabric on a fake clock, r0 killed after 3 ticks, against a 1-replica
@@ -205,7 +207,7 @@ Phases (any failed check exits non-zero and prints no result):
   7. lmtrain — LM training with the paper's decorrelation aux loss
      (``make_train_step``, the launcher's defaults: AdamW, warmup-cosine
      peak 1e-3, clip 1.0, ``lm_batch`` data) at f32: ``gemma2-2b`` at full
-     width and depth (26 layers, d = 2304, 2.06 B parameters, seed 0),
+     width, LMTRAIN_DEPTH = 8 of its 26 layers (d = 2304, seed 0),
      batch 8 x seq 128, in four arms — aux off; R_off through the fused
      kernel (xcorr_offdiag); R_sum q = 2 ungrouped (cmatmul, ctwiddle);
      R_sum q = 2, b = 128 (pmatmul, freq_outer, freq_mat) — then
@@ -224,7 +226,7 @@ Phases (any failed check exits non-zero and prints no result):
   7b. fsdp — the 2-D (FSDP over ``data``, TP and the MoE experts over
      ``model``) LM train step (``parallel/fsdp_tp.place_train_state``, then
      ``make_train_step`` on the placed state) on one NCCL rank, a (data 1,
-     model 1) mesh: gemma2-2b at full width and depth, f32, batch 8 x 128,
+     model 1) mesh: gemma2-2b at full width, 8 of 26 layers, f32, batch 8 x 128,
      phase 7's schedule, in three aux arms (R_sum b = 128, R_sum q = 2
      ungrouped, R_off fused); then, one a kind of layer, R_sum q = 2, full
      width, the config's moments: llama4-scout 1 of 48 layers (4 x 64),
@@ -236,14 +238,15 @@ Phases (any failed check exits non-zero and prints no result):
      arm's kernels launched forward and backward in the placed steps; median
      step ms and peak allocated bytes (steps 2-3) of both.  Phase ``launch``
      (e) prints each dry-run cell's layout (three processes started before
-     phase lmtrain, so they run beside it): every train cell (gemma2-2b, llama4-scout, rwkv6-3b
-     ``train_4k`` on (16, 16)) and the serving cells gemma2-2b
-     ``prefill_32k`` / ``decode_32k`` and llama4-scout ``decode_32k`` are
-     the 2-D steps, whose argument bytes must equal the specs'; rwkv6's
-     ``long_500k`` stays the DP step.
+     phase lmtrain, so they run beside it): every cell, train (gemma2-2b,
+     llama4-scout, rwkv6-3b ``train_4k`` on (16, 16)) and serving
+     (gemma2-2b ``prefill_32k`` / ``decode_32k``, llama4-scout
+     ``decode_32k``, rwkv6-3b ``long_500k``), runs the 2-D step, whose
+     argument bytes must equal the specs'.
   7c. serve2d — the 2-D serving steps (``train/serve`` on
      ``parallel/fsdp_tp.place_params`` / ``place_caches``: KV caches split by
-     sequence over ``model``): (a) paged_attention with a block ``start`` and
+     sequence over ``model``, Mamba state by channel, RWKV6 state whole):
+     (a) paged_attention with a block ``start`` and
      its log-sum-exp on each of 16 blocks of 2048 rows of a 32768-row bf16
      cache (gemma2-2b's heads, softcap 50, 8 slots, lengths spread over the
      cache), a local (window 4096) and a global layer, the blocks merged by
@@ -255,12 +258,14 @@ Phases (any failed check exits non-zero and prints no result):
      and window as its block mask), held against the plain version at
      LIB_TOL on that block and on a local layer's middle block; a block
      call with no device time fails; (b) on one NCCL rank, a (data
-     1, model 1) mesh, gemma2-2b at full width and depth and llama4-scout at
-     full width (1 of 48 layers), f32: 8 prompts of 512 tokens prefilled
-     into 4096-row caches, then 32 greedy decode steps, placed against
-     unplaced: logits within 1e-4 of max(1, max |logit|) every step, tokens
-     identical under the gap rule, and one ``paged_attention`` launch per
-     attention layer per placed decode step.
+     1, model 1) mesh, at full width, f32: gemma2-2b at full depth,
+     llama4-scout 1 of 48 layers, jamba its first 5 pattern positions
+     (Mamba + dense, Mamba + MoE twice, attention) and rwkv6-3b 4 of 32
+     layers, one model at a time: 8 prompts of 512 tokens prefilled into
+     4096-row caches, then 32 greedy decode steps, placed against unplaced:
+     logits within 1e-4 of max(1, max |logit|) every step, tokens identical
+     under the gap rule, and one ``paged_attention`` launch per attention
+     layer per placed decode step (none for rwkv6).
   8. report — one JSON ``kernels`` line, the card's name and power limit,
      and the last line ``{"ok": true, "device": {...}}``.
 
@@ -293,8 +298,9 @@ F32_FLOPS_PER_S = 67e12
 # different order, over contractions of up to 512 terms
 KERNEL_TOL = 2e-4
 # paged_attention's library yardstick (compiled ``flex_attention``) vs the
-# plain version on the same q rounded to bf16: flex takes one dtype and
-# rounds the probabilities to bf16 before P @ V (2^-8 relative a term)
+# plain version on the same q rounded to the pages' dtype: flex takes one
+# dtype and, on bf16 pages, rounds the probabilities to bf16 before P @ V
+# (2^-8 relative a term)
 LIB_TOL = 1e-2
 # served embeddings vs the CPU forward: cuBLAS f32 (TF32 off) and the CPU
 # BLAS sum 3072-term products in different orders
@@ -359,7 +365,9 @@ DRAFT_K = 4
 # chunk, through the long-prompt (flash-style) prefill; then decode 8 tokens
 LONG_PREFILL, LONG_PREFILL_NEW = 10240, 8
 # phase fabric: the reference gate's load (serve/cli.py _gate_fabric) on
-# gemma2-2b at full width and depth, f32, 4 slots a replica, page LM_PAGE
+# gemma2-2b at full width, FABRIC_DEPTH of its 26 layers (the script's time
+# limit), f32, 4 slots a replica, page LM_PAGE
+FABRIC_DEPTH = 8
 FABRIC_LOAD = dict(n_requests=12, prompt_lens=(4, 8, 14), new_tokens=(8, 16), seed=SEED)
 FABRIC_SLOTS = 4
 FABRIC_REPEATS = 3
@@ -373,13 +381,16 @@ TUNE_SHAPES = ("256x8192",)
 
 # [lmtrain]: LM training with the paper's aux loss, the reference launcher's
 # defaults (AdamW, warmup_cosine(1e-3, ...), clip 1.0, lm_batch data) at f32.
-# gemma2-2b at full width and depth, batch 8 x seq 128 (the aux statistic:
+# gemma2-2b at full width, LMTRAIN_DEPTH of its 26 layers (its local / global
+# alternation four times; the script's time limit cut the depth of phases
+# lmtrain and fsdp), batch 8 x seq 128 (the aux statistic:
 # 8 x 8 = 64 subsampled rows of d = 2304), in four arms; then llama4-scout at
 # full width, one layer, batch 4 x seq 64 (32 rows of d = 5120), R_sum.
 # Each arm runs LMTRAIN_STEPS steps on the kernel route and on the plain
 # route from the same parameters and batches, then (gemma2) a profiled
 # window of LMTRAIN_STEPS more on the kernel route.
 LMTRAIN_STEPS = 5
+LMTRAIN_DEPTH = 8
 LMTRAIN_LR = 1e-3
 LMTRAIN_BATCH, LMTRAIN_SEQ = 8, 128
 LMTRAIN_N = LMTRAIN_BATCH * 8
@@ -907,10 +918,11 @@ def _paged_cases(cases, dev, gen):
     library yardstick is ``scaled_dot_product_attention`` on the
     pre-gathered, head-expanded dense view (gather excluded from its time),
     the one PyTorch call that computes the same function, at softcap 0 and
-    window 0; at the JSON line's case (bf16, softcap 50, window 4096) it is
-    compiled ``flex_attention`` on the pre-gathered view (``_flex_library``),
-    held against the plain version at LIB_TOL.  The other capped or
-    windowed cases time no library call."""
+    window 0; at the JSON line's case (bf16, softcap 50, window 4096), the
+    long cases at softcap 50 (window 4096 and 0) and the verify cases (bf16
+    and f32) it is compiled ``flex_attention`` on the pre-gathered view
+    (``_flex_library``), held against the plain version at LIB_TOL.  The
+    other capped or windowed cases time no library call."""
     import torch
     import torch.nn.functional as F
 
@@ -959,11 +971,12 @@ def _paged_cases(cases, dev, gen):
         live = lambda n: min(n, window) if window else n  # noqa: E731
         elt = torch.empty((), dtype=dtype).element_size()
         nbytes = sum(live(n) for n in tops) * kv * hd * 2 * elt + 2 * 4 * b * h * hd + 4 * (b * table.shape[1] + b)
+        lib = _flex_library(q, gather_pages(kp, table), gather_pages(vp, table), lens_t, **kw)
         cases.append((
             "paged_attention", label,
             lambda: pk.paged_decode_attention(q, kp, vp, table, lens_t, **kw),
             lambda: paged_decode_plain(q, kp, vp, table, lens_t, **kw),
-            None, nbytes, 4 * sum(live(n) for n in lane_lens) * h * hd,
+            lib, nbytes, 4 * sum(live(n) for n in lane_lens) * h * hd,
         ))
 
     main_lens = [1, 5, 17, 24, 33, 44, 16, 40]
@@ -976,8 +989,8 @@ def _paged_cases(cases, dev, gen):
              flex=dtype == torch.bfloat16)
         case(f"main {tag} softcap=50 window=0", main_lens, dtype, 50.0, 0)
         case(f"main {tag} softcap=0 window=0", main_lens, dtype, 0.0, 0)
-    case("long bf16 softcap=50 window=4096 (B=8, lens to 8192)", long_lens, torch.bfloat16, 50.0, 4096)
-    case("long bf16 softcap=50 window=0", long_lens, torch.bfloat16, 50.0, 0)
+    case("long bf16 softcap=50 window=4096 (B=8, lens to 8192)", long_lens, torch.bfloat16, 50.0, 4096, flex=True)
+    case("long bf16 softcap=50 window=0", long_lens, torch.bfloat16, 50.0, 0, flex=True)
     case("long bf16 softcap=0 window=0", long_lens, torch.bfloat16, 0.0, 0)
     for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         for softcap in (30.0, 50.0):
@@ -1082,7 +1095,8 @@ def phase_kernels(ph: Phase, dev):
         l_ms = _time_ms(lib) if lib is not None else None
         b_ms, by = _bound(nbytes, flops)
         if lib is None:
-            none = "flex_attention timed on the JSON case only" if name == "paged_attention" else "no single PyTorch call"
+            none = ("flex_attention timed on the JSON, long and verify cases" if name == "paged_attention"
+                    else "no single PyTorch call")
             lib_txt, lib_dev = f"library_ms=none ({none})", "none"
         else:
             lib_txt = f"library_ms={l_ms:.5f}" + (" (gather excluded)" if name == "paged_attention" else "")
@@ -1091,8 +1105,8 @@ def phase_kernels(ph: Phase, dev):
             l_err, l_lse = lib.check()
             ph.check(l_err <= LIB_TOL and l_lse <= LIB_TOL,
                      f"{name} [{label}] flex_attention vs plain: out rel err {l_err:.3g}, LSE err {l_lse:.3g} > {LIB_TOL}")
-            lib_txt += (f" (flex_attention bf16, mask and q cast excluded; out rel err {l_err:.3g} LSE err "
-                        f"{l_lse:.3g}; first call {lib.first_s:.1f}s)")
+            lib_txt += (f" (flex_attention, q in the pages' dtype, mask and q cast excluded; out rel err "
+                        f"{l_err:.3g} LSE err {l_lse:.3g}; first call {lib.first_s:.1f}s)")
         print(
             f"[kernel] {name:<10} {label}: max_abs_err={err:.3g} rel={rel:.3g} "
             f"kernel_ms={k_ms:.5f} plain_ms={p_ms:.5f} {lib_txt} "
@@ -2134,15 +2148,16 @@ def phase_obs(ph: Phase, dev):
 # ---------------------------------------------------------------------------
 
 
-def _lm_model(dev, dtype):
-    """gemma2-2b at its published width and depth in ``dtype``, random
-    weights from ``init_params(seed=0)``."""
+def _lm_model(dev, dtype, depth=None):
+    """gemma2-2b at its published width and depth (or ``depth`` layers) in
+    ``dtype``, random weights from ``init_params(seed=0)``."""
     import dataclasses
 
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
 
-    cfg = dataclasses.replace(get_config("gemma2-2b"), param_dtype=dtype, compute_dtype=dtype)
+    cfg = get_config("gemma2-2b")
+    cfg = dataclasses.replace(cfg, n_layers=depth or cfg.n_layers, param_dtype=dtype, compute_dtype=dtype)
     return cfg, init_params(cfg, seed=SEED, device=dev)
 
 
@@ -3200,9 +3215,8 @@ def _fabric_mixed(ph, cfg, params, dev, load, k_outs):
 
 
 def phase_fabric(ph: Phase, dev):
-    """The serving fabric on gemma2-2b at full width and depth, f32 (the LM
-    phase's weights, ``init_params(seed=0)``, shared read-only by every
-    replica): (a)-(d) above, (e) ``python -m repro_torch.launch.serve``,
+    """The serving fabric on gemma2-2b at full width, FABRIC_DEPTH layers,
+    f32 (``init_params(seed=0)``, shared read-only by every replica): (a)-(d) above, (e) ``python -m repro_torch.launch.serve``,
     (f) the metrics catalog on the card == on the CPU.  Returns the
     launches of (a)-(d)."""
     import gc
@@ -3213,7 +3227,7 @@ def phase_fabric(ph: Phase, dev):
     from repro_torch.serve.loadgen import FabricLoadConfig, LMLoadConfig
 
     smi = _smi()
-    cfg, params = _lm_model(dev, torch.float32)
+    cfg, params = _lm_model(dev, torch.float32, FABRIC_DEPTH)
     load = FabricLoadConfig(lm=LMLoadConfig(**FABRIC_LOAD))
     print(f"[fabric] {cfg.name} f32 {cfg.n_layers} layers d={cfg.d_model}: {load.lm.n_requests} requests, prompts "
           f"{load.lm.prompt_lens}, new tokens {load.lm.new_tokens}, {FABRIC_SLOTS} slots a replica, page {LM_PAGE}",
@@ -3442,16 +3456,20 @@ ARCH_LOAD = dict(n_requests=12, seed=SEED + 9)
 MUSIC_BATCH, MUSIC_PROMPT, MUSIC_NEW = 4, 16, 12
 
 
-def _arch_model(name, depth, dtype, dev):
+def _arch_model(name, depth, dtype, dev, positions=False):
     """Arch ``name`` at full width, ``depth`` layers (None: all), in
-    ``dtype``, random weights from ``init_params(seed=0)``."""
+    ``dtype``, random weights from ``init_params(seed=0)``; ``positions``:
+    the first ``depth`` positions of the pattern, one layer each (jamba's
+    period is 8 layers)."""
     import dataclasses
 
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
 
     cfg = get_config(name)
-    cfg = dataclasses.replace(cfg, n_layers=depth or cfg.n_layers, param_dtype=dtype, compute_dtype=dtype)
+    pattern = cfg.pattern[:depth] if positions else cfg.pattern
+    cfg = dataclasses.replace(cfg, pattern=pattern, n_layers=depth or cfg.n_layers, param_dtype=dtype,
+                              compute_dtype=dtype)
     return cfg, init_params(cfg, seed=SEED, device=dev)
 
 
@@ -3906,7 +3924,7 @@ def _lmtrain_arm(ph, tag, cfg, kernels_fwd, kernels_bwd, dev, batches, smi, prof
 
 
 def phase_lmtrain(ph: Phase, dev):
-    """gemma2-2b at full width and depth in the four arms, then llama4-scout
+    """gemma2-2b at full width (LMTRAIN_DEPTH layers) in the four arms, then llama4-scout
     at full width (one layer) with R_sum; returns ({kernel: launches},
     {kernel: backward launches}) of the kernel routes' steps."""
     import torch
@@ -3917,7 +3935,8 @@ def phase_lmtrain(ph: Phase, dev):
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     fwd_total, bwd_total = {}, {}
-    runs = [(tag, "gemma2-2b", None, arm, LMTRAIN_BATCH, LMTRAIN_SEQ, True) for tag, arm in LMTRAIN_ARMS.items()]
+    runs = [(tag, "gemma2-2b", LMTRAIN_DEPTH, arm, LMTRAIN_BATCH, LMTRAIN_SEQ, True)
+            for tag, arm in LMTRAIN_ARMS.items()]
     runs.append(("moe r_sum q=2", LMTRAIN_MOE, LMTRAIN_MOE_DEPTH, LMTRAIN_ARMS["r_sum q=2"], LMTRAIN_MOE_BATCH,
                  LMTRAIN_MOE_SEQ, False))
     for tag, name, depth, (kw, kernels_fwd, kernels_bwd), batch, seq, profile in runs:
@@ -3939,8 +3958,8 @@ def phase_lmtrain(ph: Phase, dev):
 # phase fsdp: the 2-D (FSDP over data, TP over model) LM train step
 # ---------------------------------------------------------------------------
 
-# gemma2-2b at full width and depth, f32, batch 8 x 128 (phase lmtrain's
-# data and schedule), placed by ``place_train_state`` on a (data 1, model 1)
+# gemma2-2b at full width, LMTRAIN_DEPTH layers, f32, batch 8 x 128 (phase
+# lmtrain's data and schedule), placed by ``place_train_state`` on a (data 1, model 1)
 # mesh of one NCCL rank, against the unplaced step from the same weights
 FSDP_STEPS = 3
 FSDP_ARMS = ("r_sum q=2 b=128", "r_sum q=2", "r_off fused")
@@ -4095,7 +4114,7 @@ def phase_fsdp(ph: Phase, dev):
     torch.cuda.set_device(dev.index or 0)
     dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1), rank=0, world_size=1)
     fwd_total, bwd_total = {}, {}
-    arms = [(tag, _lmtrain_cfg("gemma2-2b", None, LMTRAIN_ARMS[tag][0]), LMTRAIN_BATCH, LMTRAIN_SEQ,
+    arms = [(tag, _lmtrain_cfg("gemma2-2b", LMTRAIN_DEPTH, LMTRAIN_ARMS[tag][0]), LMTRAIN_BATCH, LMTRAIN_SEQ,
              LMTRAIN_ARMS[tag][1:], tag == FSDP_ARMS[0], None) for tag in FSDP_ARMS]
     for tag, arch, batch, seq in FSDP_ARCH_ARMS:
         cfg = _fsdp_arch_cfg(arch)
@@ -4128,9 +4147,11 @@ def phase_fsdp(ph: Phase, dev):
 SERVE2D_ROWS, SERVE2D_BLOCKS = 32768, 16
 SERVE2D_LENS = [32768, 30001, 20480, 16385, 9000, 4097, 2048, 1]
 # (b) the placed steps: 8 prompts of 512 tokens into a 4096-row cache, 32
-# greedy decode steps; gemma2-2b at full depth and llama4-scout 1 of 48 layers
+# greedy decode steps; gemma2-2b at full depth, llama4-scout 1 of 48 layers,
+# jamba its first 5 pattern positions (Mamba + dense, Mamba + MoE twice, the
+# attention at position 4; ~26 GB of f32 weights) and rwkv6-3b 4 of 32 layers
 SERVE2D_SLOTS, SERVE2D_PROMPT, SERVE2D_MAX_LEN, SERVE2D_STEPS = 8, 512, 4096, 32
-SERVE2D_ARCHS = (("gemma2-2b", None), ("llama4-scout-17b-a16e", 1))
+SERVE2D_ARCHS = (("gemma2-2b", None), ("llama4-scout-17b-a16e", 1), ("jamba-v0.1-52b", 5), ("rwkv6-3b", 4))
 
 
 def _serve2d_blocks(ph, dev, smi):
@@ -4242,8 +4263,9 @@ def _serve2d_greedy(cfg, params, caches, prompts):
 
 
 def _serve2d_steps(ph, dev, mesh, smi):
-    """(b) the placed steps against the unplaced ones, gemma2 and llama4;
-    returns the placed runs' paged_attention launches."""
+    """(b) the placed steps against the unplaced ones, SERVE2D_ARCHS in
+    turn (each model freed before the next); returns the placed runs'
+    paged_attention launches."""
     import torch
 
     from repro_torch.models import init_caches
@@ -4253,7 +4275,7 @@ def _serve2d_steps(ph, dev, mesh, smi):
     for name, depth in SERVE2D_ARCHS:
         _free()
         t0 = time.perf_counter()
-        cfg, params = _arch_model(name, depth, torch.float32, dev)
+        cfg, params = _arch_model(name, depth, torch.float32, dev, positions=name.startswith("jamba"))
         gen = torch.Generator(device=dev).manual_seed(SEED + 28)
         prompts = torch.randint(0, cfg.vocab_size, (SERVE2D_SLOTS, SERVE2D_PROMPT), device=dev, generator=gen)
         base, base_toks, _ = _serve2d_greedy(cfg, params, init_caches(cfg, SERVE2D_SLOTS, SERVE2D_MAX_LEN, dev),
@@ -4286,7 +4308,8 @@ def _serve2d_steps(ph, dev, mesh, smi):
             print(f"{tag}: slot {i} first differs at token {t}: unplaced top-2 gap {gap:.4g} vs 2 x logit diff "
                   f"{2 * diff:.4g} -> {'exempt from here on' if gap < 2 * diff else 'FAIL'}", flush=True)
             ph.check(gap < 2 * diff, f"{tag}: slot {i} differs at token {t} with top-2 gap {gap}")
-        want = (cfg.n_layers if all(sp.mixer == "attn" for sp in cfg.pattern) else 0) * SERVE2D_STEPS
+        # the attention layers a step: jamba 1 of 5, rwkv6 none
+        want = sum(sp.mixer == "attn" for sp in cfg.pattern) * cfg.repeats * SERVE2D_STEPS
         ph.check(launched == want, f"{tag}: paged_attention launched {launched} times in the placed decode, "
                                    f"not one per attention layer a step ({want})")
         ph.check(all(bool(torch.isfinite(r).all()) for r in rows), f"{tag}: non-finite logits")
@@ -4348,8 +4371,6 @@ LAUNCH_CELLS = ((("gemma2-2b", "train_4k"), ("gemma2-2b", "prefill_32k"), ("gemm
                  ("rwkv6-3b", "long_500k")),
                 (("rwkv6-3b", "train_4k"),),
                 (("llama4-scout-17b-a16e", "train_4k"), ("llama4-scout-17b-a16e", "decode_32k")))
-# the serving cells that run the 2-D steps (the others stay "dp")
-LAUNCH_2D_SERVING = {("gemma2-2b", "prefill_32k"), ("gemma2-2b", "decode_32k"), ("llama4-scout-17b-a16e", "decode_32k")}
 _LAUNCH_DRYRUN = r"""
 import json, sys
 import torch
@@ -4640,15 +4661,12 @@ def _launch_dryrun_finish(ph, procs, smi):
         if rec["status"] != "ok":
             print(rec.get("traceback", ""), flush=True)
             continue
-        if rec["shape"] == "train_4k" or (rec["arch"], rec["shape"]) in LAUNCH_2D_SERVING:
-            ph.check(rec.get("layout") == "2d", f"[launch] (e) {tag}: layout {rec.get('layout')}, not the 2-D step")
-        else:
-            ph.check(rec.get("layout") == "dp", f"[launch] (e) {tag}: layout {rec.get('layout')}, not the DP step")
-        if rec.get("layout") == "2d":
-            # the 2-D step holds what the specs' layout holds a rank
-            ph.check(rec["memory"]["argument_bytes"] == rec["reference_argument_bytes"],
-                     f"[launch] (e) {tag}: 2-D argument bytes {rec['memory']['argument_bytes']} != the specs' "
-                     f"{rec['reference_argument_bytes']}")
+        # every cell, train and serving (rwkv6 long_500k too), runs the 2-D
+        # step and holds what the specs' layout holds a rank
+        ph.check(rec.get("layout") == "2d", f"[launch] (e) {tag}: layout {rec.get('layout')}, not the 2-D step")
+        ph.check(rec["memory"]["argument_bytes"] == rec["reference_argument_bytes"],
+                 f"[launch] (e) {tag}: 2-D argument bytes {rec['memory']['argument_bytes']} != the specs' "
+                 f"{rec['reference_argument_bytes']}")
         roof = {k: (f"{v:.4g}" if isinstance(v, float) else v) for k, v in rec["roofline"].items()}
         print(f"[launch] (e) {tag}: layout {rec.get('layout')} memory {rec['memory']} "
               f"reference_argument_bytes {rec['reference_argument_bytes']} "

@@ -22,16 +22,13 @@ no GSPMD partitioner.  Every train cell runs the port's 2-D step
 both AdamW moments under the specs' layout, FSDP over ``data``, TP and the
 MoE experts over ``model``, the batch over ``("pod", "data")``), recorded
 as ``"layout": "2d"``; its ``argument_bytes`` then equal
-``reference_argument_bytes``, what the specs' 2-D layout holds a rank.  The
-prefill and decode cells of the attention-only archs run the 2-D serving
+``reference_argument_bytes``, what the specs' 2-D layout holds a rank.
+Every prefill and decode cell (``long_500k`` too) runs the 2-D serving
 steps of ``train/serve`` on the rank's blocks of the parameters
-(``fsdp_tp.place_params``), of the KV caches (``place_caches``: the slots
-over ``("pod", "data")``, the rows over ``model``) and of the prompts:
-``"layout": "2d"`` too, the argument bytes the specs'.  jamba's and
-rwkv6's serving cells (Mamba and RWKV6 state, whose own layout is not
-ported yet) run the one-device steps on the rank's block of the batch:
-``"layout": "dp"``, with ``reference_argument_bytes`` beside the port's
-``argument_bytes``.
+(``fsdp_tp.place_params``), of the decode state (``place_caches``: the
+slots over ``("pod", "data")``, KV rows and Mamba channels over ``model``,
+RWKV6 state whole on every ``model`` rank) and of the prompts:
+``"layout": "2d"`` too, the argument bytes the specs'.
 
 ``--device`` defaults to ``cuda`` (fake CUDA tensors: the kernel route, each
 hand-written kernel's launches counted; a machine without CUDA raises, as
@@ -173,7 +170,7 @@ def build_cell(arch: str, shape_name: str, multi_pod: bool, device=None, *, cfg=
     opt = adamw(moment_dtype=_moment_dtype(cfg))
     sched = warmup_cosine(3e-4, 2000, 100_000)
     params = S.params_spec_tree(cfg, mesh, device=dev)
-    meta = {"mesh_shape": S.mesh_sizes(mesh), "params": int(cfg.param_count()), "layout": "dp"}
+    meta = {"mesh_shape": S.mesh_sizes(mesh), "params": int(cfg.param_count()), "layout": "2d"}
 
     if shape.kind == "train":
         micro = microbatches or num_microbatches_for(cfg, shape, mesh)
@@ -184,7 +181,6 @@ def build_cell(arch: str, shape_name: str, multi_pod: bool, device=None, *, cfg=
         meta["reference_argument_bytes"] = _local_bytes((model, opt_state, batch))
         state = TrainState(step=0, model=model, opt_state=opt_state, seed=0)
         # the 2-D step on the rank's blocks of the specs' fake tensors
-        meta["layout"] = "2d"
         with S.fake_mode():
             state = fsdp_tp.place_train_state(state, mesh)
         grad_sh = [p.placement for p in state.model.parameters()] if grad_shardings else None
@@ -194,20 +190,11 @@ def build_cell(arch: str, shape_name: str, multi_pod: bool, device=None, *, cfg=
         step = make_train_step(cfg, opt, sched, num_microbatches=runs or micro, grad_shardings=grad_sh)
         return step, (state, block), meta
 
+    # the 2-D serving steps on the rank's blocks of the parameters and of
+    # the decode state, the slots over the batch axes
     caches = S.cache_specs(cfg, shape.global_batch, shape.seq_len, mesh, device=dev)
-    placed = all(spec.mixer == "attn" for spec in cfg.pattern)
-    if placed:
-        # the 2-D serving steps on the rank's blocks of the parameters and
-        # of the KV caches (rows over "model"), the slots over the batch axes
-        meta["layout"] = "2d"
-        with S.fake_mode():
-            step_params, local_caches = fsdp_tp.place_params(params, mesh), fsdp_tp.place_caches(caches, cfg, mesh)
-    else:
-        step_params = params
-        rows = S.local_shape((shape.global_batch,), S._batch_spec(mesh, shape.global_batch))[0]
-        with S.fake_mode():
-            local_caches = S._map_tree(caches, lambda p, t: torch.empty(
-                (t.shape[0], rows) + tuple(t.shape[2:]), dtype=t.dtype, device=t.device))
+    with S.fake_mode():
+        step_params, local_caches = fsdp_tp.place_params(params, mesh), fsdp_tp.place_caches(caches, cfg, mesh)
 
     if shape.kind == "prefill":
         toks = S.batch_specs(cfg, shape, mesh, device=dev)
@@ -221,26 +208,19 @@ def build_cell(arch: str, shape_name: str, multi_pod: bool, device=None, *, cfg=
 
         return fn, (step_params, local_caches, _rank_block(toks, batch_axes, mesh)), meta
 
-    # decode: one new token against a seq_len cache
+    # decode: one new token against a seq_len cache, at the reference's
+    # scalar position, a tensor whose value the host never reads (each
+    # rank's write of the new row is masked on the device)
     toks = S.decode_token_specs(cfg, shape.global_batch, mesh, device=dev)
     cache_len = S.scalar_spec(mesh, device=dev)
     meta["reference_argument_bytes"] = _local_bytes((params, caches, cache_len, toks))
     decode = make_decode_step(cfg)
 
-    if placed:
-        # the reference's scalar position, a tensor whose value the host
-        # never reads (each rank's write of the new row is masked on the device)
-        @torch.no_grad()
-        def fn(params, caches, cache_len, inputs):
-            return decode(params, caches, cache_len, **inputs)
-
-        return fn, (step_params, local_caches, cache_len, _rank_block(toks, batch_axes, mesh)), meta
-
     @torch.no_grad()
-    def fn(params, caches, inputs):
-        return decode(params, caches, shape.seq_len - 1, **inputs)
+    def fn(params, caches, cache_len, inputs):
+        return decode(params, caches, cache_len, **inputs)
 
-    return fn, (step_params, local_caches, _rank_block(toks, batch_axes, mesh)), meta
+    return fn, (step_params, local_caches, cache_len, _rank_block(toks, batch_axes, mesh)), meta
 
 
 # a train step of more microbatches is analysed at 3 and 4 of them and

@@ -12,9 +12,11 @@ the reference's §Perf, with the reference's names and overrides.  A cell is
 ``fake`` process group, analysed by ``launch/hlo_cost``); ``shard_grad_acc``
 hands the step the specs' shardings as ``grad_shardings`` (each microbatch's
 gradient reduce-scattered along ``data`` where a leaf's spec splits over it
-alone).  Overrides that steer XLA alone (``ssm_unroll``, the
-``seq_shard_attention`` annotations) change nothing in the port's program:
-their records equal the baseline's, which is the measurement.
+alone).  ``seq_shard_attention`` (``seqpar_attn``, ``arctic_best``) splits
+the query rows over ``model`` where the heads do not split
+(``models/attention._scoring_attention``).  ``ssm_unroll`` steers XLA
+alone and changes nothing in the port's program: its records equal the
+baseline's, which is the measurement.
 """
 
 import argparse

@@ -19,7 +19,10 @@ On placed parameters and caches (``parallel/fsdp_tp``: heads over
 attends each rank's rows with the paged-attention kernel and merges the
 ranks' partial softmaxes by their log-sum-exps (``_placed_decode``), where
 the reference's GSPMD partitioner derives the same merge from its sharding
-annotations.
+annotations.  Where the heads do not split over ``model``,
+``cfg.seq_shard_attention`` splits the query rows over it instead (the
+train step's and the prefill's ``_scoring_attention``), as the reference's
+``("batch", "kv_seq")`` annotation of q asks GSPMD to.
 
 A one-token decode over an unplaced dense cache keeps ``_decode_attention``
 (plain PyTorch on every device, as the reference's dense decode is plain
@@ -102,48 +105,35 @@ def attn_shapes(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
     return shapes
 
 
-def _project_qkv(params, x: Tensor, cfg: ArchConfig, positions: Tensor, weight=None, heads=None):
+def _project_qkv(params, x: Tensor, cfg: ArchConfig, positions: Tensor, weight=None, heads=None, q_rows=None):
     """(q, k, v) with RoPE applied: (B, S, heads, hd).  ``weight(name)``
     gives the leaf to multiply by (default: the leaf in the compute dtype)
     and ``heads`` the (q, kv) heads it yields (default: all of them); the
-    2-D layout passes a rank's head blocks."""
+    2-D layout passes a rank's head blocks.  ``q_rows`` = (lo, n): q of
+    rows [lo, lo + n) alone, (B, n, heads, hd) (the sequence-split
+    attention's query block); k and v cover every row."""
     b, s, _ = x.shape
     h, kv = heads or (cfg.n_heads, cfg.n_kv_heads)
     hd = cfg.hd
     cd = cfg.compute_dtype
     weight = weight or (lambda name: params[name].to(cd))
-    q = x @ weight("wq")
+    lo, n = q_rows or (0, s)
+    q = x[:, lo:lo + n] @ weight("wq")
     k = x @ weight("wk")
     v = x @ weight("wv")
     if cfg.qkv_bias:
         q = q + weight("bq")
         k = k + weight("bk")
         v = v + weight("bv")
-    q, k = q.reshape(b, s, h, hd), k.reshape(b, s, kv, hd)
+    q, k = q.reshape(b, n, h, hd), k.reshape(b, s, kv, hd)
+    q_pos = positions[..., lo:lo + n]
     if cfg.mrope:
-        q = apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+        q = apply_mrope(q, q_pos, cfg.rope_theta, cfg.mrope_sections)
         k = apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
     else:
-        pos2d = positions if positions.dim() == 2 else positions[0]
-        q = apply_rope(q, pos2d, cfg.rope_theta)
-        k = apply_rope(k, pos2d, cfg.rope_theta)
+        q = apply_rope(q, q_pos if q_pos.dim() == 2 else q_pos[0], cfg.rope_theta)
+        k = apply_rope(k, positions if positions.dim() == 2 else positions[0], cfg.rope_theta)
     v = v.reshape(b, s, kv, hd)
-    # layout annotations, the reference's line for line (``shard`` is a no-op
-    # in eager PyTorch: no compiler to hint)
-    if cfg.seq_shard_attention:
-        mesh = shd.current_mesh()
-        n_model = 1
-        if mesh is not None:
-            names = tuple(mesh.mesh_dim_names or ())
-            for ax in shd.current_rules().get("heads") or ():
-                if ax in names:
-                    n_model *= int(mesh.shape[names.index(ax)])
-        if h % max(n_model, 1) != 0:
-            # heads unshardable: shard query-sequence over `model`; k/v stay
-            # replicated so scores/softmax/out are fully shard-local.
-            q = shd.shard(q, ("batch", "kv_seq", None, None))
-            return q, k, v
-    q = shd.shard(q, ("batch", None, "heads", None))
     return q, k, v
 
 
@@ -190,21 +180,23 @@ def _full_attention(q, k, v, cfg: ArchConfig, spec: BlockSpec) -> Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _chunked_attention(q, k, v, cfg: ArchConfig, spec: BlockSpec, chunk: int) -> Tensor:
+def _chunked_attention(q, k, v, cfg: ArchConfig, spec: BlockSpec, chunk: int, offset: int = 0) -> Tensor:
     """Online softmax over the static list of causal chunk pairs (i, j <= i),
     as the reference scans it: each pair's scores are (B, H, chunk, chunk),
     and only the causal half of the pairs runs.  A local layer keeps the
-    pairs whose chunk distance is within ``span`` of the window."""
-    b, s, h, hd = q.shape
-    assert s % chunk == 0, (s, chunk)
+    pairs whose chunk distance is within ``span`` of the window.  ``offset``
+    (a multiple of ``chunk``): q holds rows [offset, offset + Q) of the
+    sequence k and v cover from row 0 (a sequence-split query block)."""
+    b, nq, h, hd = q.shape
+    assert nq % chunk == 0 and offset % chunk == 0 and k.shape[1] % chunk == 0, (nq, offset, chunk)
     scale = _scale(cfg, hd)
     k = _repeat_kv(k, h // k.shape[2])
     v = _repeat_kv(v, h // v.shape[2])
-    nc = s // chunk
-    pairs = np.array([(i, j) for i in range(nc) for j in range(i + 1)], np.int64)
+    nc, base = nq // chunk, offset // chunk
+    pairs = np.array([(i, j) for i in range(nc) for j in range(base + i + 1)], np.int64).reshape(-1, 2)
     if spec.attn_type == "local":
         span = -(-cfg.window_size // chunk)  # chunks that can be in-window
-        pairs = pairs[pairs[:, 0] - pairs[:, 1] <= span]
+        pairs = pairs[base + pairs[:, 0] - pairs[:, 1] <= span]
     acc = [torch.zeros((b, chunk, h, hd), dtype=torch.float32, device=q.device) for _ in range(nc)]
     m = [torch.full((b, chunk, h), NEG_INF, dtype=torch.float32, device=q.device) for _ in range(nc)]
     l = [torch.zeros((b, chunk, h), dtype=torch.float32, device=q.device) for _ in range(nc)]
@@ -215,7 +207,7 @@ def _chunked_attention(q, k, v, cfg: ArchConfig, spec: BlockSpec, chunk: int) ->
         vb = v[:, j * chunk:(j + 1) * chunk]
         sc = torch.einsum("bqhd,bkhd->bhqk", qb, kb).float() * scale
         sc = softcap(sc, cfg.attn_softcap)
-        gq = (i * chunk + local)[:, None]
+        gq = (offset + i * chunk + local)[:, None]
         gk = (j * chunk + local)[None, :]
         mask = gk <= gq
         if spec.attn_type == "local":
@@ -437,13 +429,26 @@ def _scoring_attention(params, x: Tensor, cfg: ArchConfig, spec: BlockSpec, posi
     each rank computes the heads ``_heads`` gives it, with ``wo``
     row-parallel: whole q heads give whole outputs, of which the rank keeps
     the columns of its ``wo`` rows; whole kv heads are indexed by the
-    rank's q heads."""
+    rank's q heads.
+
+    Where the heads do not split over ``model`` and ``cfg.seq_shard_attention``
+    is set (the reference's sequence-split layout), a rank computes q for
+    its block of ceil(S / m) query rows, every head, and k / v for every
+    row; it attends from its row offset (causal, window and softcap as
+    everywhere), so its scores are (B, H, ceil(S / m), S), and an
+    all-to-all over ``model`` (``fsdp_tp.all_to_all_seq_to_cols``, the
+    inverse one backward) turns its rows of every column into every row of
+    its ``wo`` rows' columns."""
     h, hd = cfg.n_heads, cfg.hd
     lay = _heads(params, cfg)
     if lay.tp:
         x = fsdp_tp.enter_tp(x)
-    q, k, v = _project_qkv(params, x, cfg, positions, weight=lay.weight, heads=(lay.hl, lay.kvl))
     b, s = x.shape[:2]
+    seq_split = cfg.seq_shard_attention and lay.tp and not lay.q_split and lay.m > 1
+    rows = -(-s // lay.m) if seq_split else s  # query rows a block
+    lo = lay.idx * rows if seq_split else 0
+    n = max(0, min(rows, s - lo))  # this rank's (0 past the end)
+    q, k, v = _project_qkv(params, x, cfg, positions, weight=lay.weight, heads=(lay.hl, lay.kvl), q_rows=(lo, n))
     if cache is not None:
         _write_prefill(cache, k, v, lay)
     if lay.q_split and not lay.kv_split:
@@ -451,11 +456,16 @@ def _scoring_attention(params, x: Tensor, cfg: ArchConfig, spec: BlockSpec, posi
         sel = torch.div(lay.idx * lay.hl + torch.arange(lay.hl, device=q.device), h // cfg.n_kv_heads,
                         rounding_mode="floor")
         k, v = k.index_select(2, sel), v.index_select(2, sel)
-    if s > cfg.attn_chunk_threshold and s % cfg.attn_chunk_size == 0:
-        out = _chunked_attention(q, k, v, cfg, spec, cfg.attn_chunk_size)
+    chunk = cfg.attn_chunk_size
+    if s > cfg.attn_chunk_threshold and s % chunk == 0 and n > 0 and rows % chunk == 0:
+        out = _chunked_attention(q, k, v, cfg, spec, chunk, offset=lo)
+    elif seq_split:
+        out = _offset_prefill_attention(q, k, v, lo, cfg, spec)
     else:
         out = _full_attention(q, k, v, cfg, spec)
-    out = out.reshape(b, s, lay.hl * hd)
+    out = out.reshape(b, n, lay.hl * hd)
+    if seq_split:
+        out = fsdp_tp.all_to_all_seq_to_cols(out, s, rows)
     return _row_parallel_out(out, lay, h * hd)
 
 

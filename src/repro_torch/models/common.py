@@ -66,9 +66,8 @@ class ArchConfig:
     # takes the chunked, flash-style path (``attention._chunked_attention``)
     attn_chunk_threshold: int = 8192
     attn_chunk_size: int = 2048
-    # when n_heads % model-parallelism != 0, annotate attention's query
-    # sequence over `model` instead of its heads (``parallel.sharding.shard``
-    # annotations: layout hints, no-ops in eager PyTorch)
+    # where the heads do not split over `model`, split attention's query
+    # rows over `model` instead (``attention._scoring_attention``)
     seq_shard_attention: bool = False
 
     # mlp

@@ -12,6 +12,9 @@ Plain PyTorch throughout: the reference has no Pallas kernel here.
 Decode state (one pattern position's layer, batch B):
   mamba: {"conv": (B, d_conv - 1, di), "ssm": (B, di, N)}
   rwkv:  {"wkv": (B, H, hd, hd), "shift_t": (B, d), "shift_c": (B, d)}
+The placed serving steps hold a rank's block of them under the specs'
+layout (``launch/specs.cache_sharding``): Mamba's channels over ``model``,
+RWKV6's state whole on every ``model`` rank, the slots over the batch axes.
 """
 
 from __future__ import annotations
@@ -75,14 +78,18 @@ def mamba_apply(
     full scan from ``state`` (or zeros), returning the carried state when
     one was given (prefill).
 
-    On placed blocks (``parallel/fsdp_tp``, the 2-D train step; no
-    ``state``) with ``out_proj`` split over ``model`` a rank runs its di / m
-    channels: the conv, the scan and the skip are per channel; ``in_proj``'s
-    column blocks straddle the ``[x | z]`` split, so it is gathered over
-    ``model`` and the rank takes its x and z columns; ``x_proj`` is
-    row-parallel and its (dt, B, C) output, which feeds every channel, is
-    all-reduced over ``model`` forward and backward; ``out_proj`` is
-    row-parallel."""
+    On placed blocks (``parallel/fsdp_tp``: the 2-D train step, and the
+    placed serving steps with ``state``) with ``out_proj`` split over
+    ``model`` a rank runs its c = di / m channels: the conv, the scan and
+    the skip are per channel; ``in_proj``'s column blocks straddle the
+    ``[x | z]`` split, so it is gathered over ``model`` and the rank takes
+    its x and z columns; ``x_proj`` is row-parallel and its (dt, B, C)
+    output, which feeds every channel, is all-reduced over ``model`` forward
+    and backward; ``out_proj`` is row-parallel.  The state is the rank's
+    block of the specs' layout (``place_caches``: ``conv`` (B, K - 1, c),
+    ``ssm`` (B, c, N), the channels over ``model``), read and returned as
+    such; a leaf in another layout is cut or gathered to the channels the
+    rank runs and put back (``fsdp_tp.state_block`` / ``state_update``)."""
     b, s, d = x.shape
     di = cfg.ssm_expand * d
     n = cfg.ssm_d_state
@@ -112,16 +119,19 @@ def mamba_apply(
     conv_b = leaf("conv_b", 0).to(cd)
     kk = conv_w.shape[0]
 
+    if state is not None:  # the channels this rank runs (dim 2 of conv, 1 of ssm)
+        conv0 = fsdp_tp.state_block(state["conv"], 2, tp)
+        ssm0 = fsdp_tp.state_block(state["ssm"], 1, tp)
     decode = state is not None and s == 1
     if decode:
-        hist = torch.cat([state["conv"].to(cd), xin], dim=1)  # (B, K, di)
+        hist = torch.cat([conv0.to(cd), xin], dim=1)  # (B, K, c)
         xc = torch.sum(hist * conv_w[None], dim=1, keepdim=True) + conv_b
         new_conv = hist[:, 1:, :]
     else:
         xc = _mamba_conv_full(xin, conv_w, conv_b)
         new_conv = None
         if state is not None:  # prefill: keep the tail for the decode that follows
-            pad = torch.zeros((b, max(0, (kk - 1) - s), di), dtype=cd, device=x.device)
+            pad = torch.zeros((b, max(0, (kk - 1) - s), c), dtype=cd, device=x.device)
             new_conv = torch.cat([pad, xin[:, -(kk - 1):, :]], dim=1)
     xc = F.silu(xc)
 
@@ -135,12 +145,12 @@ def mamba_apply(
     dbx = (dt * xc.float())[..., None] * b_mat.float()[:, :, None, :]
     c32 = c_mat.float()
 
-    h = state["ssm"].float() if state is not None else torch.zeros((b, c, n), dtype=torch.float32, device=x.device)
+    h = ssm0.float() if state is not None else torch.zeros((b, c, n), dtype=torch.float32, device=x.device)
     ys = []
     for t in range(s):
         h = da[:, t] * h + dbx[:, t]
         ys.append(torch.einsum("bdn,bn->bd", h, c32[:, t]))
-    y = torch.stack(ys, dim=1)  # (B, S, di)
+    y = torch.stack(ys, dim=1)  # (B, S, c)
 
     y = y + xc.float() * leaf("d_skip", 0).float()
     y = y.to(cd) * F.silu(z)
@@ -150,7 +160,9 @@ def mamba_apply(
 
     new_state = None
     if state is not None:
-        new_state = {"conv": (new_conv if new_conv is not None else state["conv"]).to(cd), "ssm": h}
+        conv = (new_conv if new_conv is not None else conv0).to(cd)
+        new_state = {"conv": fsdp_tp.state_update(conv, state["conv"], 2, tp),
+                     "ssm": fsdp_tp.state_update(h, state["ssm"], 1, tp)}
     return out, new_state
 
 
@@ -222,15 +234,22 @@ def rwkv_time_mix(
     """The RWKV6 mixer over x: (B, S, d); with ``state`` it starts from the
     carried wkv state and token shift and returns them advanced.
 
-    On placed blocks (``parallel/fsdp_tp``, the 2-D train step; no
-    ``state``) with ``w_o`` split over ``model`` a rank computes the heads
-    of its ``w_o`` rows: ``w_r`` / ``w_k`` / ``w_v`` / ``w_g`` are column
-    blocks, and it takes its heads' slices of ``decay_base``,
-    ``decay_lora_b``, ``bonus_u`` and ``ln_x`` (the group norm and the
-    recurrence need whole heads).  Where d / m is not whole heads the four
-    projections are gathered over ``model``, every head is computed whole
-    and the rank keeps the columns of its ``w_o`` rows.  The ddlerp runs
-    whole on every rank inside the TP region; ``w_o`` is row-parallel."""
+    On placed blocks (``parallel/fsdp_tp``: the 2-D train step, and the
+    placed serving steps with ``state``) with ``w_o`` split over ``model`` a
+    rank computes the heads of its ``w_o`` rows: ``w_r`` / ``w_k`` /
+    ``w_v`` / ``w_g`` are column blocks, and it takes its heads' slices of
+    ``decay_base``, ``decay_lora_b``, ``bonus_u`` and ``ln_x`` (the group
+    norm and the recurrence need whole heads).  Where d / m is not whole
+    heads the four projections are gathered over ``model``, every head is
+    computed whole and the rank keeps the columns of its ``w_o`` rows.  The
+    ddlerp runs whole on every rank inside the TP region; ``w_o`` is
+    row-parallel.  The specs keep ``wkv`` whole on every ``model`` rank
+    (``place_caches``): a rank of whole heads a rank reads its heads'
+    slice and all-gathers the advanced heads over ``model``
+    (``fsdp_tp.state_block`` / ``state_update``, forward only), so that
+    every rank holds the same whole leaf; where every head is computed
+    whole it reads and writes the whole leaf, with no collective.  The
+    token shift reads the whole residual on every rank."""
     b, s, d = x.shape
     hd = cfg.rwkv_head_dim
     h = d // hd
@@ -273,8 +292,10 @@ def rwkv_time_mix(
 
     u = heads("bonus_u", 0).float()  # (H, hd)
     r32, k32, v32 = r.float(), k.float(), v.float()
-    wkv = state["wkv"].float() if state is not None else torch.zeros((b, hl, hd, hd), dtype=torch.float32,
-                                                                      device=x.device)
+    if state is not None:
+        wkv = fsdp_tp.state_block(state["wkv"], 1, split).float()
+    else:
+        wkv = torch.zeros((b, hl, hd, hd), dtype=torch.float32, device=x.device)
 
     chunk = cfg.rwkv_chunk
     if s == 1 and state is not None:
@@ -304,7 +325,7 @@ def rwkv_time_mix(
 
     new_state = None
     if state is not None:
-        new_state = dict(state, wkv=wkv, shift_t=x[:, -1, :])
+        new_state = dict(state, wkv=fsdp_tp.state_update(wkv, state["wkv"], 1, split), shift_t=x[:, -1, :])
     return out, new_state
 
 
@@ -378,7 +399,9 @@ def rwkv_channel_mix(
     On placed blocks split over ``model`` (the 2-D train step) ``cmix_wk``
     is column-parallel and ``cmix_wv`` row-parallel; the sigmoid gate
     multiplies the whole ``kv``, so every rank computes it whole
-    (``cmix_wr`` gathered over ``model``)."""
+    (``cmix_wr`` gathered over ``model``).  ``shift_c``, whole on every
+    ``model`` rank in the specs' layout, is the last row of the whole
+    residual each rank holds."""
     cd = cfg.compute_dtype
     tp = fsdp_tp.split_over(params["cmix_wv"], fsdp_tp.MODEL)
 

@@ -452,9 +452,14 @@ def forward(
             if a is not None:
                 aux = a if aux is None else aux + a
             if cache is not None and spec.mixer != "attn":
-                # recurrent state comes back as new tensors: write it in place
+                # recurrent state comes back as new tensors: write it in place,
+                # in the layer's (placed) block shape and never broadcast
                 for k, v in new.items():
-                    caches[name][k][r].copy_(v)
+                    dst = caches[name][k][r]
+                    if v.shape != dst.shape:
+                        raise ValueError(f"{name}/{k}: new state {tuple(v.shape)} does not fit the layer's "
+                                         f"{tuple(dst.shape)} block")
+                    dst.copy_(v)
     h = rms_norm(x, params["final_norm"], cfg.rms_eps)
     logits = logits_from_hidden(params, cfg, h) if head else None
     # no MoE layer: a host zero, so attention-only stacks issue no device op for it

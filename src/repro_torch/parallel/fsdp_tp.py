@@ -41,17 +41,20 @@ heads) reads ``placement``; a tensor without one is a whole leaf.  Every
 arch of ``configs`` runs this layout.
 
 Serving runs the same layout without gradients (``torch.no_grad``):
-``place_params`` places the parameters alone and ``place_caches`` each
-dense KV cache by ``models/transformer.cache_shardings_logical`` (the
-batch over ``("pod", "data")``, the sequence over ``model``), so a
+``place_params`` places the parameters alone and ``place_caches`` the
+dense decode state by ``models/transformer.cache_shardings_logical`` (the
+batch over ``("pod", "data")``; a KV cache's sequence over ``model``, so a
 ``model`` rank holds rows [idx Lr, (idx + 1) Lr) of every slot, all kv
-heads.  A prefill moves its k / v rows to their ranks
-(``all_to_all_heads_to_seq`` where the kv heads are split over ``model``),
-and a decode attends each rank's rows and merges the ranks' partial
-softmaxes exactly (``merge_partials``, after an all-gather of each block's
-output and log-sum-exp): flash-decoding, the merge GSPMD derives for the
-reference's sequence-split softmax (``models/attention``).  These
-collectives are forward-only and skip an axis of size 1.
+heads; Mamba state's channels over ``model``; RWKV6 state whole).  A
+prefill moves its k / v rows to their ranks (``all_to_all_heads_to_seq``
+where the kv heads are split over ``model``), and a decode attends each
+rank's rows and merges the ranks' partial softmaxes exactly
+(``merge_partials``, after an all-gather of each block's output and
+log-sum-exp): flash-decoding, the merge GSPMD derives for the reference's
+sequence-split softmax (``models/attention``).  A recurrent layer reads
+and writes its state through ``state_block`` / ``state_update``.  These
+collectives are forward-only and skip an axis of size 1; the
+sequence-split attention's ``all_to_all_seq_to_cols`` has a backward.
 
 Inside a TP region (its input entered with ``enter_tp``) every value is a
 share of the region's output, which ``exit_tp`` sums: a leaf the region
@@ -308,8 +311,10 @@ def place_caches(caches: Dict, cfg, mesh) -> Dict:
     cache_sharding``: an attention cache's slots over ``("pod", "data")``
     and its rows over ``model``; the batch stays whole where it does not
     split over the batch axes, and a leaf whose split does not divide stays
-    whole.  A block that is the whole leaf shares its storage: use only the
-    placed caches afterwards (the steps write them in place)."""
+    whole (Mamba and RWKV6 state by the same rule: ``conv`` / ``ssm``'s
+    channels over ``model``, ``wkv`` / ``shift_*`` whole over it).  A block
+    that is the whole leaf shares its storage: use only the placed caches
+    afterwards (the steps write them in place)."""
     from repro_torch.launch.specs import _map_tree, cache_sharding
 
     return _map_tree(caches, lambda path, x: _placed_leaf(x, cache_sharding(cfg, path, x.shape, mesh)))
@@ -350,6 +355,83 @@ def all_to_all_heads_to_seq(x: Tensor, rows: int, axis: str = MODEL) -> Tensor:
     (group,) = shd.axis_groups(axis)
     dist.all_to_all_single(recv, send, group=group)
     return recv.permute(1, 2, 0, 3, 4).reshape(b, rows, m * h, hd)[:, :n]
+
+
+class _SeqToCols(torch.autograd.Function):
+    """(B, n, W), this rank's query-row block (rows [idx rows, idx rows +
+    n)) of every column -> (B, S, W / m), every row of this rank's column
+    block, over ``axis`` (m ranks): an all-to-all of the blocks padded to
+    ``rows``.  The backward is the inverse all-to-all."""
+
+    @staticmethod
+    def forward(ctx, x, seq, rows, group, m):
+        ctx.shape, ctx.group, ctx.m, ctx.rows = x.shape, group, m, rows
+        b, n, w = x.shape
+        pad = x.new_zeros((b, rows, w))
+        pad[:, :n] = x
+        send = pad.reshape(b, rows, m, w // m).movedim(2, 0).contiguous()  # (dest rank, B, rows, W / m)
+        recv = torch.empty_like(send)  # (source rank, B, rows, W / m)
+        dist.all_to_all_single(recv, send, group=group)
+        return recv.movedim(0, 1).reshape(b, m * rows, w // m)[:, :seq]
+
+    @staticmethod
+    def backward(ctx, g):
+        b, n, w = ctx.shape
+        m, rows = ctx.m, ctx.rows
+        pad = g.new_zeros((b, m * rows, w // m))
+        pad[:, :g.shape[1]] = g
+        send = pad.reshape(b, m, rows, w // m).movedim(1, 0).contiguous()  # (dest rank, B, rows, W / m)
+        recv = torch.empty_like(send)  # (source rank's columns, B, rows, W / m)
+        dist.all_to_all_single(recv, send, group=ctx.group)
+        return recv.permute(1, 2, 0, 3).reshape(b, rows, w)[:, :n], None, None, None, None
+
+
+def all_to_all_seq_to_cols(x: Tensor, seq: int, rows: int, axis: str = MODEL) -> Tensor:
+    """(B, n, W): this rank's block of query rows [idx rows, idx rows + n)
+    of a length-``seq`` sequence, every column -> (B, seq, W / m): every
+    row, this rank's m-th of the columns (blocks in rank order), over
+    ``axis`` (m ranks, this rank idx; n = min(rows, seq - idx rows), 0 past
+    the end).  The sequence-split attention's exchange
+    (``models/attention``): its backward is the inverse all-to-all, each
+    rank's rows of every column's cotangent."""
+    m = shd.axis_size(axis)
+    if m == 1:
+        return x
+    (group,) = shd.axis_groups(axis)
+    return _SeqToCols.apply(x, seq, rows, group, m)
+
+
+def _splits(leaf: Tensor, dim: int) -> bool:
+    return split_dim(leaf, MODEL) == dim
+
+
+def state_block(leaf: Tensor, dim: int, block: bool) -> Tensor:
+    """A layer's decode-state leaf (``place_caches``) as this rank computes
+    with it along ``dim``: this ``model`` rank's m-th (``block``: the
+    channels or heads a placed Mamba / RWKV6 layer runs) or the whole.  A
+    leaf already in that layout passes through; a replicated one is cut to
+    the rank's block, a split one all-gathered.  Forward only."""
+    if block == _splits(leaf, dim) or shd.axis_size(MODEL) == 1:
+        return leaf
+    if block:
+        n = leaf.shape[dim] // shd.axis_size(MODEL)
+        return leaf.narrow(dim, shd.axis_index(MODEL) * n, n)
+    (group,) = shd.axis_groups(MODEL)
+    return gather_dim(leaf, dim, group)
+
+
+def state_update(new: Tensor, leaf: Tensor, dim: int, block: bool) -> Tensor:
+    """``new``, advanced from ``state_block(leaf, dim, block)``, in
+    ``leaf``'s layout: a rank's block of a replicated leaf all-gathered
+    (every rank then writes the same whole leaf), the whole cut to a split
+    leaf's block.  Forward only."""
+    if block == _splits(leaf, dim) or shd.axis_size(MODEL) == 1:
+        return new
+    if block:
+        (group,) = shd.axis_groups(MODEL)
+        return gather_dim(new, dim, group)
+    n = new.shape[dim] // shd.axis_size(MODEL)
+    return new.narrow(dim, shd.axis_index(MODEL) * n, n)
 
 
 def gather_blocks(x: Tensor, axis: str = MODEL) -> Tensor:

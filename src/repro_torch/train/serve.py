@@ -27,23 +27,20 @@ from repro_torch.parallel import sharding as shd
 Tensor = torch.Tensor
 
 
-def _placed_layout(cfg: ArchConfig, params, caches):
+def _placed_layout(params, caches):
     """(mesh, the axes a cache's slots split over or None) where ``params``
     or ``caches`` are placed blocks (``parallel/fsdp_tp.place_params`` /
-    ``place_caches``), else None."""
+    ``place_caches``), else None.  The slots' axes are any placed leaf's
+    batch dimension: KV rows, Mamba or RWKV6 state."""
     mesh = fsdp_tp.tree_mesh(params) or fsdp_tp.tree_mesh(caches or {})
     if mesh is None:
         return None
-    if any(spec.mixer != "attn" for spec in cfg.pattern):
-        raise NotImplementedError(f"{cfg.name}: the placed serving steps run attention-only patterns "
-                                  "(Mamba / RWKV6 state keeps the data-parallel layout)")
-    axes = None
     for leafs in (caches or {}).values():
-        pl = fsdp_tp.placement(leafs["k"]) if "k" in leafs else None
-        if pl is not None and len(pl.spec) > 1:
-            axes = pl.spec[1]
-            break
-    return mesh, axes
+        for leaf in leafs.values():  # every leaf is (stack, batch, ...): KV rows or recurrent state
+            pl = fsdp_tp.placement(leaf)
+            if pl is not None and len(pl.spec) > 1:
+                return mesh, pl.spec[1]
+    return mesh, None
 
 
 @contextlib.contextmanager
@@ -82,12 +79,14 @@ def make_prefill_step(cfg: ArchConfig):
     row goes through the LM head.
 
     On placed blocks (``parallel/fsdp_tp.place_params`` and
-    ``place_caches``: the reference's 2-D serving layout) each rank passes
-    its block of the prompts (its slots of the caches' batch axes) and gets
-    its slots' logits over the whole vocabulary."""
+    ``place_caches``: the reference's 2-D serving layout, KV rows over
+    ``model``, Mamba state's channels over ``model``, RWKV6 state whole on
+    every ``model`` rank) each rank passes its block of the prompts (its
+    slots of the caches' batch axes) and gets its slots' logits over the
+    whole vocabulary; an MoE layer routes every rank's slots together."""
 
     def prefill(params, caches, tokens=None, impl=None, *, embeds=None, positions=None):
-        layout = _placed_layout(cfg, params, caches)
+        layout = _placed_layout(params, caches)
         with _serving(layout):
             out = forward(params, cfg, tokens, positions=positions, caches=caches, cache_len=0, impl=impl,
                           head=False, embeds=embeds)
@@ -113,7 +112,7 @@ def make_decode_step(cfg: ArchConfig, return_hidden: bool = False):
 
     def decode(params, caches, cache_len, tokens=None, block_tables=None, impl=None, *, embeds=None,
                positions=None):
-        layout = _placed_layout(cfg, params, caches)
+        layout = _placed_layout(params, caches)
         with _serving(layout):
             out = forward(params, cfg, tokens, positions=positions, caches=caches, cache_len=cache_len,
                           block_tables=block_tables, impl=impl, embeds=embeds)

@@ -14,7 +14,10 @@ its shapes, bias and RoPE base), qwen2-vl-2b (``vision_stub`` embeddings,
 M-RoPE), musicgen-large (audio codes), nemotron-4-340b (the squared-ReLU
 MLP), and on (data 1, model 4) gemma2-2b with 2 q heads and 1 kv head,
 which do not split over 4 ranks: every rank computes them whole and keeps
-the columns of its ``wo`` rows (``models/attention._scoring_attention``).
+the columns of its ``wo`` rows (``models/attention._scoring_attention``);
+and the same heads with ``seq_shard_attention``, where each rank scores
+its block of ceil(S / 4) query rows and an all-to-all over ``model`` hands
+it every row of its ``wo`` rows' columns.
 qwen2-vl's positions differ by row and by stream, and travel batch-major
 through the reference's steps (its microbatch split cuts axis 0).  The
 oracle is the reference's one-device step on the whole batch, ordered as
@@ -42,7 +45,11 @@ compilation of its own), in a second process.
 * the vocabulary-parallel CE where a rank's columns cross a codebook
   boundary equals the unsplit CE, value and gradient;
 * the unplaced data-parallel step over ``("pod", "data")`` equals the
-  one-device step.
+  one-device step;
+* the sequence-split case's score blocks are (ceil(S / 4), S), the
+  whole-heads case's (S, S); and ``launch/perf``'s ``seqpar_attn`` record
+  has fewer temporary bytes than ``baseline``'s (reduced gemma2-2b
+  ``train_4k`` on (data 1, model 8), a dry run in a subprocess of its own).
 
 ``tests/test_torch_fsdp_tp_moe.py`` runs the same jobs (``run_jobs`` of its
 own ``CASES``) for the MoE and recurrent archs.
@@ -76,13 +83,17 @@ ARCHS = ["gemma2-2b", "codeqwen1.5-7b", "qwen2-vl-2b", "musicgen-large", "nemotr
 MESHES = {"a": [2, 2], "b": [1, 4], "c": [2, 1, 2]}
 # the whole-heads case: 2 q heads (1 kv head) on 4 model ranks, computed whole
 WHOLE_HEADS = "gemma2-2b:heads2"
+# the same heads with ``seq_shard_attention``: the query rows split over model
+SEQ_SPLIT = "gemma2-2b:seqpar"
 # case name -> (arch, ``reduced()`` overrides)
 VARIANTS = {arch: (arch, {}) for arch in ARCHS}
 VARIANTS[WHOLE_HEADS] = ("gemma2-2b", {"n_heads": 2, "n_kv_heads": 1})
+VARIANTS[SEQ_SPLIT] = ("gemma2-2b", {"n_heads": 2, "n_kv_heads": 1, "seq_shard_attention": True})
 # the cases each mesh's job runs
-RUNS = {"a": ARCHS, "b": ARCHS + [WHOLE_HEADS], "c": ARCHS}
+RUNS = {"a": ARCHS, "b": ARCHS + [WHOLE_HEADS, SEQ_SPLIT], "c": ARCHS}
 # the mesh each arch's GSPMD step runs on (one each: every run compiles anew)
-GSPMD = {"gemma2-2b": "a", "codeqwen1.5-7b": "b", "qwen2-vl-2b": "c", "musicgen-large": "b", "nemotron-4-340b": "a"}
+GSPMD = {"gemma2-2b": "a", "codeqwen1.5-7b": "b", "qwen2-vl-2b": "c", "musicgen-large": "b", "nemotron-4-340b": "a",
+         SEQ_SPLIT: "b"}
 # AdamW's eps a case ("*": the rest).  At 1e-8 an entry whose gradient is
 # near eps, as rounding leaves some (a vocabulary row the batch never
 # reads, zero on one side and rounding on the other), takes a step of up
@@ -251,7 +262,19 @@ def _port_job(rank, world, mesh_name, inputs, out, store):
     def perm_fn(name):
         return lambda s: torch.from_numpy(inp[f"perm/{name}/{s}"])
 
+    # the (query rows, key rows) of every score block the attention builds
+    from repro_torch.models import attention
+
+    scores = set()
+    for fn_name in ("_full_attention", "_offset_prefill_attention", "_chunked_attention"):
+        def recording(q, k, *args, _fn=getattr(attention, fn_name), **kw):
+            scores.add((q.shape[1], k.shape[1]))
+            return _fn(q, k, *args, **kw)
+
+        setattr(attention, fn_name, recording)
+
     for name in cases["runs"].get(mesh_name, ()):
+        scores.clear()
         cfg = config(name)
         opt = optimizer(name, recording=True)
         state = create_train_state(ParamTree(params_from_jax(cfg, nested(name), device="cpu")), opt)
@@ -269,6 +292,7 @@ def _port_job(rank, world, mesh_name, inputs, out, store):
                 res[f"{name}/grad{s}/{k}"] = state.shardings[k].gather(g).numpy()
         for k, v in state.state_dict()["params"].items():
             res[f"{name}/param/{k}"] = v.numpy()
+        res[f"{name}/scores"] = np.array(json.dumps(sorted(scores)))
 
     if (cases.get("dp") or {}).get("mesh") == mesh_name:
         # the unplaced data-parallel step over the mesh's batch axes
@@ -474,8 +498,32 @@ def run_jobs(tmp, cases=CASES) -> dict:
     return out
 
 
+# the dry run's temp bytes of ``seqpar_attn`` against ``baseline``: reduced
+# gemma2-2b (4 heads) train_4k on (data 1, model 8), where the heads do not split
+SEQPAR_DRYRUN = r"""
+import json
+import torch
+torch.set_num_threads(1)
+from repro_torch.launch import perf
+out = {v: perf.build_and_analyze("gemma2-2b", "train_4k", perf.VARIANTS[v], device="cpu", reduced=True,
+                                 mesh_shape=(1, 8))["memory"] for v in ("baseline", "seqpar_attn")}
+print(json.dumps(out))
+"""
+
+
 @pytest.fixture(scope="module")
-def runs(tmp_path_factory):
+def seqpar_dryrun():
+    """The dry run's subprocess, started before the jobs and read after them."""
+    proc = subprocess.Popen([sys.executable, "-c", SEQPAR_DRYRUN], env=_env(), stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    yield proc
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory, seqpar_dryrun):
     return run_jobs(str(tmp_path_factory.mktemp("fsdp_tp")))
 
 
@@ -633,3 +681,23 @@ def check_dp(runs, cases=CASES):
 def test_data_parallel_step_reduces_over_pod_and_data(runs):
     """The unplaced step, the batch over ("pod", "data"), equals the oracle."""
     check_dp(runs)
+
+
+def test_sequence_split_attention_scores_a_block_of_query_rows(runs):
+    """With ``seq_shard_attention`` and 2 heads on 4 model ranks, each rank
+    scores its ceil(S / 4) query rows against every key row; the same heads
+    without the flag score every row on every rank."""
+    seq, m = CASES["seq"], CASES["meshes"]["b"][1]
+    assert json.loads(str(runs["b"][f"{SEQ_SPLIT}/scores"])) == [[-(-seq // m), seq]]
+    assert json.loads(str(runs["b"][f"{WHOLE_HEADS}/scores"])) == [[seq, seq]]
+
+
+def test_sequence_split_attention_lowers_the_dry_runs_temp_bytes(runs, seqpar_dryrun):
+    """``launch/perf``'s ``seqpar_attn`` against ``baseline`` on a mesh where
+    the heads do not split: fewer temporary bytes (each rank's scores cover
+    1 / 8 of the query rows), the same argument bytes."""
+    out, err = seqpar_dryrun.communicate(timeout=600)
+    assert seqpar_dryrun.returncode == 0, err[-4000:]
+    mem = json.loads(out.strip().splitlines()[-1])
+    assert mem["seqpar_attn"]["temp_bytes"] < mem["baseline"]["temp_bytes"], mem
+    assert mem["seqpar_attn"]["argument_bytes"] == mem["baseline"]["argument_bytes"], mem

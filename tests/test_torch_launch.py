@@ -19,9 +19,10 @@
   ``reference_argument_bytes``), on a multi-pod mesh too, the batch over
   ``("pod", "data")``; every prefill / decode cell of the eight
   attention-only archs runs the 2-D serving steps on (2, 2) and (1, 4)
-  (``"layout": "2d"``, the argument bytes the specs'), jamba's and rwkv6's
-  the one-device steps (``"dp"``); one full-width cell (gemma2-2b
-  ``decode_32k``, single mesh, 2-D) in under 60 s.
+  (``"layout": "2d"``, the argument bytes the specs'), and so do jamba's
+  and rwkv6's decode cells (Mamba and RWKV6 state placed by the specs) and
+  rwkv6's ``long_500k``; one full-width cell (gemma2-2b ``decode_32k``,
+  single mesh, 2-D) in under 60 s.
 * ``VARIANTS``: the reference's names, every override a field of the
   port's ``ArchConfig``; ``baseline`` < ``decorr_sum`` in FLOPs.
 """
@@ -220,11 +221,12 @@ for arch in sys.argv[1:]:
             out[arch][f"{shape}/{mesh[0]}x{mesh[1]}"]["memory"] = rec.get("memory")
 print(json.dumps(out))
 """
-# the attention-only archs, whose serving cells run the 2-D steps, in the
-# subprocesses they share; the recurrent archs' cells stay data-parallel
+# the attention-only archs, in the subprocesses they share; the recurrent
+# archs' decode cells in one more (their prefill_32k cells loop the scan
+# over 32768 positions a layer)
 SERVE_2D = (("gemma2-2b", "nemotron-4-340b"), ("codeqwen1.5-7b", "musicgen-large"),
             ("qwen2-vl-2b", "qwen1.5-110b"), ("llama4-scout-17b-a16e", "arctic-480b"))
-SERVE_DP = ("jamba-v0.1-52b", "rwkv6-3b")
+SERVE_RECURRENT = ("jamba-v0.1-52b", "rwkv6-3b")
 
 
 def _run(code: str, env_extra=None, timeout=600, args=()):
@@ -247,8 +249,8 @@ def jobs():
     procs = {"ref": _run(REF_SPECS), "port": _run(PORT_SPECS), "cells": _run(CELLS)}
     for i, archs in enumerate(SERVE_2D):
         procs[f"serve{i}"] = _run(SERVE_CELLS, args=archs)
-    procs["serve_dp"] = _run(SERVE_CELLS.replace('("prefill_32k", "decode_32k")', '("decode_32k",)'),
-                             args=SERVE_DP)
+    procs["serve_recurrent"] = _run(SERVE_CELLS.replace('("prefill_32k", "decode_32k")', '("decode_32k",)'),
+                                    args=SERVE_RECURRENT)
     return {k: _result(p) for k, p in procs.items()}
 
 
@@ -398,8 +400,7 @@ def test_run_cell_records_the_reference_keys_and_bytes(jobs):
     for rec in cells[:-2]:
         assert rec["status"] == "ok", rec.get("traceback")
         assert REF_RECORD_KEYS <= set(rec), REF_RECORD_KEYS - set(rec)
-        layout = "2d" if rec["shape"] == "train_4k" or rec["arch"] not in SERVE_DP else "dp"
-        assert rec["layout"] == layout and rec["n_devices"] == 4 and rec["mesh_shape"] == sizes
+        assert rec["layout"] == "2d" and rec["n_devices"] == 4 and rec["mesh_shape"] == sizes
         assert set(rec["memory"]) == {"argument_bytes", "output_bytes", "temp_bytes", "alias_bytes"}
         assert rec["kernel_launches"] == {}  # the plain route
         assert rec["trip_counts"] == {} and rec["flops"] > 0
@@ -433,9 +434,10 @@ def test_run_cell_records_the_reference_keys_and_bytes(jobs):
     assert dec["memory"]["argument_bytes"] == dec["reference_argument_bytes"] == want
     # the merge's all-gathers and the TP all-reduces over model
     assert min(dec["collectives"][k] for k in ("all-gather", "all-reduce")) > 0
-    # rwkv6's long_500k stays data-parallel: its parameters whole
+    # rwkv6's long_500k, the 2-D step: the rank's parameter blocks and its
+    # RWKV6 state, whole over model (one slot: the batch does not split)
     long = by[("rwkv6-3b", "long_500k", "pod2x2")]
-    assert long["memory"]["argument_bytes"] > long["reference_argument_bytes"]
+    assert long["memory"]["argument_bytes"] == long["reference_argument_bytes"] > 0
 
     # the multi-pod train cells: the batch over ("pod", "data"), the 2-D step
     for arch in ("gemma2-2b", "llama4-scout-17b-a16e"):
@@ -489,16 +491,16 @@ def test_serving_cells_run_the_2d_steps(jobs, arch):
     assert cells["prefill_32k/1x4"]["collectives"]["all-to-all"] == 0  # 2 kv heads on 4 ranks: computed whole
 
 
-@pytest.mark.parametrize("arch", SERVE_DP)
-def test_recurrent_serving_cells_stay_data_parallel(jobs, arch):
-    """jamba's and rwkv6's serving cells (Mamba / RWKV6 state) run the
-    one-device steps on the rank's slots: ``"dp"``, more bytes than the
-    specs' layout holds."""
+@pytest.mark.parametrize("arch", SERVE_RECURRENT)
+def test_recurrent_serving_cells_run_the_2d_steps(jobs, arch):
+    """jamba's and rwkv6's decode cells (Mamba / RWKV6 state placed by the
+    specs) run the 2-D serving steps on (2, 2) and (1, 4): ``"2d"``, what
+    the specs' layout holds a rank."""
     for mesh in ("2x2", "1x4"):
         rec = _serve_cells(jobs)[arch][f"decode_32k/{mesh}"]
         assert rec["status"] == "ok", rec["traceback"]
-        assert rec["layout"] == "dp"
-        assert rec["memory"]["argument_bytes"] > rec["reference_argument_bytes"] > 0
+        assert rec["layout"] == "2d"
+        assert rec["memory"]["argument_bytes"] == rec["reference_argument_bytes"] > 0
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """The port's 2-D serving steps on the CPU: ``train/serve``'s prefill and
 decode on placed parameters (``parallel/fsdp_tp.place_params``: FSDP over
-``data``, heads, FFN, experts and vocabulary over ``model``) and placed
-dense KV caches (``place_caches``: the slots over ``data``, the rows over
+``data``, heads, FFN, experts, Mamba channels and vocabulary over
+``model``) and placed dense decode state (``place_caches``: the slots over
+``data``, KV rows and Mamba channels over ``model``, RWKV6 state whole over
 ``model``), against the reference's one-device steps and its GSPMD steps.
 
 One module fixture starts, all at once: a 4-rank gloo job of the port a
@@ -20,19 +21,24 @@ rank's block live.  gemma2-2b on (1, 4) decodes a second time with a (B,)
 31 last).
 
 The cases: reduced gemma2-2b, codeqwen1.5-7b (kv heads split over
-``model`` on (2, 2): the prefill's all-to-all from heads to sequence) and
-llama4-scout (experts over ``model``, the whole batch's routing) on both
-meshes; qwen2-vl-2b (embeddings and M-RoPE positions that differ by row and
-stream) and arctic-480b (top-2 experts and a dense residual) on (2, 2);
-musicgen-large (audio codes, a vocabulary split across codebooks) on
-(1, 4).  Held, at every step:
+``model`` on (2, 2): the prefill's all-to-all from heads to sequence),
+llama4-scout (experts over ``model``, the whole batch's routing) and
+jamba-v0.1-52b (Mamba state's channels over ``model``, MoE and attention
+layers between) on both meshes; qwen2-vl-2b (embeddings and M-RoPE
+positions that differ by row and stream), arctic-480b (top-2 experts and a
+dense residual) and rwkv6-3b (4 heads: each rank's heads of the
+replicated state, all-gathered after each step) on (2, 2); musicgen-large
+(audio codes, a vocabulary split across codebooks) and rwkv6-3b with
+``rwkv_head_dim=32`` (2 heads on 4 ranks: every head whole) on (1, 4).
+jamba on (1, 4) also prefills a 2-token prompt, shorter than the Mamba
+conv's 3 rows of history, into placed state.  Held, at every step:
 
 * the logits within 1e-4 x max(1, max |logit|) of the reference's
   one-device steps and of its GSPMD steps (``PERF.md`` §2's logit bound);
-* after the last step, the caches gathered from every rank's block within
-  the same bound of the reference's (one-device and GSPMD);
-* every rank's cache blocks have ``launch/specs.cache_sharding``'s local
-  shapes.
+* after the last step, the caches and state gathered from every rank's
+  block within the same bound of the reference's (one-device and GSPMD);
+* every rank's cache and state blocks have ``launch/specs.cache_sharding``'s
+  local shapes.
 """
 
 import inspect
@@ -56,12 +62,27 @@ from repro_torch.models import init_caches  # noqa: E402
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BOUND = 1e-4  # of max(1, max |logit|): the port's logit bound
 MESHES = {"a": [2, 2], "b": [1, 4]}
-RUNS = {"a": ["gemma2-2b", "codeqwen1.5-7b", "llama4-scout-17b-a16e", "qwen2-vl-2b", "arctic-480b"],
-        "b": ["gemma2-2b", "codeqwen1.5-7b", "llama4-scout-17b-a16e", "musicgen-large"]}
+# rwkv6 with 2 heads of 32, which do not split over 4 model ranks
+RWKV_WHOLE_HEADS = "rwkv6-3b@hd32"
+# case -> (arch, ``reduced()`` overrides), where a case is not its arch
+VARIANTS = {RWKV_WHOLE_HEADS: ["rwkv6-3b", {"rwkv_head_dim": 32}]}
+RUNS = {"a": ["gemma2-2b", "codeqwen1.5-7b", "llama4-scout-17b-a16e", "qwen2-vl-2b", "arctic-480b", "jamba-v0.1-52b",
+              "rwkv6-3b"],
+        "b": ["gemma2-2b", "codeqwen1.5-7b", "llama4-scout-17b-a16e", "musicgen-large", "jamba-v0.1-52b",
+              RWKV_WHOLE_HEADS]}
 # the case that decodes again with per-slot lengths, and its mesh
 SLOTS = ("gemma2-2b", "b")
-CASES = {"meshes": MESHES, "runs": RUNS, "slots": SLOTS, "batch": 4, "max_len": 32, "prompt": 16, "steps": 12,
-         "slot_lens": [16, 12, 18, 20]}
+# the case that also prefills a prompt shorter than the Mamba conv's
+# history (d_conv - 1 = 3 rows) from placed state, and its mesh
+SHORT = ("jamba-v0.1-52b", "b")
+CASES = {"meshes": MESHES, "runs": RUNS, "variants": VARIANTS, "slots": SLOTS, "short": SHORT, "short_prompt": 2,
+         "batch": 4, "max_len": 32, "prompt": 16, "steps": 12, "slot_lens": [16, 12, 18, 20]}
+
+
+def _config(get_config, case, cases=CASES):
+    """The reduced config of a case of ``cases`` (``get_config``: the port's or the reference's)."""
+    arch, over = cases["variants"].get(case, [case, {}])
+    return get_config(arch).reduced(**over)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -90,7 +111,7 @@ def _inputs(cases) -> dict:
     rng = np.random.default_rng(0)
     b, s, n = cases["batch"], cases["prompt"], cases["steps"]
     for arch in _archs(cases):
-        cfg = ref_config(arch).reduced()
+        cfg = _config(ref_config, arch, cases)
         if cfg.frontend == "vision_stub":
             shift = rng.integers(0, 8, (3, b, 1))
             out[f"{arch}/prefill/embeds"] = (0.02 * rng.standard_normal((b, s, cfg.d_model))).astype(np.float32)
@@ -103,6 +124,8 @@ def _inputs(cases) -> dict:
         out[f"{arch}/prefill/tokens"] = rng.integers(0, cfg.vocab_size, (b, s) + codes).astype(np.int32)
         for j in range(n):
             out[f"{arch}/decode{j}/tokens"] = rng.integers(0, cfg.vocab_size, (b, 1) + codes).astype(np.int32)
+        if cases["short"][0] == arch:
+            out[f"{arch}/short/tokens"] = rng.integers(0, cfg.vocab_size, (b, cases["short_prompt"])).astype(np.int32)
     return out
 
 
@@ -159,13 +182,13 @@ def _port_job(rank, world, inputs, out_dir, store, init_dir, mesh_name):
                 .local(torch.from_numpy(v).long() if v.dtype == np.int32 else torch.from_numpy(v))
                 for k, v in inp.items() if k.startswith(prefix)}
 
-    def run(key, cfg, params, lens=None):
-        b, n = cases["batch"], cases["steps"]
+    def run(key, cfg, params, lens=None, prompt="prefill"):
+        b, n = cases["batch"], cases["steps"] if prompt == "prefill" else 0
         caches = place_caches(init_caches(cfg, b, cases["max_len"], device="cpu"), cfg, mesh)
         res[f"{key}/blocks"] = np.array(json.dumps({f"{pos}/{k}": list(v.shape) for pos, leafs in caches.items()
                                                     for k, v in leafs.items()}))
         prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
-        logits, caches = prefill(params, caches, **local(arch, "prefill"))
+        logits, caches = prefill(params, caches, **local(arch, prompt))
         res[f"{key}/logits/prefill"] = rows.gather(logits).numpy()
         for j in range(n):
             if lens is None:
@@ -182,11 +205,14 @@ def _port_job(rank, world, inputs, out_dir, store, init_dir, mesh_name):
     rows = shd.NamedSharding(mesh, ("data",))  # the slots' blocks
     res = {}
     for arch in cases["runs"][mesh_name]:
-        cfg = get_config(arch).reduced()
+        name, over = cases["variants"].get(arch, [arch, {}])
+        cfg = get_config(name).reduced(**over)
         params = place_params(params_from_jax(cfg, weights(arch), device="cpu"), mesh)
         run(arch, cfg, params)
         if cases["slots"] == [arch, mesh_name]:
             run(f"{arch}:slots", cfg, params, cases["slot_lens"])
+        if cases["short"] == [arch, mesh_name]:
+            run(f"{arch}:short", cfg, params, prompt="short")
     if rank == 0:
         np.savez(os.path.join(out_dir, f"{mesh_name}.npz"), **res)
     dist.barrier()
@@ -255,7 +281,8 @@ def _reference_job(mesh_name, inputs, out, init_dir):
         return params
 
     def one_arch(arch):
-        cfg = get_config(arch).reduced()
+        name, over = cases["variants"].get(arch, [arch, {}])
+        cfg = get_config(name).reduced(**over)
         params = weights(arch, cfg)
 
         def step_inputs(step):
@@ -280,7 +307,7 @@ def _reference_job(mesh_name, inputs, out, init_dir):
                             jax.jit(lambda p, c, cache_len, **inputs: df(p, c, cache_len, inputs)))
             return steps[m]
 
-        def run(key, m=None, lens=None):
+        def run(key, m=None, lens=None, prompt="prefill"):
             prefill, decode = jitted(m)
             if m is None:
                 p, caches, place, placed = params, init_caches(cfg, b, cases["max_len"]), lambda x: x, None
@@ -293,9 +320,9 @@ def _reference_job(mesh_name, inputs, out, init_dir):
                 def place(inputs):
                     return {k: jax.device_put(v, NamedSharding(m, P(None, "data") if k == "positions" else P("data")))
                             for k, v in inputs.items()}
-            logits, caches = prefill(p, caches, **place(step_inputs("prefill")))
+            logits, caches = prefill(p, caches, **place(step_inputs(prompt)))
             res[f"{arch}/{key}/logits/prefill"] = np.asarray(logits)
-            for j in range(n):
+            for j in range(n if prompt == "prefill" else 0):
                 if placed is not None:
                     caches = jax.device_put(caches, placed)  # one compilation for every step
                 cache_len = jnp.asarray(cases["prompt"] + j if lens is None else np.asarray(lens) + j, jnp.int32)
@@ -309,12 +336,16 @@ def _reference_job(mesh_name, inputs, out, init_dir):
             run(f"gspmd/{mesh_name}", mesh)
             if slots:
                 run(f"gspmd/{mesh_name}:slots", mesh, cases["slot_lens"])
+            if cases["short"] == [arch, mesh_name]:
+                run(f"gspmd/{mesh_name}:short", mesh, prompt="short")
         except Exception as e:  # recorded: the test holds the port against what ran
             res[f"{arch}/gspmd/{mesh_name}/error"] = np.array(f"{type(e).__name__}: {e}")
         if [m for m, archs in cases["runs"].items() if arch in archs][-1] == mesh_name:
             run("one")
             if cases["slots"][0] == arch:
                 run("one:slots", lens=cases["slot_lens"])
+            if cases["short"][0] == arch:
+                run("one:short", prompt="short")
 
     for arch in sorted(cases["runs"][mesh_name], key=lambda a: not drawn_here(a)):  # the weights it draws first
         one_arch(arch)
@@ -382,16 +413,21 @@ def runs(tmp_path_factory):
 
 
 def cells(cases=CASES):
-    """(key, arch, mesh) of every placed run (key: the arch, or
-    ``arch:slots`` for the per-slot decode)."""
+    """(key, case, mesh) of every placed run (key: the case, or
+    ``case:slots`` for the per-slot decode, ``case:short`` for the short
+    prompt's prefill)."""
     out = [(arch, arch, mesh) for mesh, archs in cases["runs"].items() for arch in archs]
-    arch, mesh = cases["slots"]
-    return out + [(f"{arch}:slots", arch, mesh)]
+    for variant in ("slots", "short"):
+        arch, mesh = cases[variant]
+        if arch in cases["runs"].get(mesh, ()):
+            out.append((f"{arch}:{variant}", arch, mesh))
+    return out
 
 
 def cell_id(key, mesh, cases=CASES):
     base, _, variant = key.partition(":")
-    short = base.split("-")[0].split(".")[0] + (f"-{variant}" if variant else "")
+    arch, _, over = base.partition("@")
+    short = arch.split("-")[0].split(".")[0] + "".join(f"-{v}" for v in (over, variant) if v)
     return f"{short}-{'x'.join(map(str, cases['meshes'][mesh]))}"
 
 
@@ -406,8 +442,9 @@ def _close(got, want, what):
     assert err <= BOUND * max(1.0, np.abs(want).max()), (what, err, np.abs(want).max())
 
 
-def _steps(cases=CASES):
-    return ["prefill"] + [f"decode{j}" for j in range(cases["steps"])]
+def _steps(key, cases=CASES):
+    """The steps of run ``key``: the short prompt's is its prefill alone."""
+    return ["prefill"] + ([] if key.endswith(":short") else [f"decode{j}" for j in range(cases["steps"])])
 
 
 def _reference_key(key, oracle, mesh):
@@ -422,7 +459,7 @@ def check_logits(runs, key, arch, mesh, oracle, cases=CASES):
     port, ref = runs[mesh], runs[arch]
     assert f"gspmd/{mesh}/error" not in ref, str(ref.get(f"gspmd/{mesh}/error"))
     want = _reference_key(key, oracle, mesh)
-    for step in _steps(cases):
+    for step in _steps(key, cases):
         _close(port[f"{key}/logits/{step}"], ref[f"{want}/logits/{step}"], (key, mesh, oracle, step))
 
 
@@ -461,16 +498,27 @@ def test_gathered_cache_blocks_match_the_references_caches(runs, key, arch, mesh
 
 @pytest.mark.parametrize("key,arch,mesh", CELLS, ids=IDS)
 def test_each_rank_holds_only_its_cache_rows(runs, key, arch, mesh):
-    """Every rank's cache blocks have ``cache_sharding``'s local shapes:
-    the slots over ``data``, the rows over ``model``."""
+    """Every rank's cache and state blocks have ``cache_sharding``'s local
+    shapes: the slots over ``data``, KV rows and Mamba channels over
+    ``model``, RWKV6 state whole over ``model``."""
     blocks = json.loads(str(runs[mesh][f"{key}/blocks"]))
-    cfg = get_config(arch).reduced()
+    cfg = _config(get_config, arch)
     spec_mesh = _SpecMesh(CASES["meshes"][mesh])
-    want = {}
+    want, full = {}, {}
     for pos, leafs in init_caches(cfg, CASES["batch"], CASES["max_len"], device="cpu").items():
         for k, v in leafs.items():
+            full[f"{pos}/{k}"] = list(v.shape)
             want[f"{pos}/{k}"] = list(specs.local_shape(v.shape, specs.cache_sharding(cfg, (pos, k), v.shape,
                                                                                        spec_mesh)))
     assert blocks == want
     data, model = CASES["meshes"][mesh]
-    assert all(s[1] == CASES["batch"] // data and s[2] == CASES["max_len"] // model for s in want.values())
+    di = cfg.ssm_expand * cfg.d_model
+    for name, s in want.items():
+        assert s[1] == CASES["batch"] // data, name
+        leaf = name.split("/")[1]
+        if leaf in ("k", "v"):
+            assert s[2] == CASES["max_len"] // model, name
+        elif leaf in ("conv", "ssm"):  # the channels over model
+            assert s[3 if leaf == "conv" else 2] == di // model, name
+        else:  # RWKV6 state: whole over model
+            assert s[2:] == full[name][2:], name

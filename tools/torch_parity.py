@@ -12,7 +12,9 @@ Run from the repo root:
 
 ``--only dist_serve,fsdp_tp,serve2d,obs,fabric,tune,launch`` prints the rows of the named sections
 alone (the section functions' names without ``_rows``; the base rows run
-only without it).
+only without it); ``--only serve2d_recurrent,seqpar`` the cases of
+``serve2d`` and ``fsdp_tp`` that place Mamba / RWKV6 state and split the
+query rows over ``model``.
 """
 
 from __future__ import annotations
@@ -943,7 +945,7 @@ def _dist_serve_rows(row):
     return out
 
 
-def _fsdp_tp_rows(row):
+def _fsdp_tp_rows(row, case_sets=None):
     """The 2-D (FSDP x TP) LM step: the jobs of ``tests/test_torch_fsdp_tp.py``
     and ``tests/test_torch_fsdp_tp_moe.py`` (the port on 4 gloo ranks a mesh;
     the reference on one device and, one mesh an arch, its GSPMD step on 4
@@ -974,7 +976,7 @@ def _fsdp_tp_rows(row):
     def eps(cases, name):
         return cases["eps"].get(name, cases["eps"]["*"])
 
-    for cases in (tft.CASES, tfm.CASES):
+    for cases in case_sets or (tft.CASES, tfm.CASES):
         with tempfile.TemporaryDirectory() as tmp:
             runs = tft.run_jobs(tmp, cases)
         for mesh, names in cases["runs"].items():
@@ -990,6 +992,8 @@ def _fsdp_tp_rows(row):
                     (runs[name][f"gspmd/{mesh}/metrics"], leaves(runs[name], f"gspmd/{mesh}/param/")),
                     f"{name} reduced, mesh {tuple(cases['meshes'][mesh])}: the same vs the reference's GSPMD step")
         dp = cases["dp"]
+        if not dp:
+            continue
         oracle = f"oracle{tft._batch_ranks(cases, dp['mesh'])}"
         compare((runs[dp["mesh"]]["dp/metrics"], leaves(runs[dp["mesh"]], "dp/param/")),
                 (runs[dp["case"]][f"{oracle}/metrics"], leaves(runs[dp["case"]], f"{oracle}/param/")),
@@ -999,12 +1003,28 @@ def _fsdp_tp_rows(row):
     return out
 
 
-def _serve2d_rows(row):
+def _seqpar_rows(row):
+    """The sequence-split attention: ``tests/test_torch_fsdp_tp.py``'s
+    gemma2-2b case with 2 heads and ``seq_shard_attention`` on (data 1,
+    model 4), against the one-device and the GSPMD step."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tests"))
+    import test_torch_fsdp_tp as tft
+
+    name = tft.SEQ_SPLIT
+    cases = dict(tft.CASES, runs={"b": [name]}, gspmd={name: "b"}, dp=None, ce_cross=None)
+    return _fsdp_tp_rows(row, [cases])
+
+
+def _serve2d_rows(row, archs=None):
     """The 2-D serving steps: the jobs of ``tests/test_torch_serve2d.py``
     (the port's placed prefill and 12 decode steps on 4 gloo ranks a mesh;
     the reference's one-device and GSPMD steps on 4 fake XLA devices) — a
     row a case and mesh against each (the logits of every step), and one
-    for the gathered caches against the one-device steps'."""
+    for the gathered caches and state against the one-device steps'
+    (``archs``: those cases alone)."""
     import os
     import sys
     import tempfile
@@ -1012,22 +1032,27 @@ def _serve2d_rows(row):
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tests"))
     import test_torch_serve2d as ts
 
+    cases = ts.CASES
+    if archs:
+        cases = dict(cases, runs={m: [a for a in names if a in archs] for m, names in cases["runs"].items()})
     with tempfile.TemporaryDirectory() as tmp:
-        runs = ts.run_jobs(tmp)
+        runs = ts.run_jobs(tmp, cases)
     out = []
     module = "train/serve make_prefill_step / make_decode_step (placed params and caches)"
-    for key, arch, mesh in ts.cells():
+    for key, arch, mesh in ts.cells(cases):
         port, ref = runs[mesh], runs[arch]
-        shape = tuple(ts.CASES["meshes"][mesh])
-        what = f"{key} reduced, mesh {shape}, prefill 16 + 12 decode steps"
+        shape = tuple(cases["meshes"][mesh])
+        steps = ts._steps(key, cases)
+        prompt = cases["short_prompt"] if key.endswith(":short") else cases["prompt"]
+        what = f"{key} reduced, mesh {shape}, prefill {prompt} + {len(steps) - 1} decode steps"
         for oracle, name in (("one", "one device"), ("gspmd", "GSPMD")):
             want = ts._reference_key(key, oracle, mesh)
             out.append(row(module, f"{what}: logits vs {name}",
-                           [port[f"{key}/logits/{s}"] for s in ts._steps()],
-                           [ref[f"{want}/logits/{s}"] for s in ts._steps()]))
+                           [port[f"{key}/logits/{s}"] for s in steps], [ref[f"{want}/logits/{s}"] for s in steps]))
         names = sorted(k.split("/cache/")[1] for k in port if k.startswith(f"{key}/cache/"))
         want = ts._reference_key(key, "one", mesh)
-        out.append(row("models/attention _write_prefill / _placed_decode", f"{what}: gathered caches vs one device",
+        out.append(row("models/attention _write_prefill / _placed_decode, models/ssm state",
+                       f"{what}: gathered caches and state vs one device",
                        [port[f"{key}/cache/{n}"] for n in names], [ref[f"{want}/cache/{n}"] for n in names]))
     return out
 
@@ -1325,7 +1350,9 @@ def _launch_rows(row):
 
 
 SECTIONS = {"dist_serve": _dist_serve_rows, "fsdp_tp": _fsdp_tp_rows, "serve2d": _serve2d_rows, "obs": _obs_rows,
-            "fabric": _fabric_rows, "tune": _tune_rows, "launch": _launch_rows}
+            "fabric": _fabric_rows, "tune": _tune_rows, "launch": _launch_rows,
+            "serve2d_recurrent": lambda row: _serve2d_rows(row, ("jamba-v0.1-52b", "rwkv6-3b", "rwkv6-3b@hd32")),
+            "seqpar": _seqpar_rows}
 
 
 def main(argv=None) -> None:
