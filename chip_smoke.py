@@ -34,6 +34,13 @@ Phases (any failed check exits non-zero and prints no result):
      ``impl="plain"`` route (``[grad]`` lines).  paged_attention also runs
      "hot" cases with q x 40 at softcap 30 / 50, where the cap moves the
      output by over 100 x the tolerance (a printed, checked control).
+     Last, the paper's identity (``[oracle]`` lines): the kernel route's
+     R_sum (q = 2 and 1; cmatmul, ctwiddle) and R_sum^(128) (pmatmul,
+     freq_outer) at n = 256, d = 8192 and the prime d = 2039 against their
+     definitions from the explicit C (``r_sum_from_matrix``,
+     ``r_sum_grouped_from_matrix``) within the reference tests' rtol 1e-3
+     (grouped: + atol 1e-4), and ``sumvec_fourstep`` against the O(n d^2)
+     ``sumvec_direct`` at d = 2048.
   2. the service — ``EmbeddingService`` at the full ``ssl-paper`` width
      (3072 -> 512 -> 512 -> 2048 -> 2048 -> 2048, random weights from a
      seed, buckets up to 256) serves 512 seeded requests twice: probe
@@ -1123,6 +1130,7 @@ def phase_kernels(ph: Phase, dev):
             }
     _softcap_control(ph, dev)
     _grad_checks(ph, dev)
+    _oracle_checks(ph, dev)
     return rows
 
 
@@ -1156,6 +1164,78 @@ def _grad_checks(ph: Phase, dev):
             f"plain={_time_ms(lambda: fwd_bwd('plain'), iters=10):.4f}",
             flush=True,
         )
+
+
+def _oracle_checks(ph: Phase, dev):
+    """The paper's identity on the card: the kernel route's R_sum (Eq. 6,
+    four-step) and R_sum^(128) (Eq. 13, grouped) against their definitions
+    from the explicit C = Z1^T Z2 / n (``r_sum_from_matrix`` /
+    ``r_sum_grouped_from_matrix``, plain PyTorch, TF32 off), at n = 256 and
+    d = 8192 (the ssl-paper width) and d = 2039 (prime: the padded plan, a
+    ragged last block), q = 2 and 1; and ``sumvec_fourstep`` against the
+    O(n d^2) ``sumvec_direct`` at d = 2048.  Bounds are the reference's
+    tests': rtol 1e-3 (grouped: + atol 1e-4); the summary vector's absolute
+    atol 1e-3 (``tests/test_sumvec.py``).  Each check's kernels must have
+    launched (counters cleared just before it)."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.core import regularizers as regs
+    from repro_torch.core import sumvec as sv
+    from repro_torch.core.losses import standardize
+    from repro_torch.kernels.sumvec_fft import ops as fops
+
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 11)
+    n = 256
+
+    def views(d):
+        """Standardized seeded views sharing a component (corr ~0.8)."""
+        base = torch.randn(n, d, generator=gen)
+        noise = [torch.randn(n, d, generator=gen) for _ in range(2)]
+        return tuple(standardize((base + 0.5 * e).to(dev)) for e in noise)
+
+    def check(tag, route, oracle, names, err_of, bound):
+        t0 = time.perf_counter()
+        kernels.reset_launch_counts()
+        got = route()
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        want = oracle()
+        torch.cuda.synchronize()
+        err, ok, value = err_of(got, want)
+        secs = time.perf_counter() - t0
+        ph.check(ok, f"[oracle] {tag}: error {err:.3g} over {bound}")
+        for k in names:
+            ph.check(counts.get(k, 0) > 0, f"[oracle] {tag}: {k} did not launch")
+        print(f"[oracle] {tag}: {value} err={err:.3g} bound={bound} "
+              f"launches={ {k: counts.get(k, 0) for k in names} } s={secs:.2f}", flush=True)
+
+    def scalar(rtol, atol=0.0):
+        def err_of(got, want):
+            g, w = float(got), float(want)
+            err = abs(g - w)
+            return err / abs(w), err <= atol + rtol * abs(w), f"kernel={g:.8g} matrix={w:.8g}"
+        return err_of
+
+    for d in (8192, 2039):
+        z1, z2 = views(d)
+        c = regs.cross_correlation_matrix(z1, z2)
+        for q in (2, 1):
+            check(f"r_sum n={n} d={d} q={q}", lambda: regs.r_sum(z1, z2, q=q, scale=n, impl="kernel"),
+                  lambda: regs.r_sum_from_matrix(c, q), ("cmatmul", "ctwiddle"), scalar(1e-3), "rtol 1e-3")
+            check(f"r_sum_grouped n={n} d={d} b=128 q={q}",
+                  lambda: regs.r_sum_grouped(z1, z2, 128, q=q, scale=n, impl="kernel"),
+                  lambda: regs.r_sum_grouped_from_matrix(c, 128, q), ("pmatmul", "freq_outer"),
+                  scalar(1e-3, 1e-4), "rtol 1e-3 atol 1e-4")
+        del z1, z2, c
+
+    def vector(got, want):
+        err, _ = _max_err(got, want)
+        return err, err <= 1e-3, f"sumvec[0]={float(want[0]):.6g} max|sumvec[1:]|={float(want[1:].abs().max()):.4g}"
+
+    z1, z2 = views(2048)
+    check(f"sumvec_fourstep vs sumvec_direct n={n} d=2048", lambda: fops.sumvec_fourstep(z1, z2, scale=n),
+          lambda: sv.sumvec_direct(z1, z2, scale=n), ("cmatmul", "ctwiddle"), vector, "atol 1e-3")
 
 
 # ---------------------------------------------------------------------------

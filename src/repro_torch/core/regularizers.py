@@ -1,9 +1,12 @@
 """Decorrelating regularizers, port of ``repro/core/regularizers.py``.
 
-Baseline (paper §3): ``r_off`` — the off-diagonal penalty, Eq. (2), O(n d^2).
+Baselines (paper §3): ``r_off`` — the off-diagonal penalty, Eq. (2),
+O(n d^2); ``r_var`` — the VICReg variance hinge, Eq. (4), O(n d).
 Proposed (paper §4): ``r_sum`` — Eq. (6), O(n d log d); ``r_sum_grouped`` —
 Eq. (13) with block size b.  For q = 2 the sums of squares are taken in the
-frequency domain (Parseval); q = 1 needs the inverse transform.
+frequency domain (Parseval); q = 1 needs the inverse transform.  The oracle
+forms ``r_sum_from_matrix`` / ``r_sum_grouped_from_matrix`` take an explicit
+C (any device) and do all their work in plain PyTorch on C's device.
 
 Route choice (``impl``):
   * ``None``     — ``repro_torch.tune.best_impl(op, device)``: from the
@@ -36,6 +39,18 @@ def r_off(m: Tensor) -> Tensor:
     """Eq. (2): sum of squared off-diagonal elements."""
     m = m.float()
     return torch.sum(m**2) - torch.sum(torch.diagonal(m) ** 2)
+
+
+def r_var(m: Tensor, gamma: float = 1.0, eps: float = 1e-4) -> Tensor:
+    """Eq. (4): hinge on per-feature standard deviation (diagonal of K)."""
+    std = torch.sqrt(torch.clamp(torch.diagonal(m).float(), min=0.0) + eps)
+    return torch.sum(torch.relu(gamma - std))
+
+
+def r_var_from_embeddings(z: Tensor, gamma: float = 1.0, eps: float = 1e-4) -> Tensor:
+    """Variance hinge straight from (n, d) embeddings — O(n d)."""
+    std = torch.sqrt(torch.var(z.float(), dim=0, correction=1) + eps)
+    return torch.sum(torch.relu(gamma - std))
 
 
 def cross_correlation_matrix(z1: Tensor, z2: Tensor, scale: Optional[float] = None) -> Tensor:
@@ -143,3 +158,21 @@ def r_sum_auto(
             return r_off(c)
         return torch.sum(torch.abs(c)) - torch.sum(torch.abs(torch.diagonal(c)))
     return r_sum_grouped(z1, z2, block_size, q=q, scale=scale, impl=impl)
+
+
+# ---------------------------------------------------------------------------
+# Oracle forms (tests, the smoke's on-card check, baselines)
+# ---------------------------------------------------------------------------
+
+
+def r_sum_from_matrix(c: Tensor, q: int = 2) -> Tensor:
+    """Eq. (6) by explicitly building sumvec(C) from the matrix."""
+    return r_sum_from_sumvec(sv.sumvec_from_matrix(c), q)
+
+
+def r_sum_grouped_from_matrix(c: Tensor, block_size: int, q: int = 2) -> Tensor:
+    """Eq. (13) from an explicit matrix (oracle)."""
+    blocks = sv.grouped_sumvec_from_matrix(c, block_size)  # (nb, nb, b)
+    vals = torch.abs(blocks) if q == 1 else blocks**2
+    eye = torch.eye(blocks.shape[0], dtype=vals.dtype, device=vals.device)
+    return torch.sum(vals) - torch.sum(eye * vals[..., 0])

@@ -33,8 +33,20 @@ import torch
 from repro_torch.kernels.sumvec_fft import kernel as K
 from repro_torch.kernels.utils import full_dft_adjoint, full_dft_matrices, pad_axis, tensor_cache
 from repro_torch.tune.dispatch import best_config
+from repro_torch.tune.space import balanced_factors
 
 Tensor = torch.Tensor
+
+
+def choose_factors(d: int) -> Tuple[int, int]:
+    """d = d1 * d2 with d1 <= d2, d1 as close to sqrt(d) as possible.
+
+    Exact (never pads): callers that need a factorization of d itself (the
+    spectrum-layout tests) use this.  The regularizer entry points use
+    :func:`fft_plan`, which may pick a padded length instead where the best
+    exact factorization is pessimal (prime / near-prime d).
+    """
+    return balanced_factors(d)
 
 
 @dataclasses.dataclass(frozen=True)

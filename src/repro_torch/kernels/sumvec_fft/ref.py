@@ -2,7 +2,7 @@
 ``repro/kernels/sumvec_fft/ref.py``).
 
 Independent of ``repro_torch.core``: direct circular-correlation sums
-(Appendix A), O(n d^2) — for validation only.
+(Appendix A), O(n d^2), and ``torch.fft`` spectra — for validation only.
 """
 
 from __future__ import annotations
@@ -28,3 +28,7 @@ def r_sum_ref(z1, z2, q=2, scale=1.0):
     tail = sv[1:]
     return torch.sum(torch.abs(tail)) if q == 1 else torch.sum(tail**2)
 
+
+def spectrum_ref(x):
+    """Full complex DFT of real rows (n, d) -> complex64 (n, d), natural order."""
+    return torch.fft.fft(x.float(), dim=-1)

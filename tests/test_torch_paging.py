@@ -261,3 +261,70 @@ def test_moe_paged_decode_lanes_sharing_a_row_write_what_the_reference_writes():
         want = jnp.asarray(pages[src]).at[phys, row].set(jnp.asarray(new[:, 0]))
         np.testing.assert_array_equal(cache[key].numpy(), np.asarray(want))
         np.testing.assert_array_equal(cache[key][0, 0].numpy(), new[4, 0])
+
+
+# ---------------------------------------------------------------------------
+# retirement (reset and compaction) against the reference engine
+# ---------------------------------------------------------------------------
+
+# (prompt, new tokens): one prompt bucket of 8 keeps the reference's compiles
+# few; at page 8 over 4 slots the retirements leave holes that compaction fills
+SPEC = [(4, 5), (8, 3), (6, 12), (3, 2), (1, 4), (7, 9)]
+PAGE_KINDS = ("page_alloc", "page_free", "page_compact")
+
+
+def _serve_mix(engine_cls, service_cls, cfg, params, spec, **engine_kw):
+    """Serve the mix; (tokens, page records without seq / time, the pools)."""
+    eng = engine_cls(cfg, params, n_slots=4, max_len=32, max_prompt_len=8, paged=True, page_size=8, **engine_kw)
+    svc = service_cls(eng)
+    svc.warmup()
+    futs = [svc.submit(t, m) for t, m in spec]
+    svc.drain()
+    records = [{k: v for k, v in ev.items() if k not in ("seq", "t")}
+               for ev in svc.obs.recorder.events() if ev["kind"] in PAGE_KINDS]
+    return [np.asarray(f.result(timeout=30)) for f in futs], records, eng.caches
+
+
+def _live_pages(caches):
+    """The physical pages past the sentinel that hold a nonzero value in
+    some paged leaf."""
+    live = set()
+    for leafs in caches.values():
+        for key in ("k_pages", "v_pages") if "k_pages" in leafs else ():
+            pages = np.asarray(leafs[key], np.float32)
+            nonzero = np.any(pages.reshape(pages.shape[0], pages.shape[1], -1) != 0, axis=(0, 2))
+            live |= {int(p) for p in np.nonzero(nonzero)[0] if p > 0}
+    return live
+
+
+def test_retirement_resets_and_compacts_as_the_reference_engine_does():
+    """Reduced gemma2-2b, paged at page 8, with the reference's weights:
+    the tokens, the page records (with ``page_compact`` among them) and the
+    set of nonzero pages left after the drain equal the reference engine's,
+    whose retirement resets and compacts by default as the port's always
+    does."""
+    from repro.models import init_params as ref_init
+    from repro.serve.engine import ContinuousLMEngine as RefEngine
+    from repro.serve.service import LMService as RefService
+    from repro_torch.models import params_from_jax
+    from repro_torch.serve.engine import ContinuousLMEngine
+    from repro_torch.serve.service import LMService
+
+    rcfg = ref_config("gemma2-2b").reduced()
+    cfg = get_config("gemma2-2b").reduced()
+    rparams = ref_init(jax.random.PRNGKey(0), rcfg)
+    params = params_from_jax(cfg, jax.tree.map(np.asarray, rparams), device="cpu")
+    rng = np.random.default_rng(0)
+    spec = [(rng.integers(0, cfg.vocab_size, s).astype(np.int32), m) for s, m in SPEC]
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)  # see tests/test_torch_lm_train.py's _one_torch_thread
+    try:
+        outs, records, caches = _serve_mix(ContinuousLMEngine, LMService, cfg, params, spec, device="cpu")
+    finally:
+        torch.set_num_threads(n)
+    want, want_records, want_caches = _serve_mix(RefEngine, RefService, rcfg, rparams, spec)
+    for o, w in zip(outs, want):
+        np.testing.assert_array_equal(o, w)
+    assert records == want_records
+    assert any(r["kind"] == "page_compact" for r in records)
+    assert _live_pages(caches) == _live_pages(want_caches)

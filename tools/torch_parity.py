@@ -14,7 +14,9 @@ Run from the repo root:
 alone (the section functions' names without ``_rows``; the base rows run
 only without it); ``--only serve2d_recurrent,seqpar`` the cases of
 ``serve2d`` and ``fsdp_tp`` that place Mamba / RWKV6 state and split the
-query rows over ``model``.
+query rows over ``model``; ``--only core_oracles`` the rest of
+``repro.core`` and the four-step kernels' ``choose_factors`` /
+``spectrum_ref``.
 """
 
 from __future__ import annotations
@@ -1349,10 +1351,65 @@ def _launch_rows(row):
     return out
 
 
+def _core_oracle_rows(row):
+    """The last slice: the rest of ``repro.core`` (the O(d^2) identities and
+    oracles, R_var, the explicit-C R_sum oracles) and the four-step kernels'
+    ``choose_factors`` / ``spectrum_ref``, on the inputs of
+    ``tests/test_torch_core_identities.py``."""
+    import jax.numpy as jnp
+    import torch
+
+    from repro.core import regularizers as rregs
+    from repro.core import sumvec as rsv
+    from repro.kernels.sumvec_fft import ops as rfo
+    from repro.kernels.sumvec_fft import ref as rfref
+    from repro_torch.core import regularizers as regs
+    from repro_torch.core import sumvec as sv
+    from repro_torch.kernels.sumvec_fft import ops as tfo
+    from repro_torch.kernels.sumvec_fft import ref as tfref
+
+    rng = np.random.default_rng(0)
+    arr = lambda *s: rng.standard_normal(s).astype(np.float32)
+    T = torch.from_numpy
+    out = []
+    x, y = arr(12, 13), arr(12, 13)
+    out.append(row("core/sumvec involution", "(12, 13)", sv.involution(T(x)), rsv.involution(jnp.asarray(x))))
+    for fn in ("circular_convolve", "circular_correlate_naive"):
+        out.append(row(f"core/sumvec {fn}", "(12, 13)", getattr(sv, fn)(T(x), T(y)),
+                       getattr(rsv, fn)(jnp.asarray(x), jnp.asarray(y))))
+    out.append(row("core/sumvec sumvec_direct", "(12, 13), scale 12", sv.sumvec_direct(T(x), T(y), scale=12.0),
+                   rsv.sumvec_direct(jnp.asarray(x), jnp.asarray(y), scale=12.0)))
+    out.append(row("core/sumvec grouped_sumvec_fft", "(12, 13), b 4, scale 12",
+                   sv.grouped_sumvec_fft(T(x), T(y), 4, scale=12.0),
+                   rsv.grouped_sumvec_fft(jnp.asarray(x), jnp.asarray(y), 4, scale=12.0)))
+    c = arr(13, 13)
+    out.append(row("core/sumvec grouped_sumvec_from_matrix", "(13, 13), b 4 (ragged)",
+                   sv.grouped_sumvec_from_matrix(T(c), 4), rsv.grouped_sumvec_from_matrix(jnp.asarray(c), 4)))
+    z = arr(12, 16) * np.linspace(0.2, 2.0, 16, dtype=np.float32)
+    k = (z.T @ z / 11).astype(np.float32)
+    out.append(row("core/regularizers r_var", "K (16, 16)", [regs.r_var(T(k))], [rregs.r_var(jnp.asarray(k))]))
+    out.append(row("core/regularizers r_var_from_embeddings", "(12, 16)", [regs.r_var_from_embeddings(T(z))],
+                   [rregs.r_var_from_embeddings(jnp.asarray(z))]))
+    for q in (1, 2):
+        out.append(row("core/regularizers r_sum_from_matrix", f"C (13, 13), q {q}", [regs.r_sum_from_matrix(T(c), q)],
+                       [rregs.r_sum_from_matrix(jnp.asarray(c), q)]))
+        out.append(row("core/regularizers r_sum_grouped_from_matrix", f"C (13, 13), b 4, q {q}",
+                       [regs.r_sum_grouped_from_matrix(T(c), 4, q)],
+                       [rregs.r_sum_grouped_from_matrix(jnp.asarray(c), 4, q)]))
+    ds = (1, 7, 12, 2039, 2048, 6000, 8192)
+    out.append(row("kernels/sumvec_fft/ops choose_factors", f"d in {ds}",
+                   [np.asarray(tfo.choose_factors(d), np.float64) for d in ds],
+                   [np.asarray(rfo.choose_factors(d), np.float64) for d in ds]))
+    sp, want = tfref.spectrum_ref(T(x)), rfref.spectrum_ref(jnp.asarray(x))
+    out.append(row("kernels/sumvec_fft/ref spectrum_ref", "(12, 13)", [sp.real, sp.imag],
+                   [np.real(want), np.imag(want)]))
+    return out
+
+
 SECTIONS = {"dist_serve": _dist_serve_rows, "fsdp_tp": _fsdp_tp_rows, "serve2d": _serve2d_rows, "obs": _obs_rows,
             "fabric": _fabric_rows, "tune": _tune_rows, "launch": _launch_rows,
             "serve2d_recurrent": lambda row: _serve2d_rows(row, ("jamba-v0.1-52b", "rwkv6-3b", "rwkv6-3b@hd32")),
-            "seqpar": _seqpar_rows}
+            "seqpar": _seqpar_rows, "core_oracles": _core_oracle_rows}
 
 
 def main(argv=None) -> None:
